@@ -1,0 +1,63 @@
+"""Greedy NMS over score-sorted boxes: a hand-written CUDA kernel and its plain version.
+
+Replaces ``tmr_tpu/ops/pallas_nms.py`` (``nms_keep_mask_pallas`` / ``_nms_kernel``):
+boxes arrive sorted by descending score; box i, while kept, suppresses every later box
+whose IoU with it is strictly above the threshold. Areas clamp at 0, the union at
+``1e-12``. Sorting and unsorting stay outside (``ops/nms.py``), as in the JAX wrapper.
+
+The wrapper runs the plain version only for CPU tensors; a CUDA tensor launches
+``csrc/nms.cu`` (one CTA per image, explicitly rounded IoU, so keep decisions equal the
+plain version's bit for bit) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tmr_tpu_torch.ops import _build
+
+#: largest box count the kernel's shared-memory footprint takes
+MAX_BOXES = 9000
+
+
+def greedy_keep_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                             iou_threshold: float) -> torch.Tensor:
+    """boxes (B, N, 4) f32 sorted per image, valid (B, N) bool -> keep (B, N) bool."""
+    n = boxes.shape[1]
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    area = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    keep = valid.clone()
+    idx = torch.arange(n, device=boxes.device)
+    for i in range(n):
+        alive = keep[:, i:i + 1]
+        if not bool(alive.any()):
+            continue
+        iw = (torch.minimum(x2, x2[:, i:i + 1])
+              - torch.maximum(x1, x1[:, i:i + 1])).clamp_min(0.0)
+        ih = (torch.minimum(y2, y2[:, i:i + 1])
+              - torch.maximum(y1, y1[:, i:i + 1])).clamp_min(0.0)
+        inter = iw * ih
+        iou = inter / ((area + area[:, i:i + 1]) - inter).clamp_min(1e-12)
+        keep = keep & ~(alive & (idx > i) & (iou > iou_threshold))
+    return keep
+
+
+def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask in the sorted order, one launch for the whole batch."""
+    b, n, four = boxes.shape
+    if four != 4 or valid.shape != (b, n):
+        raise ValueError(f"nms: boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
+    if boxes.device.type == "cpu":
+        return greedy_keep_sorted_plain(boxes, valid, iou_threshold)
+    if boxes.dtype != torch.float32:
+        raise ValueError("nms: the kernel takes f32 boxes")
+    if n > MAX_BOXES:
+        raise ValueError(f"nms: the kernel takes at most {MAX_BOXES} boxes, got {n}")
+    boxes = boxes.contiguous()
+    valid_i = valid.to(torch.int32).contiguous()
+    keep = torch.empty_like(valid_i)
+    _build.launch("nms", "nms", "tmr_nms", boxes.data_ptr(), valid_i.data_ptr(),
+                  keep.data_ptr(), b, n, float(iou_threshold),
+                  _build.stream_of(boxes))
+    return keep.bool()

@@ -1,0 +1,58 @@
+"""Depthwise template cross-correlation: a hand-written CUDA kernel and its plain version.
+
+Replaces ``tmr_tpu/ops/pallas_xcorr.py`` (``xcorr_pallas`` / ``_xcorr_kernel``): the
+SAME-padded depthwise correlation of a ``(B, C, H, W)`` map with per-image templates
+``(B, C, T, T)``, T odd, no kernel flip, zero padding ``T // 2`` before and
+``T - 1 - T // 2`` after, f32 accumulation. The port's direct path serves every bucket
+up to :data:`MAX_T` (65); larger buckets take the FFT path in ``ops/xcorr.py``.
+
+The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
+only for CPU tensors; a CUDA tensor launches ``csrc/xcorr.cu`` (its header says what
+bounds it on the card) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tmr_tpu_torch.ops import _build
+
+#: largest template the kernel takes (its staged tile grows with T)
+MAX_T = 65
+
+
+def xcorr_plain(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """T^2 shifted products accumulated in f32, in the Pallas kernel's order."""
+    _, _, h, w = feature.shape
+    t = template.shape[-1]
+    c = t // 2
+    fpad = F.pad(feature.float(), (c, t - 1 - c, c, t - 1 - c))
+    tmpl = template.float()
+    acc = torch.zeros(feature.shape, dtype=torch.float32, device=feature.device)
+    for i in range(t):
+        for j in range(t):
+            acc = acc + fpad[:, :, i:i + h, j:j + w] * tmpl[:, :, i, j, None, None]
+    return acc
+
+
+def xcorr(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """SAME-padded depthwise correlation, f32 result (B, C, H, W)."""
+    b, c, h, w = feature.shape
+    t = template.shape[-1]
+    if template.shape != (b, c, t, t) or t % 2 == 0:
+        raise ValueError(
+            f"xcorr: template {tuple(template.shape)} must be (B, C, T, T), T odd")
+    if feature.device.type == "cpu":
+        return xcorr_plain(feature, template)
+    if feature.dtype != torch.float32 or template.dtype != torch.float32:
+        raise ValueError("xcorr: the kernel takes f32 feature and template")
+    if t > MAX_T:
+        raise ValueError(f"xcorr: the kernel takes T <= {MAX_T}, got {t}")
+    feature = feature.contiguous()
+    template = template.contiguous()
+    out = torch.empty_like(feature)
+    _build.launch("xcorr", "xcorr", "tmr_xcorr", feature.data_ptr(),
+                  template.data_ptr(), out.data_ptr(), b * c, h, w, t,
+                  _build.stream_of(feature))
+    return out

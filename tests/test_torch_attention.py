@@ -1,9 +1,11 @@
 """Port attention (``tmr_tpu_torch/ops/cuda_attn.py``, plain versions on the CPU) vs the
 JAX package's Pallas attention kernels run in interpret mode on the same numpy inputs.
 
-Tolerances: f32 2e-5 (online vs full-row softmax reassociate the f32 sums); bf16 two
-bf16 ulps of the largest output (both sides round p and the output to bf16, at
-different points of the softmax)."""
+Tolerances: f32 2e-5 (online vs full-row softmax reassociate the f32 sums); bf16 per
+element, one bf16 ulp of the element plus 2^-9 of the largest output, and a mean error
+of at most 2^-8 of the mean output (both sides round p and the output to bf16, at
+different points of the softmax; the floor covers the noise of p's rounding on outputs
+that cancel to near zero)."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ from tmr_tpu.ops.pallas_attn import (  # noqa: E402
 from tmr_tpu_torch.ops import cuda_attn  # noqa: E402
 
 F32_TOL = 2e-5
-BF16_REL_TOL = 2.0 ** -6
+BF16_REL_TOL = 2.0 ** -7
+BF16_ABS_TOL = 2.0 ** -9
+BF16_MEAN_TOL = 2.0 ** -8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -47,6 +51,13 @@ def _port(fn, q, k, v, rh, rw, grid, scale, dtype=torch.float32):
     out = fn(t(q), t(k), t(v), *rel, grid, scale)
     assert out.dtype == dtype and out.shape == (b * h, s, d)
     return out.float().numpy().reshape(b, h, s, d)
+
+
+def _assert_bf16_close(got, want):
+    limit = BF16_REL_TOL * np.abs(want) + BF16_ABS_TOL * np.abs(want).max()
+    err = np.abs(got - want)
+    assert (err <= limit).all(), (err - limit).max()
+    assert err.mean() <= BF16_MEAN_TOL * np.abs(want).mean()
 
 
 def _jax(fn, q, k, v, rh, rw, grid, scale, dtype=jnp.float32):
@@ -76,7 +87,7 @@ def test_global_attention_matches_pallas_bf16():
                 jnp.bfloat16)
     got = _port(cuda_attn.global_attention, q, k, v, rh, rw, (gh, gw), scale,
                 torch.bfloat16)
-    assert np.abs(got - want).max() <= BF16_REL_TOL * np.abs(want).max()
+    _assert_bf16_close(got, want)
 
 
 @pytest.mark.parametrize("window,d", [(14, 64), (3, 16)])
@@ -94,7 +105,7 @@ def test_window_attention_matches_pallas_bf16():
     want = _jax(pallas_windowed_attention, q, k, v, rh, rw, (14, 14), scale, jnp.bfloat16)
     got = _port(cuda_attn.window_attention, q, k, v, rh, rw, (14, 14), scale,
                 torch.bfloat16)
-    assert np.abs(got - want).max() <= BF16_REL_TOL * np.abs(want).max()
+    _assert_bf16_close(got, want)
 
 
 def test_bias_projections_layout():

@@ -81,13 +81,27 @@ def test_every_port_module_imports_without_jax():
 def test_predictor_refuses_the_cpu_unless_asked(monkeypatch):
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.inference import Predictor, resolve_device
+    from tmr_tpu_torch.models import build_backbone, build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        resolve_device(None)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        Predictor(preset("TMR_FSCD147"))
+    cfg = preset("TMR_FSCD147")
+    for entry in (lambda: resolve_device(None), lambda: Predictor(cfg),
+                  lambda: build_model(cfg), lambda: build_backbone(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_build_model_builds_on_the_cpu_when_asked():
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.models import build_model
+    from tmr_tpu_torch.models.vit import SamViT
+
+    cfg = preset("TMR_FSCD147", emb_dim=16, compute_dtype="float32")
+    model = build_model(cfg, device="cpu", backbone=SamViT(
+        pretrain_img_size=32, embed_dim=32, depth=2, num_heads=2,
+        global_attn_indexes=(1,), patch_size=8, window_size=3, out_chans=16))
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -60,7 +60,7 @@ def pair():
     cfg = preset("TMR_FSCD147", **overrides)
     pred = Predictor(cfg, device="cpu",
                      model=build_model(cfg, backbone=SamViT(pretrain_img_size=SIZE,
-                                                            **TINY)))
+                                                            **TINY), device="cpu"))
     pred.load_jax_params(params)
     images = rng.standard_normal((3, SIZE, SIZE, 3)).astype(np.float32)
     return jpred, pred, images

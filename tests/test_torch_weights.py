@@ -30,7 +30,7 @@ def _one_thread():
 
 def _tiny_port():
     cfg = preset("TMR_FSCD147", emb_dim=16, compute_dtype="float32")
-    return build_model(cfg, backbone=SamViT(pretrain_img_size=32, **TINY))
+    return build_model(cfg, backbone=SamViT(pretrain_img_size=32, **TINY), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -18,21 +18,10 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from tmr_tpu_torch.models import build_model
+from tmr_tpu_torch.models import build_model, resolve_device
 from tmr_tpu_torch.models.matching_net import select_capacity_bucket
 from tmr_tpu_torch.ops.postprocess import batched_nms, decode_detections
 from tmr_tpu_torch.utils.weights import init_params, params_from_jax
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU: raise when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
-                "the plain CPU versions explicitly")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Predictor:
@@ -41,7 +30,7 @@ class Predictor:
     def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = model if model is not None else build_model(cfg)
+        model = model if model is not None else build_model(cfg, device=self.device)
         self.model = model.to(self.device).eval()
 
     def init_params(self, seed: int = 0) -> None:

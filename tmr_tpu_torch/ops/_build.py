@@ -74,7 +74,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False) -> float:
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
     """Compile every named source that has no current library, all ``nvcc`` runs
     started together. Returns the wall seconds spent. Raises with the compiler's
     output when a build fails."""
@@ -88,8 +88,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False) -> fl
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -98,8 +97,6 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False) -> fl
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
             continue
-        if verbose and log:
-            print(f"[build {name}.cu]\n{log}", flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with a Hopper GPU and the CUDA tool
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the port, compiled from ``tmr_tpu_torch/csrc``;
+2. build: every CUDA kernel of the port, compiled from ``tmr_tpu_torch/csrc``; then the
+   toolchain probe ``add1`` runs, before any other kernel;
 3. kernels: each kernel at the main path's shapes against its plain PyTorch version on
    the same inputs, with the tolerance stated, timed beside its plain version, a
    PyTorch library call computing the same function (timed here, never used by the
@@ -18,6 +19,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
    must be > 0, and image 0's objectness map must agree with an f32 CPU run of the
    same port and weights;
+4b. the int8 path: the same preset with ``quant="int8", quant_storage="int8",
+   quant_kernel="int8"`` and phase 4's weights (stored as int8) answers the same 3
+   batches; its launch counts must be exactly those of its path; its decoder tail on
+   one ``f_cat`` must equal the same tail run with the int8 matmul's plain version on
+   the card; the int8 tail must lie within the JAX package's output tier (5e-2) of the
+   exact tail on that tier's inputs at the production geometry, and the stored-weight
+   path with the dequant arm within it of phase 4's objectness map; the int8 path's
+   objectness is printed beside phase 4's and held to a bound on gross faults (its
+   difference over both maps, the tier's measure, is printed too), and so are the
+   statistics of image 0's ``f_cat`` and the int8 tail's error on it;
 5. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -36,8 +47,11 @@ import sys
 import time
 from pathlib import Path
 
-#: published peaks of one H100 SXM (dense): bf16 tensor cores, f32 CUDA cores, HBM
+#: published peaks of one H100 SXM (dense): bf16 and int8 tensor cores, f32 CUDA cores,
+#: HBM. An int8 x int8 -> int32 sum is bounded at the int8 rate whatever instruction a
+#: kernel uses for it
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -50,6 +64,21 @@ ATTN_ABS_TOL = 2.0 ** -9
 ATTN_MEAN_TOL = 2.0 ** -8
 XCORR_REL_TOL = 2e-5  # f32 sums of T^2 products, another order (FMA vs mul + add)
 OBJ_REL_TOL = 5e-2  # bf16 network vs f32 CPU network, relative to the map's max
+#: tmr_tpu/ops/quant.py OUTPUT_TIER_REL: the int8 tail vs the exact tail on the JAX
+#: package's own tier inputs (quant_int8dot_ok), and the stored-weight (dequant) path's
+#: objectness vs the bf16 path's
+QUANT_TIER_REL = 5e-2
+#: the int8 path's objectness vs the bf16 path's, relative to the objectness map's own
+#: max: a bound on faults of the composition (a wrong scale or layout moves the map by
+#: its whole size), not a tier. The int8 arm's one activation scale per image is set by
+#: f_cat's per-channel offsets and outliers, and the map follows the channels' small
+#: spatial variation, so the JAX function itself reads ~0.1 on this measure here (and
+#: within 5e-2 on its tier's, both maps; tests/test_torch_quant.py, PERF.md)
+INT8_PATH_OBJ_BOUND = 0.25
+#: launches of the int8 path over its 3 batches: 9 taps + 1 head matmul, one int8
+#: correlation, 4 global and 8 windowed attention blocks, one NMS per batch
+QUANT_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 0, "nms": 3,
+                  "xcorr_int8": 3, "int8_mm": 30, "add1": 0}
 BUCKET_SIDES_PX = {9: 56, 17: 120, 33: 240}  # exemplar sides that land in each bucket
 SEED = 0  # weights, images and kernel inputs are all drawn from it
 
@@ -160,6 +189,95 @@ def check_xcorr(torch, F, cuda_xcorr, t: int, seed: int):
     return err, tol, ms, plain_ms, lib_ms, bound(flops, nbytes, PEAK_F32_FLOPS)
 
 
+def check_xcorr_int8(torch, F, cuda_xcorr, t: int, seed: int):
+    """The int8 correlation at the matcher's shapes vs its int32 plain version: the sums
+    are exact in both, so the f32 results must be equal (0 mismatches). The library
+    yardstick is a float64 grouped ``F.conv2d`` of the int8 values (the sums stay below
+    2^53, so it is exact too) and the same epilogue; its mismatches are printed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, c, h, w = 4, 512, 128, 128
+    feat = torch.randint(-127, 128, (b, c, h, w), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    tmpl = torch.randint(-127, 128, (b, c, t, t), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    fs = torch.rand(b, c, 1, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+    ts = torch.rand(b, c, 1, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+    got = cuda_xcorr.xcorr_int8(feat, tmpl, fs, ts)
+    want = cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum().item())
+    err = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: cuda_xcorr.xcorr_int8(feat, tmpl, fs, ts))
+    plain_ms = cuda_ms(lambda: cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts), reps=1,
+                       warmup=0)
+
+    def library():
+        acc = F.conv2d(feat.view(1, b * c, h, w).double(),
+                       tmpl.view(b * c, 1, t, t).double(), padding=t // 2, groups=b * c)
+        return acc.view(b, c, h, w).float() * (fs * ts)
+
+    lib_mism = int((library() != want).sum().item())
+    lib_ms = cuda_ms(library, reps=3, warmup=1)
+    ops = 2.0 * b * c * h * w * t * t  # a multiply and an add per product
+    nbytes = b * c * h * w * (1 + 4) + b * c * t * t + 2 * b * c * 4
+    return (mism, err, ms, plain_ms, lib_ms, lib_mism,
+            bound(ops, nbytes, PEAK_INT8_OPS))
+
+
+def int8_mm_inputs(torch, kind: str, seed: int):
+    """(x_q, w_q, x_scale, w_scale) of one int8_mm shape: a 3x3 tap
+    of the stacks' first layer (its shifted window of the padded activation, as the tail
+    passes it), the block-diagonal heads, or a ragged shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda") * 0.01 + 1e-4
+
+    if kind == "tap":  # M = 4 * 128^2, K = 1024, N = 2048
+        x = i8(4, 130, 130, 1024)[:, 1:129, 2:130, :]
+        sx = scales(4)[:, None, None].expand(4, 128, 128).contiguous()
+        w, sw = i8(2048, 1024), scales(2048)
+    elif kind == "head":  # M = 4 * 128^2, K = 2048, N = 5
+        x = i8(4, 128, 128, 2048)
+        sx = scales(4)[:, None, None].expand(4, 128, 128).contiguous()
+        w, sw = i8(5, 2048), scales(5)
+    else:  # ragged M, N and a K that is not a multiple of 16
+        x, sx, w, sw = i8(1000, 1000), scales(1000), i8(200, 1000), scales(200)
+    return x, w, sx, sw
+
+
+def check_int8_mm(torch, cuda_int8, kind: str, seed: int):
+    """int8_mm vs its plain version (exact int32 sums, the same epilogue): equal bit for
+    bit. The library yardstick is ``torch._int_mm`` times the broadcast row and column
+    scales, on a contiguous copy of x (it takes no strided rows); the bare ``_int_mm``
+    (int32 out) is timed beside it. None where its shape rules refuse (N must be a
+    multiple of 8)."""
+    x, w, sx, sw = int8_mm_inputs(torch, kind, seed)
+    got = cuda_int8.int8_mm(x, w, sx, sw)
+    want = cuda_int8.int8_mm_plain(x, w, sx, sw)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum().item())
+    err = (got - want).abs().max().item()
+    ms = cuda_ms(lambda: cuda_int8.int8_mm(x, w, sx, sw))
+    plain_ms = cuda_ms(lambda: cuda_int8.int8_mm_plain(x, w, sx, sw), reps=1, warmup=0)
+    n, k = w.shape
+    m = sx.numel()
+    lib_ms = bare_ms = None
+    if n % 8 == 0 and k % 8 == 0 and m > 16:
+        x2, wt = x.reshape(m, k).contiguous(), w.t()
+        sx2, sw2 = sx.reshape(m, 1), sw.reshape(1, n)
+        lib_ms = cuda_ms(lambda: torch._int_mm(x2, wt) * sx2 * sw2)
+        bare_ms = cuda_ms(lambda: torch._int_mm(x2, wt))
+    ops = 2.0 * m * n * k
+    nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
+    return ((m, n, k), mism, err, ms, plain_ms, lib_ms, bare_ms,
+            bound(ops, nbytes, PEAK_INT8_OPS))
+
+
 def nms_inputs(torch, seed: int, b: int = 4, n: int = 2000):
     """Dense overlapping boxes with planted ties: identical boxes with tied scores, and
     pairs at IoU exactly 0.5 (kept: the rule is strict)."""
@@ -233,13 +351,15 @@ def profile_batch(torch, pred, imgs, ex) -> None:
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    print(f"profile (one batch of 4, bucket 33): wall {wall_ms:.1f} ms, device kernel "
+    path = "int8 path" if pred.cfg.quant != "off" else "main path"
+    print(f"profile {path} (one batch of 4, bucket 33): wall {wall_ms:.1f} ms, device kernel "
           f"time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}", flush=True)
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"profile  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
 
 
-def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, thr: float) -> dict:
+def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
+                  thr: float) -> dict:
     """Each kernel at the main path's shapes against its plain version; returns the
     kernels line's entries (all but the launch counts)."""
     entries = {}
@@ -281,7 +401,208 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, thr: float) -> dict
         fail(f"nms keep masks differ from the plain version in {mism} slots")
     entries["nms"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=bby, library_ms=None)
+    for t in (9, 17, 33, 65):
+        mism, err, ms, plain_ms, lib_ms, lib_mism, (bms, bby) = check_xcorr_int8(
+            torch, F, cuda_xcorr, t, SEED)
+        print(f"kernel xcorr_int8 T={t}: mismatches {mism} (must be 0), max_err {err:.3e} "
+              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+              f"(float64 grouped F.conv2d + scales, {lib_mism} mismatches) "
+              f"bound_ms {bms:.4f} ({bby}, int8 peak)", flush=True)
+        if mism:
+            fail(f"xcorr_int8 T={t} differs from its plain version in {mism} outputs")
+        if t == 33:
+            entries["xcorr_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+    for kind in ("tap", "head", "ragged"):
+        (m, n, k), mism, err, ms, plain_ms, lib_ms, bare_ms, (bms, bby) = check_int8_mm(
+            torch, cuda_int8, kind, SEED)
+        lib, bare = ("null" if v is None else f"{v:.4f}" for v in (lib_ms, bare_ms))
+        print(f"kernel int8_mm {kind} M={m} N={n} K={k}: mismatches {mism} (must be 0), "
+              f"max_err {err:.3e} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib} (torch._int_mm x scales; bare _int_mm {bare}) "
+              f"bound_ms {bms:.4f} ({bby})", flush=True)
+        if mism:
+            fail(f"int8_mm {kind} differs from its plain version in {mism} outputs")
+        if kind == "tap":
+            entries["int8_mm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bms, bound_by=bby, library_ms=lib_ms)
     return entries
+
+
+def run_probe(torch, probe, _build) -> dict:
+    """The toolchain probe: add1 on a 256^2 f32 block, the first kernel of the run."""
+    _build.reset_launches()
+    x = torch.zeros(256, 256, device="cuda")
+    y = probe.add1(x)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["add1"]
+    mism = int((y != probe.add1_plain(x)).sum().item())
+    if mism or launches != 1:
+        fail(f"add1 probe: {mism} mismatches, {launches} launches")
+    ms = cuda_ms(lambda: probe.add1(x))
+    plain_ms = cuda_ms(lambda: probe.add1_plain(x))
+    lib_ms = cuda_ms(lambda: torch.add(x, 1.0))
+    bms, bby = bound(float(x.numel()), 2.0 * x.numel() * 4, PEAK_F32_FLOPS)
+    print(f"probe add1 256x256: mismatches 0, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms:.4f} (torch.add) bound_ms {bms:.6f} ({bby})", flush=True)
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+
+
+def run_batches(torch, pred, batches, detections_to_numpy, _build):
+    """One warm-up batch, then the launch counts reset and the batches timed."""
+    pred(*batches[0])  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times, outs = [], []
+    for imgs, ex in batches:
+        t0 = time.perf_counter()
+        dets = pred(imgs, ex)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(detections_to_numpy(dets))
+    return times, outs, dict(_build.LAUNCHES)
+
+
+def report_batches(np, name, caps, times, outs, card):
+    for i, per_img in enumerate(outs):
+        counts = [len(d["boxes"]) for d in per_img]
+        print(f"{name} batch {i} (bucket {caps[i]}): detections per image {counts}, "
+              f"{times[i]:.1f} ms, {4e3 / times[i]:.2f} img/s [{card}]", flush=True)
+        for d in per_img:
+            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
+                fail(f"{name}: non-finite detections")
+    print(f"{name}: {sum(times) / len(times):.1f} ms per batch of 4 "
+          f"(mean of 3), {4e3 * len(times) / sum(times):.2f} img/s, "
+          f"steady (batches 1-2) {sum(times[1:]) / 2:.1f} ms [{card}]", flush=True)
+
+
+def int8_tier(torch, np, fused_heads, h: int = 128, c: int = 1024) -> float:
+    """The output tier of the int8 arm as ``tmr_tpu/ops/quant.py`` quant_int8dot_ok
+    defines it, at the production geometry: the stored-int8 tail with the int8 kernels
+    vs the exact fused tail, max abs error over both maps / their max."""
+    from tmr_tpu_torch.ops.quant import quantize_conv
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, h, h, c)).astype(np.float32))
+    x = x.cuda().bfloat16()
+
+    def kernel(*shape):  # HWIO draws, as the JAX tier makes them, then OIHW
+        w = (rng.standard_normal(shape) * 0.01).astype(np.float32)
+        return torch.from_numpy(w).permute(3, 2, 0, 1).contiguous().cuda()
+
+    wo, wb, w1, w4 = kernel(3, 3, c, c), kernel(3, 3, c, c), kernel(1, 1, c, 1), kernel(
+        1, 1, c, 4)
+    exact, stored = [], []
+    for w, n in zip((wo, wb, w1, w4), (c, c, 1, 4)):
+        bias = torch.zeros(n, device="cuda")
+        q, scale = quantize_conv(w)
+        exact.append((w, bias))
+        stored.append((q, bias, scale))
+    with torch.inference_mode():
+        oe, re = fused_heads.fused_decoder_heads(x, [exact[0]], [exact[1]], exact[2],
+                                                 exact[3], dtype=torch.bfloat16)
+        oq, rq = fused_heads.fused_decoder_heads(x, [stored[0]], [stored[1]], stored[2],
+                                                 stored[3], dtype=torch.bfloat16,
+                                                 quant="stored", kernel_arm="int8")
+    scale = max(oe.abs().max().item(), re.abs().max().item())
+    return max((oq - oe).abs().max().item(), (rq - re).abs().max().item()) / scale
+
+
+def int8_arm_on_fcat(torch, pred, qpred, f_cat, fused_heads) -> None:
+    """The int8 arm on image 0 of this run's ``f_cat``: the statistics of each half (the
+    per-image int8 step is amax / 127), and the int8 tail vs the exact fused tail of
+    phase 4's f32 weights, on the objectness map alone and over both maps (the tier's
+    measure). Printed, not held to a limit: the JAX function reads the same on such
+    inputs (tests/test_torch_quant.py)."""
+    x = f_cat[:1].permute(0, 2, 3, 1)
+    xf = x.float()
+    half = xf.shape[-1] // 2
+    for name, v in (("projection", xf[..., :half]), ("matcher", xf[..., half:])):
+        sd = v.std(dim=(0, 1, 2))
+        print(f"f_cat image 0, {name} half: amax {v.abs().max().item():.3f}, amax/std "
+              f"{(v.abs().max() / v.std()).item():.2f}, channel offsets rms "
+              f"{v.mean(dim=(0, 1, 2)).pow(2).mean().sqrt().item():.3f}, spatial std per "
+              f"channel mean {sd.mean().item():.3f} max {sd.max().item():.3f}", flush=True)
+    with torch.inference_mode():
+        oe, re = fused_heads.fused_decoder_heads(x, *pred.model._tail_params(),
+                                                 dtype=pred.model.compute_dtype)
+        q = qpred.model.heads(f_cat[:1])
+    d_obj = (q["objectness"] - oe[..., 0]).abs().max().item()
+    d_reg = (q["regressions"] - re).abs().max().item()
+    obj_max = oe.abs().max().item()
+    both = max(d_obj, d_reg) / max(obj_max, re.abs().max().item())
+    print(f"int8 tail vs the exact fused tail on that f_cat, same weights: objectness map "
+          f"{d_obj / obj_max:.4f} of its max, both maps {both:.4f} (the tier's measure)",
+          flush=True)
+
+
+def check_quant_path(torch, np, pred, batches, caps, obj, reg, card, modules) -> dict:
+    """Phase 4b: the int8-storage path on phase 4's weights."""
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_int8, fused_heads = modules
+    qcfg = preset("TMR_FSCD147", quant="int8", quant_storage="int8", quant_kernel="int8")
+    qpred = Predictor(qcfg, device="cuda")
+    qpred.load_state_dict(pred.model.state_dict())
+    stamp = qpred.quant_stamp()
+    print(f"int8 storage: {stamp['quantized_leaves']} kernels, {stamp['weight_bytes']} "
+          f"int8 bytes for {stamp['f32_weight_bytes']} f32 bytes", flush=True)
+    times, outs, launches = run_batches(torch, qpred, batches, detections_to_numpy, _build)
+    report_batches(np, "int8 path", caps, times, outs, card)
+    print(f"int8 path launches over the 3 batches: {json.dumps(launches)}", flush=True)
+    if launches != QUANT_LAUNCHES:
+        fail(f"int8 path launches {launches}, expected {QUANT_LAUNCHES}")
+
+    imgs, ex = batches[0]
+    scale = obj.abs().max().item()
+    qout = qpred.forward(imgs, ex)
+    qobj = qout["objectness"][0].float().cpu()
+    rel = (qobj - obj).abs().max().item() / scale
+    both = max((qobj - obj).abs().max().item(),
+               (qout["regressions"][0].float().cpu() - reg).abs().max().item())
+    both /= max(scale, reg.abs().max().item())
+    dcfg = preset("TMR_FSCD147", quant="int8", quant_storage="int8")
+    dpred = Predictor(dcfg, device="cuda")
+    dpred.load_state_dict(pred.model.state_dict())
+    drel = (dpred.forward(imgs, ex)["objectness"][0].float().cpu() - obj).abs().max().item()
+    drel /= scale
+    del dpred
+    print(f"objectness image 0 vs the bf16 path, max_abs_diff / map max {scale:.4e}: int8 "
+          f"path {rel:.4f} (bound {INT8_PATH_OBJ_BOUND}; over both maps, the tier's "
+          f"measure, {both:.4f}), stored weights with the dequant arm {drel:.4f} (tier "
+          f"{QUANT_TIER_REL})", flush=True)
+    if not (torch.isfinite(qobj).all() and qobj.shape == (128, 128)
+            and rel <= INT8_PATH_OBJ_BOUND):
+        fail("int8 path objectness map is not finite or far from the bf16 path's")
+    if not drel <= QUANT_TIER_REL:
+        fail("the stored-weight path's objectness is outside the output tier")
+    tier = int8_tier(torch, np, fused_heads)
+    print(f"int8 tail vs the exact tail on the tier's inputs (quant_int8dot_ok: 1 x 128^2 x "
+          f"1024 normal bf16 input, N(0, 0.01) weights): rel {tier:.4f} (tier "
+          f"{QUANT_TIER_REL})", flush=True)
+    if not 0 < tier < QUANT_TIER_REL:
+        fail("the int8 tail is outside the output tier at the production geometry")
+
+    with torch.inference_mode():
+        image, exemplars, cap = qpred._inputs(imgs, ex)
+        f_cat = qpred.model.match(image, exemplars, cap)
+        got = qpred.model.heads(f_cat)
+        want = fused_heads.fused_decoder_heads(
+            f_cat.permute(0, 2, 3, 1), *qpred.model._tail_params(),
+            dtype=qpred.model.compute_dtype, quant="stored", kernel_arm="int8",
+            int8_matmul=cuda_int8.int8_mm_plain)
+        torch.cuda.synchronize()
+    tail_diff = max((got["objectness"] - want[0][..., 0]).abs().max().item(),
+                    (got["regressions"] - want[1]).abs().max().item())
+    print(f"int8 tail on one f_cat {tuple(f_cat.shape)}, kernels vs plain versions on the "
+          f"card: max_abs_diff {tail_diff:.3e} (tol 0: exact int32 sums, the same "
+          f"epilogue and tap order)", flush=True)
+    if tail_diff != 0.0:
+        fail(f"int8 tail with the kernels differs from the plain tail: {tail_diff}")
+    int8_arm_on_fcat(torch, pred, qpred, f_cat, fused_heads)
+    return launches, qpred
 
 
 def main(argv=None) -> int:
@@ -306,7 +627,8 @@ def main(argv=None) -> int:
 
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.inference import Predictor, detections_to_numpy
-    from tmr_tpu_torch.ops import _build, cuda_attn, cuda_nms, cuda_xcorr
+    from tmr_tpu_torch.ops import (_build, cuda_attn, cuda_int8, cuda_nms, cuda_xcorr,
+                                   fused_heads, probe)
 
     # 1. device
     smi = subprocess.run(
@@ -317,16 +639,18 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 2. build
+    # 2. build, then the toolchain probe
     build_s = _build.build()
     for name in _build.SIGNATURES:
         _build.lib(name)
     print(f"build: {build_s:.1f} s for {len(_build.SIGNATURES)} sources", flush=True)
+    entries = {"add1": run_probe(torch, probe, _build)}
+    probe_launches = entries["add1"].pop("launches")
 
     # 3. kernels at main-path shapes
     with exact_f32(torch):
-        entries = check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms,
-                                preset("TMR_FSCD147").NMS_iou_threshold)
+        entries.update(check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
+                                     preset("TMR_FSCD147").NMS_iou_threshold))
 
     # 4. main path
     cfg = preset("TMR_FSCD147")
@@ -337,34 +661,20 @@ def main(argv=None) -> int:
     caps = [pred.pick_capacity(ex, 1024) for _, ex in batches]
     if caps != [9, 17, 33]:
         fail(f"exemplars picked buckets {caps}, expected [9, 17, 33]")
-    pred(*batches[0])  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    times, outs = [], []
-    for imgs, ex in batches:
-        t0 = time.perf_counter()
-        dets = pred(imgs, ex)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        outs.append(detections_to_numpy(dets))
-    launches = dict(_build.LAUNCHES)
-    for i, ((imgs, ex), per_img) in enumerate(zip(batches, outs)):
-        counts = [len(d["boxes"]) for d in per_img]
-        print(f"batch {i} (bucket {caps[i]}): detections per image {counts}, "
-              f"{times[i]:.1f} ms, {4e3 / times[i]:.2f} img/s [{card}]", flush=True)
-        for d in per_img:
-            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
-                fail("non-finite detections")
-    print(f"main path: {sum(times) / len(times):.1f} ms per batch of 4 "
-          f"(mean of 3), {4e3 * len(times) / sum(times):.2f} img/s, "
-          f"steady (batches 1-2) {sum(times[1:]) / 2:.1f} ms [{card}]", flush=True)
+    times, outs, launches = run_batches(torch, pred, batches, detections_to_numpy, _build)
+    report_batches(np, "main path", caps, times, outs, card)
     print(f"launches over the 3 batches: {json.dumps(launches)}", flush=True)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    stray = [k for k in ("xcorr_int8", "int8_mm", "add1") if launches[k]]
+    if stray:
+        fail(f"int8 or probe kernels launched on the unquantized path: {stray}")
 
     imgs, ex = batches[0]
-    obj = pred.forward(imgs, ex)["objectness"][0].float().cpu()
+    out = pred.forward(imgs, ex)
+    obj = out["objectness"][0].float().cpu()
+    reg = out["regressions"][0].float().cpu()
     ref_cfg = preset("TMR_FSCD147", compute_dtype="float32")
     ref = Predictor(ref_cfg, device="cpu")
     ref.model.load_state_dict({k: v.cpu() for k, v in pred.model.state_dict().items()})
@@ -378,8 +688,14 @@ def main(argv=None) -> int:
     if not (torch.isfinite(obj).all() and obj.shape == (128, 128)
             and diff <= OBJ_REL_TOL * scale):
         fail("objectness map disagrees with the f32 CPU reference")
+    del ref
+
+    # 4b. the int8-storage path on the same weights
+    qlaunches, qpred = check_quant_path(torch, np, pred, batches, caps, obj, reg, card,
+                                        (_build, cuda_int8, fused_heads))
     if args.profile:
         profile_batch(torch, pred, *batches[2])
+        profile_batch(torch, qpred, *batches[2])
 
     # 5. the kernels line
     meta = {
@@ -387,9 +703,14 @@ def main(argv=None) -> int:
         "window_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
         "xcorr": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/pallas_xcorr.py:47"),
         "nms": ("tmr_tpu_torch/csrc/nms.cu", "tmr_tpu/ops/pallas_nms.py:32"),
+        "xcorr_int8": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/xcorr.py:171"),
+        "int8_mm": ("tmr_tpu_torch/csrc/int8_mm.cu", "tmr_tpu/ops/pallas_int8.py:50"),
+        "add1": ("tmr_tpu_torch/csrc/probe.cu", "scripts/gate_probe.py:84"),
     }
+    path_launches = dict(launches, xcorr_int8=qlaunches["xcorr_int8"],
+                         int8_mm=qlaunches["int8_mm"], add1=probe_launches)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **entries[name])
+                    launches=path_launches[name], **entries[name])
                for name, (src, rep) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

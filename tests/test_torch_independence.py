@@ -92,6 +92,30 @@ def test_predictor_refuses_the_cpu_unless_asked(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.parametrize("fields", [dict(quant="int8"),
+                                    dict(quant="int8", quant_kernel="int8"),
+                                    dict(quant="int8", quant_storage="int8",
+                                         quant_kernel="int8")])
+def test_quant_predictor_refuses_the_cpu_unless_asked(monkeypatch, fields):
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor
+    from tmr_tpu_torch.models import build_model
+    from tmr_tpu_torch.models.vit import SamViT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = preset("TMR_FSCD147", emb_dim=16, compute_dtype="float32", **fields)
+    for entry in (lambda: Predictor(cfg), lambda: build_model(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    model = build_model(cfg, device="cpu", backbone=SamViT(
+        pretrain_img_size=32, embed_dim=32, depth=2, num_heads=2,
+        global_attn_indexes=(1,), patch_size=8, window_size=3, out_chans=16))
+    pred = Predictor(cfg, device="cpu", model=model)
+    pred.init_params(0)
+    assert pred.model.quant == "int8"
+    assert pred.model.stored == (cfg.quant_storage == "int8")
+
+
 def test_build_model_builds_on_the_cpu_when_asked():
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.models import build_model

@@ -85,6 +85,36 @@ class Config:
     # compute dtype for the encoder and heads ("bfloat16" or "float32")
     compute_dtype: str = "bfloat16"
 
+    # int8 quantization of the decoder tail and the matcher (inference only).
+    # ``quant`` mirrors TMR_QUANT: "int8" runs the decoder stacks and heads as the
+    # fused channel-tiled matmuls (ops/fused_heads.py) on int8-grid weights, and the
+    # correlation on an int8-grid template. ``quant_storage`` mirrors
+    # TMR_QUANT_STORAGE: "int8" makes the model hold those weights as int8 with f32
+    # scales (quantized once, when the weights are set). ``quant_kernel`` mirrors
+    # TMR_QUANT_KERNEL: "dequant" widens the int8 operand next to an f32-accumulated
+    # product; "int8" quantizes the activation too and contracts on the int8 grid
+    # through the hand-written kernels (the JAX package's int8dot and pallas arms,
+    # which compute the same function). Combinations the JAX package would refuse
+    # and fall back from raise ValueError here.
+    quant: str = "off"
+    quant_storage: str = "off"
+    quant_kernel: str = "dequant"
+
+    def __post_init__(self):
+        for name, legal in (("quant", ("off", "int8")), ("quant_storage", ("off", "int8")),
+                            ("quant_kernel", ("dequant", "int8"))):
+            if getattr(self, name) not in legal:
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected "
+                                 + " | ".join(legal))
+        if self.quant_storage != "off" and self.quant != "int8":
+            raise ValueError("quant_storage='int8' needs quant='int8' (stored weights "
+                             "ride the int8 decoder tail)")
+        if self.quant_kernel != "dequant" and self.quant != "int8":
+            raise ValueError("quant_kernel='int8' needs quant='int8'")
+        if self.quant != "off" and not self.box_reg:
+            raise ValueError("quant='int8' needs box_reg: the int8 tail is the "
+                             "two-stack fused formulation")
+
     @property
     def box_reg(self) -> bool:
         return not self.ablation_no_box_regression

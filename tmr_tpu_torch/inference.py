@@ -9,6 +9,12 @@ them into per-image ragged lists (the host tail).
 Devices: everything runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit ``"cpu"`` the constructor raises, it never carries on on the
 CPU.
+
+int8 storage (``cfg.quant_storage="int8"``, the counterpart of ``_storage_state`` /
+``exec_params``): the weights are set in f32 (``init_params``, ``load_jax_params`` or
+``load_state_dict``), then the decoder and head kernels are quantized once and the model
+keeps only their int8 copies and scales (:meth:`MatchingNet.store_int8`);
+:meth:`Predictor.quant_stamp` gives their byte counts.
 """
 
 from __future__ import annotations
@@ -32,14 +38,41 @@ class Predictor:
         self.device = resolve_device(device)
         model = model if model is not None else build_model(cfg, device=self.device)
         self.model = model.to(self.device).eval()
+        self._stamp: Optional[dict] = None
+
+    def _weights_set(self) -> None:
+        if self.cfg.quant_storage == "int8":
+            self._stamp = self.model.store_int8()
+
+    def _check_settable(self) -> None:
+        if self._stamp is not None:
+            raise RuntimeError("the int8-stored weights are set once; build a new "
+                               "Predictor for other weights")
 
     def init_params(self, seed: int = 0) -> None:
         """Seeded random weights on the predictor's device (no JAX involved)."""
+        self._check_settable()
         init_params(self.model, seed)
+        self._weights_set()
 
     def load_jax_params(self, tree: Mapping) -> None:
         """Load a flax param tree (numpy leaves) through the weight bridge."""
-        self.model.load_state_dict(params_from_jax(tree))
+        self.load_state_dict(params_from_jax(tree))
+
+    def load_state_dict(self, state_dict: Mapping) -> None:
+        """Load the f32 ``state_dict`` of an unquantized model of the same geometry."""
+        self._check_settable()
+        self.model.load_state_dict(state_dict)
+        self._weights_set()
+
+    def quant_stamp(self) -> Optional[dict]:
+        """Which quantization the model runs, and under int8 storage the int8 bytes of
+        the stored kernels beside the f32 bytes they replace; None when exact."""
+        if self._stamp is not None:
+            return dict(self._stamp)
+        if self.cfg.quant == "int8":
+            return {"mode": "int8", "storage": "off"}
+        return None
 
     def feature_hw(self, image_size: int) -> int:
         base = image_size // self.model.backbone.patch_size

@@ -54,5 +54,7 @@ def build_model(cfg, backbone=None, device=None) -> MatchingNet:
             decoder_num_layer=cfg.decoder_num_layer,
             decoder_kernel_size=cfg.decoder_kernel_size,
             dtype=compute_dtype(cfg),
+            quant=cfg.quant,
+            quant_kernel=cfg.quant_kernel,
         )
     return model.to(device)

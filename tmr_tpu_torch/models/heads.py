@@ -2,6 +2,8 @@
 
 NCHW; ``padding = (k - 1) // 2``; LeakyReLU slope 0.01. These are ordinary
 convolutions, computed by ``F.conv2d`` as the JAX package leaves them to XLA.
+:class:`Int8Conv2d` holds one of their kernels on the int8 grid for the stored tail
+(``Config.quant_storage="int8"``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tmr_tpu_torch.models.common import Conv2d
+from tmr_tpu_torch.ops.quant import quantize_conv
 
 
 class Decoder(nn.Module):
@@ -51,3 +54,17 @@ class BboxesHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+class Int8Conv2d(nn.Module):
+    """A :class:`Conv2d`'s kernel stored on the int8 grid (``ops/quant.quantize_conv``):
+    ``qweight`` (kh, kw, O, I) int8, ``scale`` (kh, kw, O) f32, and the f32 ``bias``.
+    No f32 copy of the kernel is kept. Read by the fused tail (``ops/fused_heads.py``);
+    it has no forward of its own."""
+
+    def __init__(self, conv: Conv2d):
+        super().__init__()
+        q, s = quantize_conv(conv.weight.detach())
+        self.register_buffer("qweight", q)
+        self.register_buffer("scale", s)
+        self.bias = nn.Parameter(conv.bias.detach().float(), requires_grad=False)

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: exported C functions of each source, with their ctypes signatures
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -34,8 +34,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tmr_global_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
         "tmr_window_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
-    "xcorr": {"tmr_xcorr": (_P, _P, _P, _I, _I, _I, _I, _P)},
+    "xcorr": {
+        "tmr_xcorr": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "tmr_xcorr_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
     "nms": {"tmr_nms": (_P, _P, _P, _I, _I, _F, _P)},
+    "int8_mm": {"tmr_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P)},
+    "probe": {"tmr_add1": (_P, _P, _L, _P)},
 }
 
 NVCC_FLAGS = (
@@ -47,6 +52,7 @@ NVCC_FLAGS = (
 #: where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
     "global_attn": 0, "window_attn": 0, "xcorr": 0, "nms": 0,
+    "xcorr_int8": 0, "int8_mm": 0, "add1": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -6,9 +6,15 @@ SAME-padded depthwise correlation of a ``(B, C, H, W)`` map with per-image templ
 ``T - 1 - T // 2`` after, f32 accumulation. The port's direct path serves every bucket
 up to :data:`MAX_T` (65); larger buckets take the FFT path in ``ops/xcorr.py``.
 
+:func:`xcorr_int8` is the int8 variant, the counterpart of the XLA integer grouped
+convolution in ``tmr_tpu/ops/xcorr.py`` (``_xcorr_int8dot``): int8 feature and template,
+the sum exact in int32, then ``float(acc) * (f_scale * t_scale)`` per (image, channel).
+PyTorch has no int8 grouped convolution on CUDA, and an f32 run of int8 values is not
+exact past 2^24, so it is a second instance of the same hand-written kernel.
+
 The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
-only for CPU tensors; a CUDA tensor launches ``csrc/xcorr.cu`` (its header says what
-bounds it on the card) or raises.
+only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
+header says what bounds it on the card) or raises.
 """
 
 from __future__ import annotations
@@ -55,4 +61,48 @@ def xcorr(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
     _build.launch("xcorr", "xcorr", "tmr_xcorr", feature.data_ptr(),
                   template.data_ptr(), out.data_ptr(), b * c, h, w, t,
                   _build.stream_of(feature))
+    return out
+
+
+def xcorr_int8_plain(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Tensor,
+                     t_scale: torch.Tensor) -> torch.Tensor:
+    """T^2 shifted int8 products summed in int32, then the kernel's epilogue."""
+    _, _, h, w = feature.shape
+    t = template.shape[-1]
+    c = t // 2
+    fpad = F.pad(feature.int(), (c, t - 1 - c, c, t - 1 - c))
+    tmpl = template.int()
+    acc = torch.zeros(feature.shape, dtype=torch.int32, device=feature.device)
+    for i in range(t):
+        for j in range(t):
+            acc += fpad[:, :, i:i + h, j:j + w] * tmpl[:, :, i, j, None, None]
+    return acc.float() * (f_scale.float() * t_scale.float())
+
+
+def xcorr_int8(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Tensor,
+               t_scale: torch.Tensor) -> torch.Tensor:
+    """feature (B, C, H, W) int8, template (B, C, T, T) int8, scales (B, C, 1, 1) f32 ->
+    the SAME-padded correlation (B, C, H, W) f32."""
+    b, c, h, w = feature.shape
+    t = template.shape[-1]
+    if (template.shape != (b, c, t, t) or t % 2 == 0
+            or f_scale.shape != (b, c, 1, 1) or t_scale.shape != (b, c, 1, 1)):
+        raise ValueError(
+            f"xcorr_int8: feature {tuple(feature.shape)}, template "
+            f"{tuple(template.shape)} (T odd), scales {tuple(f_scale.shape)} / "
+            f"{tuple(t_scale.shape)} must be (B, C, 1, 1)")
+    if feature.device.type == "cpu":
+        return xcorr_int8_plain(feature, template, f_scale, t_scale)
+    if feature.dtype != torch.int8 or template.dtype != torch.int8:
+        raise ValueError("xcorr_int8: the kernel takes int8 feature and template")
+    if t > MAX_T:
+        raise ValueError(f"xcorr_int8: the kernel takes T <= {MAX_T}, got {t}")
+    feature = feature.contiguous()
+    template = template.contiguous()
+    f_scale = f_scale.float().contiguous()
+    t_scale = t_scale.float().contiguous()
+    out = torch.empty(feature.shape, dtype=torch.float32, device=feature.device)
+    _build.launch("xcorr_int8", "xcorr", "tmr_xcorr_int8", feature.data_ptr(),
+                  template.data_ptr(), f_scale.data_ptr(), t_scale.data_ptr(),
+                  out.data_ptr(), b * c, h, w, t, _build.stream_of(feature))
     return out

@@ -6,14 +6,19 @@
   divided by ``ht * wt + 1e-14``, the ``(ht // 2, wt // 2)`` border band zeroed, an
   optional channel sum. Buckets up to :data:`FFT_CAPACITY_THRESHOLD` run the direct
   correlation (``ops/cuda_xcorr.py``); larger ones the correlation theorem with
-  ``torch.fft``, whose cost does not grow with T.
+  ``torch.fft``, whose cost does not grow with T. With ``quant="int8"`` the direct
+  path takes the int8 arms of ``tmr_tpu/ops/xcorr.py`` (no gates): ``"dequant"``, a
+  bf16 feature and the int8-grid template through the f32 kernel (products of bf16
+  values are exact in f32); ``"int8"``, both operands quantized per (image, channel)
+  through the int8 kernel. The FFT path is f32 whatever ``quant`` says, as in JAX.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tmr_tpu_torch.ops.cuda_xcorr import xcorr
+from tmr_tpu_torch.ops.cuda_xcorr import xcorr, xcorr_int8
+from tmr_tpu_torch.ops.quant import quantize_int8, quantize_int8_template, quantize_template
 from tmr_tpu_torch.ops.roi_align import sampling_matrix
 
 FFT_CAPACITY_THRESHOLD = 65
@@ -75,14 +80,30 @@ def _xcorr_fft(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
     return corr[:, :, ys][:, :, :, xs]
 
 
+def xcorr_int8dot(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """Both operands on the int8 grid (``_xcorr_int8dot``): the feature quantized per
+    (image, channel) over H*W, the template as :func:`quantize_int8_template`."""
+    b, c, h, w = feature.shape
+    fq, fs = quantize_int8(feature.float().reshape(b, c, h * w), -1)
+    tq, ts = quantize_int8_template(template)
+    return xcorr_int8(fq.reshape(b, c, h, w), tq, fs.reshape(b, c, 1, 1), ts)
+
+
 def cross_correlation(feature: torch.Tensor, template: torch.Tensor,
-                      template_hw: torch.Tensor, squeeze: bool = False) -> torch.Tensor:
+                      template_hw: torch.Tensor, squeeze: bool = False,
+                      quant: str = "off", kernel: str = "dequant") -> torch.Tensor:
     """feature (B, C, H, W) f32; template (B, C, T, T); template_hw (B, 2) int ->
-    (B, C, H, W), or (B, 1, H, W) with ``squeeze``."""
+    (B, C, H, W), or (B, 1, H, W) with ``squeeze``. ``quant``/``kernel``: the
+    ``Config`` fields of the same names."""
     _, _, h, w = feature.shape
     t = template.shape[-1]
     if t > FFT_CAPACITY_THRESHOLD:
         out = _xcorr_fft(feature, template)
+    elif quant == "int8" and kernel == "int8":
+        out = xcorr_int8dot(feature, template)
+    elif quant == "int8":
+        out = xcorr(feature.to(torch.bfloat16).float(),
+                    quantize_template(template, torch.bfloat16).float())
     else:
         out = xcorr(feature.float(), template.float())
     ht = template_hw[:, 0]

@@ -13,12 +13,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels: each kernel at the main path's shapes against its plain PyTorch version on
    the same inputs, with the tolerance stated, timed beside its plain version, a
    PyTorch library call computing the same function (timed here, never used by the
-   port) and its bound (bytes or operations over the card's peak);
+   port) and its bound (bytes or operations over the card's peak); an attention kernel
+   is timed alone (the global kernel on given projections), beside its public wrapper,
+   ``bias_projections`` and the mask build that SDPA's time leaves out; the windowed
+   kernel is also held to its plain version at 7x7 and 16x16 windows;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
-   must be > 0, and image 0's objectness map must agree with an f32 CPU run of the
-   same port and weights;
+   must be > 0 (``window_attn`` exactly 24: one per windowed block), only the global
+   blocks may call ``bias_projections``, and image 0's objectness map must agree with
+   an f32 CPU run of the same port and weights;
 4b. the int8 path: the same preset with ``quant="int8", quant_storage="int8",
    quant_kernel="int8"`` and phase 4's weights (stored as int8) answers the same 3
    batches; its launch counts must be exactly those of its path; its decoder tail on
@@ -116,6 +120,23 @@ def exact_f32(torch):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def call_count(module, name: str):
+    """Counts the calls of ``module.name`` made through the module while the block runs."""
+    calls = [0]
+    orig = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -123,12 +144,13 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: int,
                     grid=(64, 64)):
-    """One attention kernel at its main-path shapes vs its plain version."""
+    """One attention kernel vs its plain version, at the main path's batch (4 images, 12
+    heads; windowed: 25 windows each). Times, on the same inputs: the kernel alone (the
+    global kernel on given projections; the windowed kernel computes its own, so it is
+    its wrapper), the public wrapper, ``bias_projections`` alone, the bf16 mask built
+    from the projections, and SDPA with that mask precomputed."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    if windowed:
-        bh, gh, gw = 4 * 25 * 12, 14, 14  # batch 4, 5x5 windows of the 70^2 padded grid
-    else:
-        bh, (gh, gw) = 4 * 12, grid
+    bh, (gh, gw) = (4 * 25 * 12 if windowed else 4 * 12), grid
     s, d = gh * gw, 64
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
@@ -147,18 +169,37 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
                worst_err_over_limit=(diff / limit).max().item())
     acc["ok"] = (acc["worst_err_over_limit"] <= 1.0
                  and acc["mean_abs_err"] <= ATTN_MEAN_TOL * acc["mean_abs_want"])
-    ms = cuda_ms(lambda: fn(q, k, v, rh, rw, (gh, gw), scale))
-    plain_ms = cuda_ms(lambda: cuda_attn.attention_plain(q, k, v, *rel, (gh, gw), scale),
-                       reps=3, warmup=1)
+    t = dict(wrapper_ms=cuda_ms(lambda: fn(q, k, v, rh, rw, (gh, gw), scale)))
+    t["ms"] = t["wrapper_ms"] if windowed else cuda_ms(
+        lambda: cuda_attn._global_attention_kernel(q, k, v, *rel, (gh, gw), scale))
+    t["plain_ms"] = cuda_ms(lambda: cuda_attn.attention_plain(q, k, v, *rel, (gh, gw),
+                                                              scale), reps=3, warmup=1)
     mask = None
     if has_bias:
-        mask = (rel[0][..., :, None] + rel[1][..., None, :]).reshape(bh, s, s)
-        mask = mask.to(torch.bfloat16)[None]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        t["proj_ms"] = cuda_ms(lambda: cuda_attn.bias_projections(q, rh, rw, (gh, gw)))
+
+        def build_mask():
+            m = (rel[0][..., :, None] + rel[1][..., None, :]).reshape(bh, s, s)
+            return m.to(torch.bfloat16)[None]
+
+        t["mask_ms"] = cuda_ms(build_mask, reps=5, warmup=1)
+        mask = build_mask()
+    t["lib_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], attn_mask=mask, scale=scale), reps=5, warmup=1)
     flops = 4.0 * bh * s * s * d
-    nbytes = 4 * bh * s * d * 2 + (bh * s * (gh + gw) * 4 if has_bias else 0)
-    return acc, ms, plain_ms, lib_ms, bound(flops, nbytes, PEAK_BF16_FLOPS)
+    # q, k, v read and out written once; the global kernel also reads the projections,
+    # the windowed kernel makes its own on chip
+    nbytes = 4 * bh * s * d * 2 + (bh * s * (gh + gw) * 4 if has_bias and not windowed
+                                   else 0)
+    return acc, t, bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+def attn_times(t: dict) -> str:
+    extra = (f" bias_projections_ms {t['proj_ms']:.4f} mask_build_ms {t['mask_ms']:.4f}"
+             if "proj_ms" in t else "")
+    return (f"kernel_ms {t['ms']:.4f} wrapper_ms {t['wrapper_ms']:.4f} plain_ms "
+            f"{t['plain_ms']:.4f} library_ms {t['lib_ms']:.4f} (SDPA, mask precomputed)"
+            + extra)
 
 
 def attn_accuracy(acc: dict) -> str:
@@ -363,25 +404,33 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
     """Each kernel at the main path's shapes against its plain version; returns the
     kernels line's entries (all but the launch counts)."""
     entries = {}
-    for name, windowed, has_bias in (("global_attn", False, True),
-                                     ("global_attn_nobias", False, False),
-                                     ("window_attn", True, True)):
-        acc, ms, plain_ms, lib_ms, (bms, bby) = check_attention(
-            torch, F, cuda_attn, windowed, has_bias, SEED)
-        print(f"kernel {name}: {attn_accuracy(acc)} kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.4f} "
+    for name, windowed, has_bias, grid in (("global_attn", False, True, (64, 64)),
+                                           ("global_attn_nobias", False, False, (64, 64)),
+                                           ("window_attn", True, True, (14, 14))):
+        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, has_bias, SEED,
+                                             grid)
+        print(f"kernel {name}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
               f"({bby})", flush=True)
         if not acc["ok"]:
             fail(f"{name} disagrees with its plain version: {acc}")
-        entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=bby, library_ms=lib_ms)
-    # a grid whose rows are not one 64-key tile runs the kernel's per-key bias indexing
-    # (off the main path: the 1536 bucket's 96-wide grid takes it)
-    acc, ms, *_ = check_attention(torch, F, cuda_attn, False, True, SEED, (24, 40))
-    print(f"kernel global_attn 24x40 grid: {attn_accuracy(acc)} kernel_ms {ms:.4f}",
+        entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=t["ms"],
+                             plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
+                             library_ms=t["lib_ms"])
+    # a grid whose rows are not one 64-key tile runs the global kernel's per-key bias
+    # indexing (off the main path: the 1536 bucket's 96-wide grid takes it)
+    acc, t, _ = check_attention(torch, F, cuda_attn, False, True, SEED, (24, 40))
+    print(f"kernel global_attn 24x40 grid: {attn_accuracy(acc)} kernel_ms {t['ms']:.4f}",
           flush=True)
     if not acc["ok"]:
         fail(f"global_attn on a 24x40 grid disagrees with its plain version: {acc}")
+    # the windowed kernel at 7x7 windows (8-slot key rows, a pad key row, 64 query rows)
+    # and 16x16 (full 16-slot key rows, one CTA per SM)
+    for grid in ((7, 7), (16, 16)):
+        acc, t, (bms, _) = check_attention(torch, F, cuda_attn, True, True, SEED, grid)
+        print(f"kernel window_attn {grid[0]}x{grid[1]} windows: {attn_accuracy(acc)} "
+              f"{attn_times(t)} bound_ms {bms:.4f}", flush=True)
+        if not acc["ok"]:
+            fail(f"window_attn at {grid} windows disagrees with its plain version: {acc}")
     for t in (9, 17, 33, 65):
         err, tol, ms, plain_ms, lib_ms, (bms, bby) = check_xcorr(
             torch, F, cuda_xcorr, t, SEED)
@@ -661,9 +710,20 @@ def main(argv=None) -> int:
     caps = [pred.pick_capacity(ex, 1024) for _, ex in batches]
     if caps != [9, 17, 33]:
         fail(f"exemplars picked buckets {caps}, expected [9, 17, 33]")
-    times, outs, launches = run_batches(torch, pred, batches, detections_to_numpy, _build)
+    with call_count(cuda_attn, "bias_projections") as proj_calls:
+        times, outs, launches = run_batches(torch, pred, batches, detections_to_numpy,
+                                            _build)
     report_batches(np, "main path", caps, times, outs, card)
     print(f"launches over the 3 batches: {json.dumps(launches)}", flush=True)
+    # the windowed kernel makes its own projections: only the 4 global blocks of each
+    # batch (the warm-up batch included) run bias_projections' f32 copy and products
+    want_proj = 4 * (len(batches) + 1)
+    print(f"bias_projections calls over the warm-up and 3 batches: {proj_calls[0]} "
+          f"(expected {want_proj}, the global blocks')", flush=True)
+    if proj_calls[0] != want_proj:
+        fail(f"bias_projections ran {proj_calls[0]} times, expected {want_proj}")
+    if launches["window_attn"] != 24:
+        fail(f"window_attn launched {launches['window_attn']} times, expected 24")
     missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")

@@ -90,7 +90,9 @@ def test_global_attention_matches_pallas_bf16():
     _assert_bf16_close(got, want)
 
 
-@pytest.mark.parametrize("window,d", [(14, 64), (3, 16)])
+# 14: SAM's window (208 query rows, 14 key rows of 16 slots); 4: no query padding; 13: 169
+# tokens; 16: full 16-slot key rows, no pad slots; 3 at d = 16: the plain version alone
+@pytest.mark.parametrize("window,d", [(14, 64), (3, 16), (4, 64), (13, 64), (16, 64)])
 def test_window_attention_matches_pallas_f32(window, d):
     q, k, v, rh, rw = _inputs(3, 3, 2, window, window, d)
     scale = d ** -0.5
@@ -106,6 +108,63 @@ def test_window_attention_matches_pallas_bf16():
     got = _port(cuda_attn.window_attention, q, k, v, rh, rw, (14, 14), scale,
                 torch.bfloat16)
     _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("window", [4, 13, 16])
+def test_window_attention_edges_match_pallas_bf16(window):
+    q, k, v, rh, rw = _inputs(6, 1, 2, window, window, 64)
+    scale = 64 ** -0.5
+    grid = (window, window)
+    want = _jax(pallas_windowed_attention, q, k, v, rh, rw, grid, scale, jnp.bfloat16)
+    got = _port(cuda_attn.window_attention, q, k, v, rh, rw, grid, scale, torch.bfloat16)
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_strong_bias_matches_pallas(dtype):
+    """Bias tables scaled x2 (|bias| ~ the scores), so the bias moves the softmax."""
+    q, k, v, rh, rw = _inputs(7, 1, 2, 14, 14, 64)
+    rh, rw = rh * 2, rw * 2
+    scale = 64 ** -0.5
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                      torch.bfloat16)
+    want = _jax(pallas_windowed_attention, q, k, v, rh, rw, (14, 14), scale, jd)
+    got = _port(cuda_attn.window_attention, q, k, v, rh, rw, (14, 14), scale, td)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        _assert_bf16_close(got, want)
+
+
+def test_window_geometry_fits_every_accepted_window():
+    """Square windows up to 16 and rows up to 64 tokens stage within 227 KB; one past
+    either raises."""
+    for side in range(1, 17):
+        gwp, ghp, smem = cuda_attn.window_geometry(side, side)
+        assert smem <= 227 * 1024 and gwp >= side and (ghp * gwp // 8) % 2 == 0
+    for gh, gw in ((17, 17), (1, 65)):
+        with pytest.raises(ValueError):
+            cuda_attn.window_geometry(gh, gw)
+    assert cuda_attn.window_geometry(1, 64)[2] <= 227 * 1024
+    assert cuda_attn.window_geometry(14, 14) == (16, 14, 109760)
+
+
+def test_kernel_entries_equal_wrappers_on_projections():
+    """The global kernel's entry on bias_projections' output equals its public wrapper;
+    the windowed wrapper (one kernel, projections inside) equals the plain version on
+    bias_projections' output."""
+    for window, fn in ((8, "global"), (14, "window")):
+        q, k, v, rh, rw = (torch.from_numpy(a) for a in _inputs(8, 1, 2, window, window, 64))
+        q, k, v = q[0], k[0], v[0]
+        grid, scale = (window, window), 64 ** -0.5
+        rel = cuda_attn.bias_projections(q, rh, rw, grid)
+        if fn == "global":
+            want = cuda_attn.global_attention(q, k, v, rh, rw, grid, scale)
+            got = cuda_attn._global_attention_kernel(q, k, v, *rel, grid, scale)
+        else:
+            want = cuda_attn.attention_plain(q, k, v, *rel, grid, scale)
+            got = cuda_attn.window_attention(q, k, v, rh, rw, grid, scale)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_bias_projections_layout():

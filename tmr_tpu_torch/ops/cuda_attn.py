@@ -8,16 +8,21 @@ Replaces ``tmr_tpu/ops/pallas_attn.py``:
 - :func:`window_attention` <- ``pallas_windowed_attention`` (``_win_kernel``).
 
 Both take q/k/v as ``(B*H, S, D)`` over an ``(gh, gw)`` token grid and the
-``get_rel_pos`` tables ``rh (gh, gh, D)`` / ``rw (gw, gw, D)``; the f32 bias
-projections (the JAX ``_bias_projections``) are two small products computed here with
-``torch.einsum``, and the kernel adds ``rel_h_q[q, ky] + rel_w_q[q, kx]`` per score.
-Softmax statistics and accumulators are f32; p is rounded to the input dtype before
-the p.v product, as in ``blockwise_decomposed_attention``.
+``get_rel_pos`` tables ``rh (gh, gh, D)`` / ``rw (gw, gw, D)``, and add the decomposed
+bias ``rel_h_q[q, ky] + rel_w_q[q, kx]`` to each score, with the f32 projections of the
+JAX ``_bias_projections``. The global kernel takes the projections, computed here by
+:func:`bias_projections` (two small ``torch.einsum`` products); its module-private entry
+``_global_attention_kernel`` takes them given, so it can be called and timed alone. The
+windowed kernel computes them itself from the tables, in shared memory, so a windowed
+block is one launch and writes nothing to HBM but its output. Softmax statistics and
+accumulators are f32; p is rounded to the input dtype before the p.v product, as in
+``blockwise_decomposed_attention``.
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (``csrc/attn.cu``, whose header says what bounds it on the card and how the
 design answers) or raises. What the kernels take: bf16, head dim 64, contiguous; the
-global kernel needs ``S % 64 == 0``.
+global kernel needs ``S % 64 == 0``; the windowed kernel takes rows of up to 64 tokens
+and a window whose staging fits in 227 KB of shared memory (:func:`window_geometry`).
 """
 
 from __future__ import annotations
@@ -78,6 +83,36 @@ def _check(q, k, v, what: str) -> None:
         raise ValueError(f"{what}: the kernel takes head dim 64, got {q.shape[-1]}")
 
 
+def _global_attention_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h_q: Optional[torch.Tensor],
+    rel_w_q: Optional[torch.Tensor],
+    grid_hw: Tuple[int, int],
+    scale: float,
+) -> torch.Tensor:
+    """The global kernel on given projections (``rel_h_q`` None: no bias)."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, rel_h_q, rel_w_q, grid_hw, scale)
+    _check(q, k, v, "global_attention")
+    bh, s, _ = q.shape
+    if s % 64:
+        raise ValueError(f"global_attention: the kernel needs S % 64 == 0, got S={s}")
+    gh, gw = grid_hw
+    out = torch.empty_like(q)
+    has_bias = rel_h_q is not None
+    _build.launch(
+        "global_attn", "attn", "tmr_global_attn",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rel_h_q.data_ptr() if has_bias else None,
+        rel_w_q.data_ptr() if has_bias else None,
+        out.data_ptr(), bh, s, gh, gw, float(scale), int(has_bias),
+        _build.stream_of(q),
+    )
+    return out
+
+
 def global_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -88,26 +123,28 @@ def global_attention(
     scale: float,
 ) -> torch.Tensor:
     """Global attention with the decomposed rel-pos bias (``rh`` None: no bias)."""
-    rel_h, rel_w = (bias_projections(q, rh, rw, grid_hw) if rh is not None
-                    else (None, None))
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, rel_h, rel_w, grid_hw, scale)
-    _check(q, k, v, "global_attention")
-    bh, s, _ = q.shape
-    if s % 64:
-        raise ValueError(f"global_attention: the kernel needs S % 64 == 0, got S={s}")
-    gh, gw = grid_hw
-    out = torch.empty_like(q)
-    has_bias = rel_h is not None
-    _build.launch(
-        "global_attn", "attn", "tmr_global_attn",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        rel_h.data_ptr() if has_bias else None,
-        rel_w.data_ptr() if has_bias else None,
-        out.data_ptr(), bh, s, gh, gw, float(scale), int(has_bias),
-        _build.stream_of(q),
-    )
-    return out
+    rel = bias_projections(q, rh, rw, grid_hw) if rh is not None else (None, None)
+    return _global_attention_kernel(q, k, v, *rel, grid_hw, scale)
+
+
+def window_geometry(gh: int, gw: int) -> Tuple[int, int, int]:
+    """The windowed kernel's staging for a (gh, gw) window, as ``csrc/attn.cu``
+    ``launch_window`` sets it up: key slots in grid rows of ``gwp`` (8, 16, 32 or 64 >= gw),
+    ``ghp`` key rows (gh, or gh + 1 to make the 8-slot tiles even), query rows padded to
+    ``sp`` (a multiple of 16). Returns (gwp, ghp, shared bytes); raises ``ValueError`` for a
+    window the kernel does not take (rows over 64 tokens, or staging over 227 KB)."""
+    if not 1 <= gw <= 64 or gh < 1:
+        raise ValueError(f"window_attention: the kernel takes window rows of 1..64 tokens, "
+                         f"got a {gh}x{gw} window")
+    gwp = next(p for p in (8, 16, 32, 64) if gw <= p)
+    ghp = gh + (gh * gwp // 8) % 2
+    sp = -(-gh * gw // 16) * 16
+    st_h = (gh + 1) | 1
+    smem = (sp + 2 * ghp * gwp) * 64 * 2 + sp * (st_h + gwp) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"window_attention: a {gh}x{gw} window needs {smem} B of shared "
+                         f"memory, over the {_SMEM_LIMIT} B a block may use")
+    return gwp, ghp, smem
 
 
 def window_attention(
@@ -119,22 +156,25 @@ def window_attention(
     grid_hw: Tuple[int, int],
     scale: float,
 ) -> torch.Tensor:
-    """Whole-window attention with the rel-pos bias: q/k/v (windows*heads, gh*gw, D)."""
-    rel_h, rel_w = bias_projections(q, rh, rw, grid_hw)
+    """Whole-window attention with the rel-pos bias: q/k/v (windows*heads, gh*gw, D). On
+    the card one kernel computes the bias projections too, from the tables."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, rel_h, rel_w, grid_hw, scale)
+        return attention_plain(q, k, v, *bias_projections(q, rh, rw, grid_hw), grid_hw,
+                               scale)
     _check(q, k, v, "window_attention")
     bh, s, _ = q.shape
     gh, gw = grid_hw
-    sp = -(-s // 64) * 64
-    smem = 2 * sp * 72 * 2 + s * (gh + gw + 2) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"window_attention: a {gh}x{gw} window needs {smem} B of shared memory")
+    if s != gh * gw:
+        raise ValueError(f"window_attention: S={s} is not the {gh}x{gw} window's")
+    window_geometry(gh, gw)
+    rh, rw = (t.to(q.device, torch.float32).contiguous() for t in (rh, rw))
+    if rh.shape != (gh, gh, 64) or rw.shape != (gw, gw, 64):
+        raise ValueError(f"window_attention: tables {tuple(rh.shape)} / {tuple(rw.shape)} "
+                         f"do not fit a {gh}x{gw} window")
     out = torch.empty_like(q)
     _build.launch(
         "window_attn", "attn", "tmr_window_attn",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
         out.data_ptr(), bh, s, gh, gw, float(scale), _build.stream_of(q),
     )
     return out

@@ -13,16 +13,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels: each kernel at the main path's shapes against its plain PyTorch version on
    the same inputs, with the tolerance stated, timed beside its plain version, a
    PyTorch library call computing the same function (timed here, never used by the
-   port) and its bound (bytes or operations over the card's peak); an attention kernel
-   is timed alone (the global kernel on given projections), beside its public wrapper,
-   ``bias_projections`` and the mask build that SDPA's time leaves out; the windowed
-   kernel is also held to its plain version at 7x7 and 16x16 windows;
+   port) and its bound (bytes or operations over the card's peak); each attention
+   kernel is one launch that makes its own bias projections (kernel = wrapper), timed
+   beside SDPA with the bias mask precomputed and, printed with it, what SDPA's time
+   leaves out: ``bias_projections`` and the mask build; the global kernel, with and
+   without the bias, is also held to its plain version on 24x40, 96x96 (one image),
+   20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
-   must be > 0 (``window_attn`` exactly 24: one per windowed block), only the global
-   blocks may call ``bias_projections``, and image 0's objectness map must agree with
-   an f32 CPU run of the same port and weights;
+   must be > 0 (``window_attn`` exactly 24: one per windowed block), nothing may call
+   ``bias_projections`` (both attention kernels make their own projections), and image
+   0's objectness map must agree with an f32 CPU run of the same port and weights;
 4b. the int8 path: the same preset with ``quant="int8", quant_storage="int8",
    quant_kernel="int8"`` and phase 4's weights (stored as int8) answers the same 3
    batches; its launch counts must be exactly those of its path; its decoder tail on
@@ -143,23 +145,33 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 
 def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: int,
-                    grid=(64, 64)):
-    """One attention kernel vs its plain version, at the main path's batch (4 images, 12
-    heads; windowed: 25 windows each). Times, on the same inputs: the kernel alone (the
-    global kernel on given projections; the windowed kernel computes its own, so it is
-    its wrapper), the public wrapper, ``bias_projections`` alone, the bf16 mask built
+                    grid=(64, 64), bh=None):
+    """One attention kernel vs its plain version, by default at the main path's batch (4
+    images, 12 heads; windowed: 25 windows each). The global kernel takes compact
+    (2g - 1, 64) tables, the windowed kernel expanded (g, g, 64) ones; the plain version
+    and the yardstick use the expanded tables. Times, on the same inputs: the kernel
+    (one launch, projections inside), ``bias_projections`` alone, the bf16 mask built
     from the projections, and SDPA with that mask precomputed."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bh, (gh, gw) = (4 * 25 * 12 if windowed else 4 * 12), grid
-    s, d = gh * gw, 64
+    (gh, gw), d = grid, 64
+    bh = bh or (4 * 25 * 12 if windowed else 4 * 12)
+    s = gh * gw
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
-    rh = torch.randn(gh, gh, d, generator=gen, device="cuda") * 0.1 if has_bias else None
-    rw = torch.randn(gw, gw, d, generator=gen, device="cuda") * 0.1 if has_bias else None
+    tab = rh = rw = None
+    if has_bias and windowed:
+        rh = torch.randn(gh, gh, d, generator=gen, device="cuda") * 0.1
+        rw = torch.randn(gw, gw, d, generator=gen, device="cuda") * 0.1
+        tab = rh, rw
+    elif has_bias:
+        tab = (torch.randn(2 * gh - 1, d, generator=gen, device="cuda") * 0.1,
+               torch.randn(2 * gw - 1, d, generator=gen, device="cuda") * 0.1)
+        rh, rw = (cuda_attn.get_rel_pos(g, g, t) for g, t in zip(grid, tab))
+    tab = tab or (None, None)
     scale = d ** -0.5
     fn = cuda_attn.window_attention if windowed else cuda_attn.global_attention
     rel = cuda_attn.bias_projections(q, rh, rw, (gh, gw)) if has_bias else (None, None)
-    got = fn(q, k, v, rh, rw, (gh, gw), scale)
+    got = fn(q, k, v, *tab, (gh, gw), scale)
     want = cuda_attn.attention_plain(q, k, v, *rel, (gh, gw), scale)
     torch.cuda.synchronize()
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
@@ -169,9 +181,7 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
                worst_err_over_limit=(diff / limit).max().item())
     acc["ok"] = (acc["worst_err_over_limit"] <= 1.0
                  and acc["mean_abs_err"] <= ATTN_MEAN_TOL * acc["mean_abs_want"])
-    t = dict(wrapper_ms=cuda_ms(lambda: fn(q, k, v, rh, rw, (gh, gw), scale)))
-    t["ms"] = t["wrapper_ms"] if windowed else cuda_ms(
-        lambda: cuda_attn._global_attention_kernel(q, k, v, *rel, (gh, gw), scale))
+    t = dict(ms=cuda_ms(lambda: fn(q, k, v, *tab, (gh, gw), scale)))
     t["plain_ms"] = cuda_ms(lambda: cuda_attn.attention_plain(q, k, v, *rel, (gh, gw),
                                                               scale), reps=3, warmup=1)
     mask = None
@@ -187,17 +197,38 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     t["lib_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], attn_mask=mask, scale=scale), reps=5, warmup=1)
     flops = 4.0 * bh * s * s * d
-    # q, k, v read and out written once; the global kernel also reads the projections,
-    # the windowed kernel makes its own on chip
-    nbytes = 4 * bh * s * d * 2 + (bh * s * (gh + gw) * 4 if has_bias and not windowed
-                                   else 0)
+    # q, k, v read and out written once, and the tables the kernel reads (the windowed
+    # kernel's expanded ones, the global kernel's compact ones)
+    nbytes = 4 * bh * s * d * 2 + (sum(t.numel() for t in tab) * 4 if has_bias else 0)
     return acc, t, bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+#: token grids off the main path, each with and without the bias, (gh, gw, batch*heads):
+#: rows that are not one key tile (24x40), the 1536 bucket at one image (the plain
+#: version's dense f32 scores take 4 GB), the 320^2 and 448^2 inputs' grids whose token
+#: counts are not multiples of 64 (20x20, 28x28), one partial tile (5x7), and 64-token
+#: rows in an odd count (7x64: the main path's 128-key tiles end half empty)
+GLOBAL_GRIDS = ((24, 40, 48), (96, 96, 12), (20, 20, 48), (28, 28, 48), (5, 7, 48),
+                (7, 64, 48))
+
+
+def check_global_grids(torch, F, cuda_attn) -> None:
+    """The global kernel against its plain version on GLOBAL_GRIDS."""
+    for gh, gw, bh in GLOBAL_GRIDS:
+        for has_bias in (True, False):
+            acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, False, has_bias, SEED,
+                                                 (gh, gw), bh)
+            what = f"global_attn{'' if has_bias else '_nobias'} {gh}x{gw} grid, BH={bh}"
+            print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms "
+                  f"{bms:.4f} ({bby})", flush=True)
+            if not acc["ok"]:
+                fail(f"{what} disagrees with its plain version: {acc}")
 
 
 def attn_times(t: dict) -> str:
     extra = (f" bias_projections_ms {t['proj_ms']:.4f} mask_build_ms {t['mask_ms']:.4f}"
              if "proj_ms" in t else "")
-    return (f"kernel_ms {t['ms']:.4f} wrapper_ms {t['wrapper_ms']:.4f} plain_ms "
+    return (f"kernel_ms {t['ms']:.4f} (one launch) plain_ms "
             f"{t['plain_ms']:.4f} library_ms {t['lib_ms']:.4f} (SDPA, mask precomputed)"
             + extra)
 
@@ -416,13 +447,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=t["ms"],
                              plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
                              library_ms=t["lib_ms"])
-    # a grid whose rows are not one 64-key tile runs the global kernel's per-key bias
-    # indexing (off the main path: the 1536 bucket's 96-wide grid takes it)
-    acc, t, _ = check_attention(torch, F, cuda_attn, False, True, SEED, (24, 40))
-    print(f"kernel global_attn 24x40 grid: {attn_accuracy(acc)} kernel_ms {t['ms']:.4f}",
-          flush=True)
-    if not acc["ok"]:
-        fail(f"global_attn on a 24x40 grid disagrees with its plain version: {acc}")
+    check_global_grids(torch, F, cuda_attn)
     # the windowed kernel at 7x7 windows (8-slot key rows, a pad key row, 64 query rows)
     # and 16x16 (full 16-slot key rows, one CTA per SM)
     for grid in ((7, 7), (16, 16)):
@@ -715,13 +740,12 @@ def main(argv=None) -> int:
                                             _build)
     report_batches(np, "main path", caps, times, outs, card)
     print(f"launches over the 3 batches: {json.dumps(launches)}", flush=True)
-    # the windowed kernel makes its own projections: only the 4 global blocks of each
-    # batch (the warm-up batch included) run bias_projections' f32 copy and products
-    want_proj = 4 * (len(batches) + 1)
+    # both attention kernels make their own projections: no f32 copy of q and no
+    # projection products on the main path
     print(f"bias_projections calls over the warm-up and 3 batches: {proj_calls[0]} "
-          f"(expected {want_proj}, the global blocks')", flush=True)
-    if proj_calls[0] != want_proj:
-        fail(f"bias_projections ran {proj_calls[0]} times, expected {want_proj}")
+          f"(expected 0)", flush=True)
+    if proj_calls[0]:
+        fail(f"bias_projections ran {proj_calls[0]} times on the card, expected 0")
     if launches["window_attn"] != 24:
         fail(f"window_attn launched {launches['window_attn']} times, expected 24")
     missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]

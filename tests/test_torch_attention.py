@@ -1,5 +1,9 @@
 """Port attention (``tmr_tpu_torch/ops/cuda_attn.py``, plain versions on the CPU) vs the
-JAX package's Pallas attention kernels run in interpret mode on the same numpy inputs.
+JAX package's Pallas attention kernels run in interpret mode on the same numpy inputs, and
+on token grids the Pallas global kernel refuses (S not a multiple of its block) vs
+``blockwise_decomposed_attention``, the function the JAX ViT runs there. The global
+attention takes the compact ``(2g - 1, D)`` tables: the same numpy table goes through the
+JAX ``get_rel_pos`` into the JAX function, and as it is into the port.
 
 Tolerances: f32 2e-5 (online vs full-row softmax reassociate the f32 sums); bf16 per
 element, one bf16 ulp of the element plus 2^-9 of the largest output, and a mean error
@@ -14,6 +18,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from tmr_tpu.models.vit import blockwise_decomposed_attention  # noqa: E402
+from tmr_tpu.models.vit import get_rel_pos as jax_get_rel_pos  # noqa: E402
 from tmr_tpu.ops.pallas_attn import (  # noqa: E402
     pallas_decomposed_attention,
     pallas_fused_attention,
@@ -44,6 +50,24 @@ def _inputs(seed, b, h, gh, gw, d):
     return q, k, v, rh, rw
 
 
+def _global_inputs(seed, b, h, gh, gw, d, table_len=None):
+    """q, k, v and the compact tables (2gh - 1, d) / (2gw - 1, d), or tables of
+    ``table_len`` rows (a parameter the ViT interpolates)."""
+    rng = np.random.default_rng(seed)
+    s = gh * gw
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+    th, tw = (table_len or 2 * gh - 1), (table_len or 2 * gw - 1)
+    rph = (rng.standard_normal((th, d)) * 0.2).astype(np.float32)
+    rpw = (rng.standard_normal((tw, d)) * 0.2).astype(np.float32)
+    return q, k, v, rph, rpw
+
+
+def _expand(rph, rpw, grid):
+    """The JAX package's get_rel_pos of the compact tables: (gh, gh, d), (gw, gw, d)."""
+    return (np.asarray(jax_get_rel_pos(grid[0], grid[0], jnp.asarray(rph))),
+            np.asarray(jax_get_rel_pos(grid[1], grid[1], jnp.asarray(rpw))))
+
+
 def _port(fn, q, k, v, rh, rw, grid, scale, dtype=torch.float32):
     b, h, s, d = q.shape
     t = lambda a: torch.from_numpy(a.reshape(b * h, s, d)).to(dtype)  # noqa: E731
@@ -70,24 +94,61 @@ def _jax(fn, q, k, v, rh, rw, grid, scale, dtype=jnp.float32):
 @pytest.mark.parametrize("bias", [True, False])
 def test_global_attention_matches_pallas_f32(jax_fn, bias):
     gh = gw = 16
-    q, k, v, rh, rw = _inputs(1, 1, 2, gh, gw, 64)
+    q, k, v, rph, rpw = _global_inputs(1, 1, 2, gh, gw, 64)
+    rh, rw = _expand(rph, rpw, (gh, gw))
     if not bias:
-        rh = rw = None
+        rph = rpw = rh = rw = None
     scale = 64 ** -0.5
     want = _jax(jax_fn, q, k, v, rh, rw, (gh, gw), scale)
-    got = _port(cuda_attn.global_attention, q, k, v, rh, rw, (gh, gw), scale)
+    got = _port(cuda_attn.global_attention, q, k, v, rph, rpw, (gh, gw), scale)
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
 
 
 def test_global_attention_matches_pallas_bf16():
     gh = gw = 16
-    q, k, v, rh, rw = _inputs(2, 1, 2, gh, gw, 64)
+    q, k, v, rph, rpw = _global_inputs(2, 1, 2, gh, gw, 64)
+    rh, rw = _expand(rph, rpw, (gh, gw))
     scale = 64 ** -0.5
     want = _jax(pallas_decomposed_attention, q, k, v, rh, rw, (gh, gw), scale,
                 jnp.bfloat16)
-    got = _port(cuda_attn.global_attention, q, k, v, rh, rw, (gh, gw), scale,
+    got = _port(cuda_attn.global_attention, q, k, v, rph, rpw, (gh, gw), scale,
                 torch.bfloat16)
     _assert_bf16_close(got, want)
+
+
+# token counts that are not multiples of 64: one partial tile (5x7), the 320^2 input's
+# grid (20x20), rows wider than the grid is tall (3x40)
+@pytest.mark.parametrize("grid", [(5, 7), (20, 20), (3, 40)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_global_attention_ragged_grids_match_blockwise(grid, bias):
+    q, k, v, rph, rpw = _global_inputs(9, 1, 2, *grid, 64)
+    rh, rw = _expand(rph, rpw, grid)
+    if not bias:
+        rph = rpw = rh = rw = None
+    scale = 64 ** -0.5
+    want = _jax(blockwise_decomposed_attention, q, k, v, rh, rw, grid, scale)
+    got = _port(cuda_attn.global_attention, q, k, v, rph, rpw, grid, scale)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_global_attention_interpolated_table_matches_expanded_route():
+    """A parameter of 27 rows on a 20x20 grid (the ViT's non-native grids): the port's
+    compact route (``interp_rel_pos`` to 39 rows) equals the JAX blockwise attention on
+    JAX ``get_rel_pos`` of the same parameter, and the port's own expanded route."""
+    grid = (20, 20)
+    q, k, v, rph, rpw = _global_inputs(10, 1, 2, *grid, 64, table_len=27)
+    scale = 64 ** -0.5
+    rh, rw = _expand(rph, rpw, grid)
+    want = _jax(blockwise_decomposed_attention, q, k, v, rh, rw, grid, scale)
+    tph, tpw = (cuda_attn.interp_rel_pos(torch.from_numpy(t), 39) for t in (rph, rpw))
+    assert tph.shape == (39, 64)
+    got = _port(cuda_attn.global_attention, q, k, v, tph.numpy(), tpw.numpy(), grid, scale)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    qt, kt, vt = (torch.from_numpy(a[0]) for a in (q, k, v))
+    exp_h, exp_w = (cuda_attn.get_rel_pos(20, 20, torch.from_numpy(t)) for t in (rph, rpw))
+    expanded = cuda_attn.attention_plain(
+        qt, kt, vt, *cuda_attn.bias_projections(qt, exp_h, exp_w, grid), grid, scale)
+    torch.testing.assert_close(torch.from_numpy(got[0]), expanded, rtol=0, atol=0)
 
 
 # 14: SAM's window (208 query rows, 14 key rows of 16 slots); 4: no query padding; 13: 169
@@ -150,21 +211,44 @@ def test_window_geometry_fits_every_accepted_window():
 
 
 def test_kernel_entries_equal_wrappers_on_projections():
-    """The global kernel's entry on bias_projections' output equals its public wrapper;
-    the windowed wrapper (one kernel, projections inside) equals the plain version on
-    bias_projections' output."""
+    """Each public entry (one kernel on the card, projections inside) equals the plain
+    version on bias_projections' output: the global entry from the compact tables through
+    get_rel_pos, the windowed entry from the expanded tables."""
     for window, fn in ((8, "global"), (14, "window")):
-        q, k, v, rh, rw = (torch.from_numpy(a) for a in _inputs(8, 1, 2, window, window, 64))
-        q, k, v = q[0], k[0], v[0]
         grid, scale = (window, window), 64 ** -0.5
-        rel = cuda_attn.bias_projections(q, rh, rw, grid)
         if fn == "global":
-            want = cuda_attn.global_attention(q, k, v, rh, rw, grid, scale)
-            got = cuda_attn._global_attention_kernel(q, k, v, *rel, grid, scale)
+            q, k, v, rph, rpw = (torch.from_numpy(a)
+                                 for a in _global_inputs(8, 1, 2, window, window, 64))
+            q, k, v = q[0], k[0], v[0]
+            rh, rw = (cuda_attn.get_rel_pos(window, window, t) for t in (rph, rpw))
+            got = cuda_attn.global_attention(q, k, v, rph, rpw, grid, scale)
         else:
-            want = cuda_attn.attention_plain(q, k, v, *rel, grid, scale)
+            q, k, v, rh, rw = (torch.from_numpy(a) for a in _inputs(8, 1, 2, window, window, 64))
+            q, k, v = q[0], k[0], v[0]
             got = cuda_attn.window_attention(q, k, v, rh, rw, grid, scale)
+        want = cuda_attn.attention_plain(q, k, v, *cuda_attn.bias_projections(q, rh, rw, grid),
+                                         grid, scale)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_global_geometry_fits_the_grids_the_port_runs():
+    """The global kernel's shared memory fits 227 KB up to the 1536 bucket's 96x96 grid and
+    past it (gh + gw up to ~290); a grid beyond raises; without the bias any grid fits."""
+    assert cuda_attn.global_geometry(64, 64) == 182328
+    for gh, gw in ((96, 96), (5, 7), (1, 1), (145, 145)):
+        assert cuda_attn.global_geometry(gh, gw) <= 227 * 1024
+    with pytest.raises(ValueError):
+        cuda_attn.global_geometry(150, 150)
+    assert cuda_attn.global_geometry(150, 150, has_bias=False) <= 227 * 1024
+
+
+@pytest.mark.parametrize("missing", ["h", "w"])
+def test_global_attention_refuses_one_table(missing):
+    """One rel-pos table without the other is refused before either path runs."""
+    q, k, v, rph, rpw = (torch.from_numpy(a) for a in _global_inputs(3, 1, 1, 4, 5, 64))
+    tables = (None, rpw) if missing == "h" else (rph, None)
+    with pytest.raises(ValueError, match="both rel-pos tables"):
+        cuda_attn.global_attention(q[0], k[0], v[0], *tables, (4, 5), 64 ** -0.5)
 
 
 def test_bias_projections_layout():

@@ -8,20 +8,61 @@
 // Both compute softmax(q.k^T * scale + bias) . v per (batch*head) with the decomposed
 // SAM rel-pos bias bias[q, (ky, kx)] = rel_h_q[q, ky] + rel_w_q[q, kx], where
 // rel_h_q[q, ky] = q . rh[y_q, ky] and rel_w_q[q, kx] = q . rw[x_q, kx] in f32 (the JAX
-// _bias_projections). The global kernel takes the projections (BH, S, gh) / (BH, S, gw),
-// computed outside; the windowed kernel takes the (gh, gh, 64) / (gw, gw, 64) tables and
-// computes them itself.
+// _bias_projections). Both make the projections themselves, on the tensor cores: the
+// global kernel from the compact (2g - 1, D) tables, the windowed kernel from the
+// expanded (g, g, D) get_rel_pos tables. Each is one launch that writes nothing to HBM
+// but its output.
 //
-// Global kernel. It does 4*S^2*D flops per head on tensor cores (206 GFLOP per call at
-// 4096 tokens, batch 4, 12 heads) and moves only q/k/v/out plus the projections, so it is
-// compute-bound. q.k and p.v run through mma.sync m16n8k16 (bf16 -> f32) with ldmatrix
-// operand loads (.trans for V); the online softmax keeps m/l/acc in registers (f32, exp2
-// domain) and no score tile leaves the SM. One CTA of 4 warps per (bh, 64-query tile) loops
-// over 64-key tiles (the TPU's sequential "arbitrary" grid axis), the next K/V tile
-// streaming in by cp.async while the current one is consumed; the bias of a tile is read
-// from the q tile's projection strips, staged once in shared memory (when a tile is one
-// token-grid row, gw == 64, the rel-h term is one value per query row). Not yet: wgmma,
-// TMA, warp specialisation (later work).
+// Global kernel (SAM ViT-B: 4 blocks of 48 x 4096 x 64 per batch of 4). It does 4 S^2 D
+// flops per head, 206 GFLOP per call: 0.208 ms at the bf16 peak, which bounds it (its
+// bytes, q/k/v/out and the tables, take 0.03 ms). It has 805 M scores, and the SFU's ex2
+// (16 a clock per SM) needs ~0.21 ms for them, so the exponentials must run under the
+// products. The first design (mma.sync, one CTA of 4 warps per 64 query rows, cp.async
+// double buffering, projections precomputed in HBM) took 1.07 ms alone and 1.39 ms with
+// its projections; what held it back, and what this design does:
+//  1. L2 -> shared traffic: 64 query rows per CTA made every CTA stream its head's whole
+//     K and V, 3.2 GB per call. Now a CTA owns 128 query rows (2 consumer warpgroups of 64),
+//     half the traffic.
+//  2. Shared -> register traffic: each warp read every K and V tile through ldmatrix for
+//     16 rows. Now q.k and p.v are wgmma: a warpgroup reads a tile once for its 64 rows.
+//     q.k takes A = Q from registers (loaded once) and B = K from shared memory (K-major);
+//     p.v takes A = p from registers (the q.k accumulator layout is the A fragment layout)
+//     and B = V through the transpose bit (V stays as stored, keys x head dim).
+//  3. Per-score work: ex2.approx.ftz in place of exp2f; the scale (x log2 e) and the rel-w
+//     term are one FFMA (the projections are stored x log2 e), and the rel-h term, one
+//     value per grid row of keys, enters only the row max and the exponent's offset; no
+//     global load in the key loop. The exponentials run under the products twice over:
+//     a warpgroup issues q.k of tile kt before p.v of tile kt-1 and runs its softmax while
+//     p.v is in flight, and with the bias the two consumer warpgroups take turns at the
+//     tensor cores through two named barriers (without it, where the softmax is shorter,
+//     they measured faster running freely).
+//  4. Projections through HBM: the wrapper wrote an f32 copy of q and 100 MB of f32
+//     projections per call. Now each warp computes its 16 rows' projections after Q lands,
+//     while the first K/V tiles are in flight: the tables are Toeplitz (rh[y, ky] =
+//     R_h[y - ky + gh - 1]), so the rel-h terms of a row are q . R_h over a window of table
+//     rows, and a warp multiplies (mma.sync, q exact in bf16, the f32 table as bf16 hi + lo
+//     terms, f32 sums) only the table rows its 16 rows need: 8-9 groups of 8 for rel-h, 10-11
+//     for rel-w on the 64x64 grid, ~4% of the attention's tensor work. The (128, gh) and
+//     (128, gw) results stay in shared memory.
+//  5. Copies and occupancy: K/V tiles (128-byte rows, 128B-swizzled) arrive by TMA
+//     (cp.async.bulk.tensor, 3-D maps over (BH, S, D)) into a ring (3 stages of 128 keys,
+//     96 KB, on the main path; 4 of 64 elsewhere) with full/empty mbarriers, fed by one
+//     producer thread; the producer warpgroup hands its registers to the consumers
+//     (setmaxnreg 40 / 232). One CTA of 12 warps per SM (182 KB of shared memory on the
+//     main path).
+// Alternatives measured slower on the main path and removed (PERF.md): Q read from shared
+// memory by every q.k, 64-key tiles, and no turn-taking with the bias.
+// Any token count: Q rows and K/V keys past S are zero-filled by TMA; the last tile's pad
+// keys get -inf (a separate instantiation of the tile step, so full tiles run no mask
+// instruction; on the main path a key row past the grid has rel-h -inf); pad query rows
+// are never stored. When a grid row is 64 tokens (the main path) a lane's rel-w terms are
+// 16 registers for the whole loop and its rel-h terms one shared read per key row and
+// tile; other grids (24x40, 96x96, 20x20, ...) derive each column's (ky, kx) once per tile
+// by a reciprocal multiply and read both terms from shared memory. The head dim is a
+// template parameter (64-column panels; 64 instantiated).
+// nvcc -Xptxas -v (CUDA 12.9, sm_90a), each of <64, 128, bias, row tile>,
+// <64, 64, bias, general> and <64, 64, no bias>: 168 registers (the launch bound's share of
+// 384 threads), 0 bytes stack frame, 0 spills.
 //
 // Windowed kernel (SAM: 14x14 windows, S = 196, BH = 4 * 25 * 12 = 1200 per block). Its
 // bound is bytes: q, k, v in and out, bf16, 120 MB per call, 0.036 ms at 3.35 TB/s; its
@@ -64,17 +105,16 @@
 // because 208 rows fill 64-row tiles poorly and the first goal was the library's time.
 // Window rows up to 64 tokens and staging up to 227 KB (squares up to 16x16) are taken.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int HD = 64;     // head dim
-constexpr int BQ = 64;     // query rows per CTA pass (4 warps x 16)
-constexpr int BK = 64;     // keys per tile
-constexpr int KSTR = 72;   // padded bf16 row stride of the K/V tiles (ldmatrix conflict free)
+constexpr int HD = 64;  // head dim of the windowed kernel
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
@@ -123,134 +163,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 struct WarpState {
   uint32_t qf[4][4];  // Q fragments for the 4 head-dim chunks of 16
   float o[8][4];      // output accumulators, 8 head-dim n-tiles of 8
   float m[2];         // running max (log2 domain) of rows g and g+8
   float l[2];         // this thread's partial denominators of rows g and g+8
 };
-
-// Load this warp's 16 query rows (rows r0 and r0+8 for this lane) as mma A fragments.
-__device__ __forceinline__ void load_q(WarpState& st, const __nv_bfloat16* qr0,
-                                       const __nv_bfloat16* qr1, bool ok0, bool ok1) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    st.qf[kc][0] = ok0 ? ld32(qr0 + c) : 0u;
-    st.qf[kc][1] = ok1 ? ld32(qr1 + c) : 0u;
-    st.qf[kc][2] = ok0 ? ld32(qr0 + c + 8) : 0u;
-    st.qf[kc][3] = ok1 ? ld32(qr1 + c + 8) : 0u;
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
-  st.m[0] = st.m[1] = -INFINITY;
-  st.l[0] = st.l[1] = 0.f;
-}
-
-// One 64-key tile of online-softmax attention for this warp's 16 query rows, in the
-// log2 domain (exp2 of scores pre-multiplied by log2 e). sK / sV: the tile's 64 key
-// rows of K and V, row-major with stride KSTR; key0: index of the tile's first key.
-// ROW_TILE: the tile is exactly one token-grid row (gw == BK), so the rel-h bias is one
-// value per query row and the rel-w column is the key's column in the tile.
-template <bool HAS_BIAS, bool ROW_TILE>
-__device__ __forceinline__ void attend_tile(WarpState& st, const __nv_bfloat16* sK,
-                                            const __nv_bfloat16* sV, int key0,
-                                            float scale_log2, const float* rh0,
-                                            const float* rh1, const float* rw0,
-                                            const float* rw1, int gw) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: matrix and row this lane addresses
-  float s[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, sK + ((np * 2 + (lm >> 1)) * 8 + lr) * KSTR + kc * 16 + (lm & 1) * 8);
-      mma_bf16(s[2 * np], st.qf[kc], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], st.qf[kc], b[2], b[3]);
-    }
-  }
-  float rhv0 = 0.f, rhv1 = 0.f;
-  if (HAS_BIAS && ROW_TILE) {
-    rhv0 = rh0[key0 / gw];
-    rhv1 = rh1[key0 / gw];
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n * 8 + 2 * t + j, key = key0 + col;
-      float v0 = s[n][j] * scale_log2, v1 = s[n][2 + j] * scale_log2;
-      if (HAS_BIAS && ROW_TILE) {
-        // the rel-w columns of this thread are key columns n*8 + 2t + {0, 1}: one
-        // 8-byte load per row (the strip's stride keeps them 8-byte aligned)
-        const float2 w0 = *reinterpret_cast<const float2*>(rw0 + n * 8 + 2 * t);
-        const float2 w1 = *reinterpret_cast<const float2*>(rw1 + n * 8 + 2 * t);
-        v0 += (rhv0 + (j ? w0.y : w0.x)) * LOG2E;
-        v1 += (rhv1 + (j ? w1.y : w1.x)) * LOG2E;
-      } else if (HAS_BIAS) {
-        const int ky = key / gw, kx = key - ky * gw;
-        v0 += (rh0[ky] + rw0[kx]) * LOG2E;
-        v1 += (rh1[ky] + rw1[kx]) * LOG2E;
-      }
-      s[n][j] = v0;
-      s[n][2 + j] = v1;
-      mx0 = fmaxf(mx0, v0);
-      mx1 = fmaxf(mx1, v1);
-    }
-  }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(st.m[0], mx0), mn1 = fmaxf(st.m[1], mx1);
-  const float a0 = exp2f(st.m[0] - mn0), a1 = exp2f(st.m[1] - mn1);
-  st.m[0] = mn0;
-  st.m[1] = mn1;
-  float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    s[n][0] = exp2f(s[n][0] - mn0);
-    s[n][1] = exp2f(s[n][1] - mn0);
-    s[n][2] = exp2f(s[n][2] - mn1);
-    s[n][3] = exp2f(s[n][3] - mn1);
-    ps0 += s[n][0] + s[n][1];
-    ps1 += s[n][2] + s[n][3];
-  }
-  st.l[0] = st.l[0] * a0 + ps0;
-  st.l[1] = st.l[1] * a1 + ps1;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    st.o[n][0] *= a0;
-    st.o[n][1] *= a0;
-    st.o[n][2] *= a1;
-    st.o[n][3] *= a1;
-  }
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-    a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-    a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-    a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, sV + (kc * 16 + (lm & 1) * 8 + lr) * KSTR + (dp * 2 + (lm >> 1)) * 8);
-      mma_bf16(st.o[2 * dp], a, b[0], b[1]);
-      mma_bf16(st.o[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
 
 __device__ __forceinline__ void store_out(WarpState& st, __nv_bfloat16* or0, __nv_bfloat16* or1,
                                           bool ok0, bool ok1) {
@@ -270,77 +188,6 @@ __device__ __forceinline__ void store_out(WarpState& st, __nv_bfloat16* or0, __n
       *reinterpret_cast<__nv_bfloat162*>(or1 + c) =
           __floats2bfloat162_rn(st.o[n][2] / l1, st.o[n][3] / l1);
   }
-}
-
-// Start the asynchronous copy of one 64-key tile of K and V (rows k0..k0+63).
-__device__ __forceinline__ void issue_kv_tile(const __nv_bfloat16* k, const __nv_bfloat16* v,
-                                              int k0, __nv_bfloat16* sK, __nv_bfloat16* sV) {
-  for (int i = threadIdx.x; i < BK * (HD / 8); i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    cp_async16(sK + r * KSTR + c, k + (size_t)(k0 + r) * HD + c);
-    cp_async16(sV + r * KSTR + c, v + (size_t)(k0 + r) * HD + c);
-  }
-  cp_async_commit();
-}
-
-// Copy rows [r0, r0+nrows) of a (rows, width) f32 projection into shared memory with row
-// stride `stride` (rows past `limit` are left unset: their results are discarded).
-__device__ __forceinline__ void stage_proj(const float* src, int r0, int nrows, int limit,
-                                           int width, int stride, float* dst) {
-  for (int i = threadIdx.x; i < nrows * width; i += blockDim.x) {
-    const int r = i / width, c = i - r * width;
-    if (r0 + r < limit) dst[r * stride + c] = src[(size_t)(r0 + r) * width + c];
-  }
-}
-
-template <bool HAS_BIAS, bool ROW_TILE>
-__global__ void __launch_bounds__(128, 4)
-    global_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ rhq,
-                       const float* __restrict__ rwq, __nv_bfloat16* __restrict__ out, int S,
-                       int gh, int gw, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 buffers x BK rows
-  __nv_bfloat16* sV = sK + 2 * BK * KSTR;                        // 2 buffers x BK rows
-  // bias strips of the q tile; with ROW_TILE the rel-h term is one value per row and
-  // tile, read from global memory, and only the rel-w strip is staged (stride gw + 8:
-  // 8-byte aligned rows, conflict-free float2 reads), which leaves room for 4 CTAs/SM
-  float* sRh = reinterpret_cast<float*>(sV + 2 * BK * KSTR);
-  float* sRw = ROW_TILE ? sRh : sRh + BQ * (gh + 1);
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const size_t base = (size_t)bh * S * HD;
-  issue_kv_tile(k + base, v + base, 0, sK, sV);
-  if (HAS_BIAS) {
-    if (!ROW_TILE) stage_proj(rhq + (size_t)bh * S * gh, q0, BQ, S, gh, gh + 1, sRh);
-    stage_proj(rwq + (size_t)bh * S * gw, q0, BQ, S, gw, gw + 8, sRw);
-  }
-  const int lr0 = warp * 16 + g;  // local rows lr0, lr0 + 8
-  const float* rh0 = ROW_TILE ? rhq + ((size_t)bh * S + q0 + lr0) * gh : sRh + lr0 * (gh + 1);
-  const float* rh1 = ROW_TILE ? rh0 + 8 * gh : rh0 + 8 * (gh + 1);
-  WarpState st;
-  load_q(st, q + base + (size_t)(q0 + lr0) * HD, q + base + (size_t)(q0 + lr0 + 8) * HD, true,
-         true);
-  const int nk = S / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    // double buffering: tile kt+1 streams in while tile kt is consumed
-    if (kt + 1 < nk) {
-      const int nb = (kt + 1) & 1;
-      issue_kv_tile(k + base, v + base, (kt + 1) * BK, sK + nb * BK * KSTR,
-                    sV + nb * BK * KSTR);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int cb = kt & 1;
-    attend_tile<HAS_BIAS, ROW_TILE>(
-        st, sK + cb * BK * KSTR, sV + cb * BK * KSTR, kt * BK, scale_log2,
-        rh0, rh1, sRw + lr0 * (gw + 8), sRw + (lr0 + 8) * (gw + 8), gw);
-    __syncthreads();  // the buffer is refilled by the next iteration's prefetch
-  }
-  store_out(st, out + base + (size_t)(q0 + lr0) * HD, out + base + (size_t)(q0 + lr0 + 8) * HD,
-            true, true);
 }
 
 // ---- windowed attention ------------------------------------------------------------------
@@ -615,6 +462,583 @@ __global__ void __launch_bounds__(WIN_WARPS * 32, 2)
   }
 }
 
+// ---- global attention --------------------------------------------------------------------
+
+constexpr int GQ = 128;         // query rows per CTA: 2 consumer warpgroups x 64
+constexpr int G_THREADS = 384;  // warpgroup 0 loads (one thread), warpgroups 1-2 compute
+
+// Head dim D is stored as 64-column panels (128-byte rows, one 128B-swizzle span each; a
+// head dim that is not a multiple of 64 is zero-filled by TMA up to the panel edge).
+template <int D>
+struct GPanels {
+  static constexpr int NP = (D + 63) / 64;  // panels per row
+  static constexpr int KS = (D + 15) / 16;  // 16-wide k-steps of q.k
+};
+template <int BK>
+struct GStages {
+  static constexpr int NS = BK == 64 ? 4 : 3;  // K/V ring: 64 KB of 64-key, 96 KB of 128-key tiles
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA tile (box of the tensor map) into shared memory, completion counted in bytes on
+// `bar`. Coordinates are (column, row, batch*head); rows past the tensor are zero-filled.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Named barriers of the two consumer warpgroups' turns (no-ops when they run freely).
+template <bool TURNS>
+__device__ __forceinline__ void named_sync(int id) {
+  if (TURNS) asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <bool TURNS>
+__device__ __forceinline__ void named_arrive(int id) {
+  if (TURNS) asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving register reads or writes of an accumulator across the
+// asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma descriptor of a 128B-swizzled operand tile (rows of 128 bytes, 8-row groups 1024
+// bytes apart, 1024-byte aligned as TMA writes it). The same layout serves a K-major
+// operand (Q, K: 16-wide k-steps advance the start by 32 bytes) and the MN-major V (the
+// transpose bit; 16-key k-steps advance it by 2048 bytes).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+#define WG_ACC8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32(i) WG_ACC8(i), WG_ACC8(i + 8), WG_ACC8(i + 16), WG_ACC8(i + 24)
+
+// d (64 x 64, f32) (+)= A (64 x 16, bf16 registers) . B (16 x 64, shared; TB: MN-major,
+// as V is read, else K-major)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+      "%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, bf16 registers) . B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+      "%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,"
+      "%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// A warp's 16 query rows (CTA-local rows lr0..lr0+15 of the swizzled Q tile) as the A
+// fragments of mma.sync m16n8k16, which are also a warp's share of a wgmma A operand.
+template <int D>
+__device__ __forceinline__ void load_q_fragments(const unsigned char* sQ, int lr0,
+                                                 uint32_t (&a)[GPanels<D>::KS][4]) {
+  const int lane = threadIdx.x & 31, lm = lane >> 3, lr = lane & 7;
+  const int row = lr0 + (lm & 1) * 8 + lr;
+#pragma unroll
+  for (int kk = 0; kk < GPanels<D>::KS; ++kk) {
+    const int chunk = kk * 2 + (lm >> 1);
+    ldsm_x4(a[kk],
+            sQ + (chunk >> 3) * GQ * 128 + row * 128 + (((chunk & 7) ^ (row & 7)) << 4));
+  }
+}
+
+// Bias projections of one warp's 16 query rows (CTA-local rows lr0..lr0+15, bf16 in the
+// swizzled Q tile) against one compact rel-pos table R (L = 2g - 1 rows of D f32):
+//   out[r][kk] = LOG2E * (q_r . R[c_r + g - 1 - kk]),  kk < g,
+// c_r the row's grid coordinate (y for rel-h, x for rel-w): the get_rel_pos table of a
+// self-attention grid is Toeplitz, rh[c, kk] = R[c - kk + g - 1]. The products run on the
+// tensor cores (mma.sync, q exact in bf16, R split into bf16 hi + lo terms, f32 sums) over
+// only the table rows [cmin, cmax + g - 1] that some row of the warp needs, 8 at a time;
+// each product lands in the row's output slot or is dropped.
+template <int D>
+__device__ __forceinline__ void global_projection(const unsigned char* sQ, int lr0,
+                                                  const float* __restrict__ R, int g, int c0,
+                                                  int c1, int cmin, int cmax, float* out,
+                                                  int st) {
+  constexpr int KS = GPanels<D>::KS;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  uint32_t a[KS][4];
+  load_q_fragments<D>(sQ, lr0, a);
+  const int L = 2 * g - 1;
+  const int jhi = min(cmax + g - 1, L - 1);
+  // two groups of 8 table rows per pass: their 32 loads in flight together, and four
+  // independent mma chains (hi and lo terms of each group) in place of one
+  for (int j0 = cmin & ~7; j0 <= jhi; j0 += 16) {
+    float2 x[2][KS][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* brow = R + (size_t)min(j0 + 8 * h + gq, L - 1) * D + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x[h][kk][e] = kk * 16 + 8 * e + 2 * t < D
+                            ? *reinterpret_cast<const float2*>(brow + kk * 16 + 8 * e)
+                            : make_float2(0.f, 0.f);
+      }
+    }
+    float chi[2][4] = {}, clo[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t h0, l0, h1, l1;
+        split_bf16(x[h][kk][0].x, x[h][kk][0].y, h0, l0);
+        split_bf16(x[h][kk][1].x, x[h][kk][1].y, h1, l1);
+        mma_bf16(clo[h], a[kk], l0, l1);
+        mma_bf16(chi[h], a[kk], h0, h1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int cr = r ? c1 : c0;
+        float* orow = out + (lr0 + gq + 8 * r) * st;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = cr + g - 1 - (j0 + 8 * h + 2 * t + e);
+          if (kk >= 0 && kk < g) orow[kk] = (clo[h][2 * r + e] + chi[h][2 * r + e]) * LOG2E;
+        }
+      }
+    }
+  }
+}
+
+// What a consumer thread needs to turn a tile's scores into probabilities.
+struct GRows {
+  const float* rh0;  // rel-h row of query rows r0 and r1 (shared, x LOG2E)
+  const float* rh1;
+  const float* rw0;  // rel-w rows (general path)
+  const float* rw1;
+  int S, gh, gw;
+  float inv_gw, scale_log2;
+};
+
+// One K/V tile's online softmax for this thread's two query rows: scores (in the wgmma
+// accumulator layout: s[4j + e] row g, key 8j + 2t + e; s[4j + 2 + e] row g + 8) get the
+// scale and the bias in one FFMA (the projections carry LOG2E), then the running max, the
+// rescale of o and l, exp2 by ex2.approx, and p packed as the bf16 A fragments of the p.v
+// wgmma.
+// ROW_TILE (gw == 64): the tile's key rows are whole grid rows, so a key's rel-w term is
+// the register rw[j % 8][e] for the whole loop, folded into the FFMA, and the rel-h term h
+// of key row u is one shared read per tile that never touches a score: the row max of
+// key row u is max(s') + h, and p = ex2(s' - (m - h)). A key row past the grid (the
+// half-empty last tile when BK = 128) has h = -inf. Otherwise each column's (ky, kx) is
+// derived once per tile by a reciprocal multiply and both terms are shared reads; MASK
+// (the last tile when S % BK != 0) sets pad keys to -inf. This part leaves the
+// probabilities in s and returns the rescale factors of o and l in a; global_finish
+// rescales o and packs p once the p.v product of the previous tile no longer writes o.
+template <int BK, bool HAS_BIAS, bool ROW_TILE, bool MASK>
+__device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2],
+                                               float (&l)[2], float (&a)[2],
+                                               const float (&rw0)[8][2],
+                                               const float (&rw1)[8][2], const GRows& rows,
+                                               int kt) {
+  constexpr int NU = BK / 64;  // 64-key parts of the tile (one grid row each with ROW_TILE)
+  const int t = threadIdx.x & 3;
+  float h0[NU], h1[NU], mx0[NU], mx1[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    h0[u] = h1[u] = 0.f;
+    mx0[u] = mx1[u] = -INFINITY;
+    if (HAS_BIAS && ROW_TILE) {
+      const int ky = kt * NU + u;
+      h0[u] = ky < rows.gh ? rows.rh0[ky] : -INFINITY;
+      h1[u] = ky < rows.gh ? rows.rh1[ky] : -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v0, v1;
+      const int key = kt * BK + 8 * j + 2 * t + e;
+      if (HAS_BIAS && ROW_TILE) {
+        v0 = fmaf(s[4 * j + e], rows.scale_log2, rw0[j % 8][e]);
+        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rw1[j % 8][e]);
+      } else if (HAS_BIAS) {
+        int ky = __float2int_rz(__fmul_rn((float)key + 0.5f, rows.inv_gw));
+        const int kx = key - ky * rows.gw;
+        if (MASK) ky = min(ky, rows.gh - 1);  // pad keys: any row in range, masked below
+        v0 = fmaf(s[4 * j + e], rows.scale_log2, rows.rh0[ky] + rows.rw0[kx]);
+        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rows.rh1[ky] + rows.rw1[kx]);
+      } else {
+        v0 = s[4 * j + e] * rows.scale_log2;
+        v1 = s[4 * j + 2 + e] * rows.scale_log2;
+      }
+      if (MASK && key >= rows.S) v0 = v1 = -INFINITY;
+      s[4 * j + e] = v0;
+      s[4 * j + 2 + e] = v1;
+      mx0[j / 8] = fmaxf(mx0[j / 8], v0);
+      mx1[j / 8] = fmaxf(mx1[j / 8], v1);
+    }
+  }
+  float tm0 = -INFINITY, tm1 = -INFINITY;  // the tile's row maxima, rel-h included
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    tm0 = fmaxf(tm0, mx0[u] + h0[u]);
+    tm1 = fmaxf(tm1, mx1[u] + h1[u]);
+  }
+  tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, 1));
+  tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, 2));
+  tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, 1));
+  tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, 2));
+  const float mn0 = fmaxf(m[0], tm0), mn1 = fmaxf(m[1], tm1);
+  const float a0 = ex2(m[0] - mn0), a1 = ex2(m[1] - mn1);
+  m[0] = mn0;
+  m[1] = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float c0 = mn0 - h0[j / 8], c1 = mn1 - h1[j / 8];  // folded per part
+    s[4 * j] = ex2(s[4 * j] - c0);
+    s[4 * j + 1] = ex2(s[4 * j + 1] - c0);
+    s[4 * j + 2] = ex2(s[4 * j + 2] - c1);
+    s[4 * j + 3] = ex2(s[4 * j + 3] - c1);
+    ps0 += s[4 * j] + s[4 * j + 1];
+    ps1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l[0] = l[0] * a0 + ps0;
+  l[1] = l[1] * a1 + ps1;
+  a[0] = a0;
+  a[1] = a1;
+}
+
+template <int D, int BK>
+__device__ __forceinline__ void global_finish(const float (&s)[BK / 2],
+                                              float (&o)[GPanels<D>::NP][32],
+                                              uint32_t (&p)[BK / 16][4], const float (&a)[2]) {
+#pragma unroll
+  for (int pn = 0; pn < GPanels<D>::NP; ++pn) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[pn][4 * j] *= a[0];
+      o[pn][4 * j + 1] *= a[0];
+      o[pn][4 * j + 2] *= a[1];
+      o[pn][4 * j + 3] *= a[1];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// s = q . k^T of one tile for this warpgroup's 64 rows: A = Q from the registers qa
+// (loaded once), B = K from shared memory.
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
+                                         const uint32_t (&qa)[GPanels<D>::KS][4],
+                                         const unsigned char* sK) {
+#pragma unroll
+  for (int kk = 0; kk < GPanels<D>::KS; ++kk) {
+    const uint64_t b = sw128_desc(sK + (kk >> 2) * BK * 128) + (kk & 3) * 2;
+    if constexpr (BK == 64)
+      wgmma_rs_n64<0>(s, qa[kk], b, kk > 0);
+    else
+      wgmma_rs_n128(s, qa[kk], b, kk > 0);
+  }
+}
+
+// o += p . v of one tile (A = p from registers, B = V shared through the transpose bit).
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[GPanels<D>::NP][32],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         const unsigned char* sV) {
+#pragma unroll
+  for (int pn = 0; pn < GPanels<D>::NP; ++pn) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_n64<1>(o[pn], p[kk], sw128_desc(sV + pn * BK * 128 + kk * 16 * 128), 1);
+  }
+}
+
+template <int D, int BK>
+__host__ __device__ constexpr size_t global_smem_fixed() {
+  return 1024 + (size_t)GPanels<D>::NP * GQ * 128 +
+         (size_t)GStages<BK>::NS * 2 * GPanels<D>::NP * BK * 128 +
+         (size_t)(1 + 2 * GStages<BK>::NS) * 8;
+}
+
+// One CTA per (128 query rows, batch*head): q/k/v/out (BH, S, D) bf16, S = gh * gw; rph
+// (2gh - 1, D) and rpw (2gw - 1, D) f32, the compact rel-pos tables (null without bias).
+// Warpgroup 0 is the producer: one thread issues Q's TMA, then keeps the ring of K/V tiles
+// full (full/empty mbarriers). Warpgroups 1 and 2 each own 64 query rows: they make their
+// bias projections in shared memory while the first tiles land, then run q.k (wgmma),
+// the softmax, and p.v (wgmma) per tile; with the bias they take turns at the tensor cores
+// through two named barriers (one issues q.k of tile kt and p.v of tile kt-1 while the
+// other runs its softmax).
+template <int D, int BK, bool HAS_BIAS, bool ROW_TILE>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    global_attn_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ rph,
+                       const float* __restrict__ rpw, __nv_bfloat16* __restrict__ out, int S,
+                       int gh, int gw, int sth, int stw, float scale_log2) {
+  constexpr int NP = GPanels<D>::NP, NS = GStages<BK>::NS;
+  constexpr int QBYTES = NP * GQ * 128, KVBYTES = NP * BK * 128;
+  constexpr bool TURNS = HAS_BIAS;
+  extern __shared__ unsigned char g_smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(g_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sKV = sQ + QBYTES;  // stage s: K at s * 2 * KVBYTES, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + NS * 2 * KVBYTES);
+  uint64_t* qfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
+  float* sRh = reinterpret_cast<float*>(bars + 1 + 2 * NS);  // (GQ, sth) x LOG2E
+  float* sRw = sRh + GQ * sth;                                 // (GQ, stw) x LOG2E
+  const int bh = blockIdx.y, q0 = blockIdx.x * GQ;
+  const int nk = (S + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, wg = warp >> 2;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qfull, QBYTES);
+      for (int pn = 0; pn < NP; ++pn)
+        tma_load_3d(sQ + pn * GQ * 128, &tq, qfull, 64 * pn, q0, bh);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % NS, u = kt / NS;
+        if (u) mbar_wait(&empty[s], (u - 1) & 1);
+        unsigned char* sK = sKV + s * 2 * KVBYTES;
+        mbar_expect_tx(&full[s], 2 * KVBYTES);
+        for (int pn = 0; pn < NP; ++pn) {
+          tma_load_3d(sK + pn * BK * 128, &tk, &full[s], 64 * pn, kt * BK, bh);
+          tma_load_3d(sK + KVBYTES + pn * BK * 128, &tv, &full[s], 64 * pn, kt * BK, bh);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+    const int lr0 = 64 * c + 16 * (warp & 3);  // this warp's first CTA-local row
+    const int r0 = lr0 + gq, r1 = r0 + 8;
+    mbar_wait(qfull, 0);
+    uint32_t qa[GPanels<D>::KS][4];  // this warp's 16 Q rows as wgmma A fragments
+    load_q_fragments<D>(sQ, lr0, qa);
+    float rw0[8][2], rw1[8][2];
+    GRows rows{sRh + r0 * sth, sRh + r1 * sth, sRw + r0 * stw, sRw + r1 * stw, S, gh, gw,
+               1.f / (float)gw, scale_log2};
+    if (HAS_BIAS) {
+      // grid coordinates of this thread's rows and the ranges over the warp's 16 rows
+      // (pad rows past S take the last token's)
+      const int tf = min(q0 + lr0, S - 1), tl = min(q0 + lr0 + 15, S - 1);
+      const int ta = min(q0 + r0, S - 1), tb = min(q0 + r1, S - 1);
+      const int ya = ta / gw, yb = tb / gw, yf = tf / gw, yl = tl / gw;
+      global_projection<D>(sQ, lr0, rph, gh, ya, yb, yf, yl, sRh, sth);
+      const bool one_row = yf == yl;
+      global_projection<D>(sQ, lr0, rpw, gw, ta - ya * gw, tb - yb * gw,
+                           one_row ? tf - yf * gw : 0, one_row ? tl - yl * gw : gw - 1, sRw,
+                           stw);
+      __syncwarp();
+      if (ROW_TILE) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            rw0[j][e] = rows.rw0[8 * j + 2 * t + e];
+            rw1[j][e] = rows.rw1[8 * j + 2 * t + e];
+          }
+        }
+      }
+    }
+    float o[NP][32], s[BK / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+    const int me = 1 + c, other = 2 - c;  // named barriers 1 and 2
+    const int nfull = S / BK;               // tiles with no pad key
+    if (c == 1) named_arrive<TURNS>(1);     // consumer 0 takes the first turn
+    float a[2];
+    // tile 0: q.k alone
+    mbar_wait(&full[0], 0);
+    named_sync<TURNS>(me);
+    wg_fence();
+    issue_qk<D, BK>(s, qa, sKV);
+    wg_commit();
+    named_arrive<TURNS>(other);
+    wg_wait<0>();
+    fence_regs(s);
+    if (0 < nfull || ROW_TILE)
+      global_softmax<BK, HAS_BIAS, ROW_TILE, false>(s, m, l, a, rw0, rw1, rows, 0);
+    else
+      global_softmax<BK, HAS_BIAS, ROW_TILE, true>(s, m, l, a, rw0, rw1, rows, 0);
+    global_finish<D, BK>(s, o, p, a);
+    for (int kt = 1; kt < nk; ++kt) {
+      const int st = kt % NS, prev = (kt - 1) % NS;
+      mbar_wait(&full[st], (kt / NS) & 1);
+      named_sync<TURNS>(me);
+      wg_fence();
+      // q.k of tile kt first: its softmax then runs while p.v of tile kt-1 is in flight
+      issue_qk<D, BK>(s, qa, sKV + st * 2 * KVBYTES);
+      wg_commit();
+      issue_pv<D, BK>(o, p, sKV + prev * 2 * KVBYTES + KVBYTES);
+      wg_commit();
+      named_arrive<TURNS>(other);
+      wg_wait<1>();
+      fence_regs(s);
+      if (kt < nfull || ROW_TILE)
+        global_softmax<BK, HAS_BIAS, ROW_TILE, false>(s, m, l, a, rw0, rw1, rows, kt);
+      else
+        global_softmax<BK, HAS_BIAS, ROW_TILE, true>(s, m, l, a, rw0, rw1, rows, kt);
+      wg_wait<0>();
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      global_finish<D, BK>(s, o, p, a);
+    }
+    // the last tile's p.v; consumer 1 makes no arrive after its last turn, so each named
+    // barrier gets as many arrivals as it has waits
+    named_sync<TURNS>(me);
+    wg_fence();
+    issue_pv<D, BK>(o, p, sKV + ((nk - 1) % NS) * 2 * KVBYTES + KVBYTES);
+    wg_commit();
+    if (c == 0) named_arrive<TURNS>(other);
+    wg_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
+    float l0 = l[0], l1 = l[1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float il0 = 1.f / l0, il1 = 1.f / l1;
+    const int row0 = q0 + r0, row1 = q0 + r1;
+    __nv_bfloat16* o0 = out + ((size_t)bh * S + row0) * D;
+    __nv_bfloat16* o1 = out + ((size_t)bh * S + row1) * D;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * pn + 8 * j + 2 * t;
+        if (col >= D) continue;
+        if (row0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+              __floats2bfloat162_rn(o[pn][4 * j] * il0, o[pn][4 * j + 1] * il0);
+        if (row1 < S)
+          *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+              __floats2bfloat162_rn(o[pn][4 * j + 2] * il1, o[pn][4 * j + 3] * il1);
+      }
+    }
+  }
+}
+
+
+// ---- host side ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int ERR_TENSOR_MAP = 1000;  // + the CUresult; 1000 alone: no driver entry point
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link against libcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiledFn>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A (BH, S, D) bf16 tensor as a 3-D TMA map whose box is 64 columns x `rows` rows of one
+// batch*head, 128B-swizzled (the wgmma operand layout); reads past S are zero-filled.
+int bf16_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
+}
+
 template <typename K>
 int launch_prep(K kernel, size_t smem) {
   if (smem > 48 * 1024) {
@@ -625,18 +1049,26 @@ int launch_prep(K kernel, size_t smem) {
   return 0;
 }
 
-template <bool HAS_BIAS, bool ROW_TILE>
-int launch_global(const void* q, const void* k, const void* v, const void* rhq,
-                  const void* rwq, void* out, int BH, int S, int gh, int gw, float scale,
+template <int D, bool HAS_BIAS, bool ROW_TILE>
+int launch_global(const void* q, const void* k, const void* v, const void* rph,
+                  const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
                   cudaStream_t st) {
-  const size_t smem =
-      (size_t)4 * BK * KSTR * 2 +
-      (HAS_BIAS ? (size_t)BQ * ((ROW_TILE ? 0 : gh + 1) + gw + 8) * 4 : 0);
+  // geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py global_geometry: 128-key tiles
+  // on the main path (64-key tiles measured slower there); without the bias 128 measured
+  // slower, and the general bias path's per-column (ky, kx) does not fit the registers
+  constexpr int BK = HAS_BIAS && ROW_TILE ? 128 : 64;
+  CUtensorMap tq, tk, tv;
   int e;
-  if ((e = launch_prep(global_attn_kernel<HAS_BIAS, ROW_TILE>, smem))) return e;
-  global_attn_kernel<HAS_BIAS, ROW_TILE><<<dim3(S / BQ, BH), 128, smem, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const float*)rhq, (const float*)rwq, (__nv_bfloat16*)out, S, gh, gw, scale * LOG2E);
+  if ((e = bf16_map(&tq, q, D, S, BH, GQ)) || (e = bf16_map(&tk, k, D, S, BH, BK)) ||
+      (e = bf16_map(&tv, v, D, S, BH, BK)))
+    return e;
+  const int sth = HAS_BIAS ? gh | 1 : 0, stw = HAS_BIAS ? gw | 1 : 0;
+  const size_t smem = global_smem_fixed<D, BK>() + (size_t)GQ * (sth + stw) * 4;
+  auto kernel = global_attn_kernel<D, BK, HAS_BIAS, ROW_TILE>;
+  if ((e = launch_prep(kernel, smem))) return e;
+  kernel<<<dim3((S + GQ - 1) / GQ, BH), G_THREADS, smem, st>>>(
+      tq, tk, tv, (const float*)rph, (const float*)rpw, (__nv_bfloat16*)out, S, gh, gw, sth,
+      stw, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -660,17 +1092,20 @@ int launch_window(const void* q, const void* k, const void* v, const void* rh, c
 
 extern "C" {
 
-// q/k/v/out: (BH, S, 64) bf16 contiguous; rhq (BH, S, gh), rwq (BH, S, gw) f32 or null
-// when has_bias == 0. Requires S % 64 == 0. Returns the CUDA error code (0 = launched).
-int tmr_global_attn(const void* q, const void* k, const void* v, const void* rhq,
-                    const void* rwq, void* out, int BH, int S, int gh, int gw, float scale,
+// q/k/v/out: (BH, S, 64) bf16 contiguous over a (gh, gw) token grid, S = gh * gw >= 1;
+// rph (2gh - 1, 64) and rpw (2gw - 1, 64) f32 contiguous, the compact rel-pos tables, or
+// null when has_bias == 0. Returns 0 when launched, a CUDA error code, or 1000 (+ the
+// CUresult) when a TMA descriptor cannot be made.
+int tmr_global_attn(const void* q, const void* k, const void* v, const void* rph,
+                    const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
                     int has_bias, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (!has_bias)
-    return launch_global<false, false>(q, k, v, nullptr, nullptr, out, BH, S, 1, 1, scale, st);
-  if (gw == BK)
-    return launch_global<true, true>(q, k, v, rhq, rwq, out, BH, S, gh, gw, scale, st);
-  return launch_global<true, false>(q, k, v, rhq, rwq, out, BH, S, gh, gw, scale, st);
+    return launch_global<64, false, false>(q, k, v, nullptr, nullptr, out, BH, S, gh, gw,
+                                           scale, st);
+  if (gw == 64)
+    return launch_global<64, true, true>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+  return launch_global<64, true, false>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
 }
 
 // q/k/v/out: (BH, S, 64) bf16 contiguous with S = gh * gw window tokens; rh (gh, gh, 64)

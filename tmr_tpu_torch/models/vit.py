@@ -2,16 +2,17 @@
 
 Tokens keep their (H, W) grid, channels last, as in the JAX package; windowed blocks
 partition into 14x14 windows (zero-padded: the pad tokens are real keys, as in SAM),
-global blocks attend over the whole grid. The rel-pos tables are looked up (and
-linearly resized for non-native grids, the 1536 bucket) by :func:`get_rel_pos`.
-Global blocks call ``ops.cuda_attn.global_attention`` and windowed blocks
-``ops.cuda_attn.window_attention`` at every grid size. LayerNorms run in f32; the
+global blocks attend over the whole grid. The rel-pos tables are linearly resized for
+non-native grids (the 1536 bucket) by ``interp_rel_pos``. Global blocks call
+``ops.cuda_attn.global_attention`` with the compact ``(2g - 1, D)`` tables, whose
+Toeplitz expansion the kernel makes itself; windowed blocks call
+``ops.cuda_attn.window_attention`` with the ``(g, g, D)`` tables that
+:func:`get_rel_pos` looks up. Both at every grid size. LayerNorms run in f32; the
 linears and convs in the model's compute dtype.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -19,7 +20,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tmr_tpu_torch.models.common import Conv2d, LayerNorm2d, Linear, MLPBlock
-from tmr_tpu_torch.ops.cuda_attn import global_attention, window_attention
+from tmr_tpu_torch.ops.cuda_attn import (get_rel_pos, global_attention, interp_rel_pos,
+                                         window_attention)
 
 
 def window_partition(x: torch.Tensor, window: int):
@@ -45,27 +47,6 @@ def window_unpartition(windows: torch.Tensor, window: int, pad_hw: Tuple[int, in
     return x[:, :h, :w, :]
 
 
-def _interp_rel_pos(rel_pos: torch.Tensor, target_len: int) -> torch.Tensor:
-    """Linear resize of an (L, C) table to (target_len, C), align_corners=False."""
-    if rel_pos.shape[0] == target_len:
-        return rel_pos
-    return F.interpolate(rel_pos.t()[None], size=target_len, mode="linear",
-                         align_corners=False)[0].t()
-
-
-def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
-    """(q_size, k_size, C) relative-position table lookup."""
-    max_rel_dist = int(2 * max(q_size, k_size) - 1)
-    rel = _interp_rel_pos(rel_pos, max_rel_dist)
-    # the index is built on the table's device: a host-made index would be a pageable
-    # copy per block, each one stalling the host until the device catches up
-    ar = functools.partial(torch.arange, dtype=torch.float64, device=rel_pos.device)
-    q_coords = ar(q_size)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = ar(k_size)[None, :] * max(q_size / k_size, 1.0)
-    rel_coords = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel[rel_coords.long()]
-
-
 class Attention(nn.Module):
     """Multi-head attention with the decomposed rel-pos bias."""
 
@@ -86,10 +67,13 @@ class Attention(nn.Module):
         hd = dim // heads
         qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = (t.reshape(b * heads, h * w, hd) for t in qkv)
-        rh = get_rel_pos(h, h, self.rel_pos_h)
-        rw = get_rel_pos(w, w, self.rel_pos_w)
-        attend = window_attention if self.windowed else global_attention
-        o = attend(q, k, v, rh, rw, (h, w), hd ** -0.5)
+        if self.windowed:
+            o = window_attention(q, k, v, get_rel_pos(h, h, self.rel_pos_h),
+                                 get_rel_pos(w, w, self.rel_pos_w), (h, w), hd ** -0.5)
+        else:  # the compact tables: the kernel expands them itself
+            o = global_attention(q, k, v, interp_rel_pos(self.rel_pos_h, 2 * h - 1),
+                                 interp_rel_pos(self.rel_pos_w, 2 * w - 1), (h, w),
+                                 hd ** -0.5)
         o = o.view(b, heads, h, w, hd).permute(0, 2, 3, 1, 4).reshape(b, h, w, dim)
         return self.proj(o)
 

@@ -7,29 +7,32 @@ Replaces ``tmr_tpu/ops/pallas_attn.py``:
   which compute one function;
 - :func:`window_attention` <- ``pallas_windowed_attention`` (``_win_kernel``).
 
-Both take q/k/v as ``(B*H, S, D)`` over an ``(gh, gw)`` token grid and the
-``get_rel_pos`` tables ``rh (gh, gh, D)`` / ``rw (gw, gw, D)``, and add the decomposed
+Both take q/k/v as ``(B*H, S, D)`` over a ``(gh, gw)`` token grid and add the decomposed
 bias ``rel_h_q[q, ky] + rel_w_q[q, kx]`` to each score, with the f32 projections of the
-JAX ``_bias_projections``. The global kernel takes the projections, computed here by
-:func:`bias_projections` (two small ``torch.einsum`` products); its module-private entry
-``_global_attention_kernel`` takes them given, so it can be called and timed alone. The
-windowed kernel computes them itself from the tables, in shared memory, so a windowed
-block is one launch and writes nothing to HBM but its output. Softmax statistics and
+JAX ``_bias_projections`` (:func:`bias_projections` computes them from the expanded
+tables). The global kernel takes the compact tables ``rel_pos_h (2gh - 1, D)`` /
+``rel_pos_w (2gw - 1, D)``, which :func:`get_rel_pos` expands into the Toeplitz
+``(gh, gh, D)`` / ``(gw, gw, D)`` tables; the windowed kernel takes the expanded tables.
+Each kernel computes the projections itself, in shared memory, so an attention block is
+one launch that writes nothing to HBM but its output. Softmax statistics and
 accumulators are f32; p is rounded to the input dtype before the p.v product, as in
 ``blockwise_decomposed_attention``.
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (``csrc/attn.cu``, whose header says what bounds it on the card and how the
 design answers) or raises. What the kernels take: bf16, head dim 64, contiguous; the
-global kernel needs ``S % 64 == 0``; the windowed kernel takes rows of up to 64 tokens
-and a window whose staging fits in 227 KB of shared memory (:func:`window_geometry`).
+global kernel takes any token count whose projections fit in shared memory
+(:func:`global_geometry`: gh + gw up to ~290); the windowed kernel takes rows of up to 64
+tokens and a window whose staging fits in 227 KB (:func:`window_geometry`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tmr_tpu_torch.ops import _build
 
@@ -37,11 +40,32 @@ from tmr_tpu_torch.ops import _build
 _SMEM_LIMIT = 227 * 1024
 
 
+def interp_rel_pos(rel_pos: torch.Tensor, target_len: int) -> torch.Tensor:
+    """Linear resize of an (L, C) table to (target_len, C), align_corners=False."""
+    if rel_pos.shape[0] == target_len:
+        return rel_pos
+    return F.interpolate(rel_pos.t()[None], size=target_len, mode="linear",
+                         align_corners=False)[0].t()
+
+
+def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """(q_size, k_size, C) relative-position table lookup."""
+    max_rel_dist = int(2 * max(q_size, k_size) - 1)
+    rel = interp_rel_pos(rel_pos, max_rel_dist)
+    # the index is built on the table's device: a host-made index would be a pageable
+    # copy per block, each one stalling the host until the device catches up
+    ar = functools.partial(torch.arange, dtype=torch.float64, device=rel_pos.device)
+    q_coords = ar(q_size)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = ar(k_size)[None, :] * max(q_size / k_size, 1.0)
+    rel_coords = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+    return rel[rel_coords.long()]
+
+
 def bias_projections(
     q: torch.Tensor, rh: torch.Tensor, rw: torch.Tensor, grid_hw: Tuple[int, int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(BH, S, D) q and the (gh, gh, D) / (gw, gw, D) tables -> the f32 projections
-    rel_h_q (BH, S, gh) and rel_w_q (BH, S, gw)."""
+    """(BH, S, D) q and the expanded (gh, gh, D) / (gw, gw, D) tables -> the f32
+    projections rel_h_q (BH, S, gh) and rel_w_q (BH, S, gw)."""
     bh, s, d = q.shape
     gh, gw = grid_hw
     qf = q.float().reshape(bh, gh, gw, d)
@@ -83,48 +107,68 @@ def _check(q, k, v, what: str) -> None:
         raise ValueError(f"{what}: the kernel takes head dim 64, got {q.shape[-1]}")
 
 
-def _global_attention_kernel(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    rel_h_q: Optional[torch.Tensor],
-    rel_w_q: Optional[torch.Tensor],
-    grid_hw: Tuple[int, int],
-    scale: float,
-) -> torch.Tensor:
-    """The global kernel on given projections (``rel_h_q`` None: no bias)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, rel_h_q, rel_w_q, grid_hw, scale)
-    _check(q, k, v, "global_attention")
-    bh, s, _ = q.shape
-    if s % 64:
-        raise ValueError(f"global_attention: the kernel needs S % 64 == 0, got S={s}")
-    gh, gw = grid_hw
-    out = torch.empty_like(q)
-    has_bias = rel_h_q is not None
-    _build.launch(
-        "global_attn", "attn", "tmr_global_attn",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        rel_h_q.data_ptr() if has_bias else None,
-        rel_w_q.data_ptr() if has_bias else None,
-        out.data_ptr(), bh, s, gh, gw, float(scale), int(has_bias),
-        _build.stream_of(q),
-    )
-    return out
+def global_geometry(gh: int, gw: int, has_bias: bool = True) -> int:
+    """Shared bytes of the global kernel for a (gh, gw) grid, as ``csrc/attn.cu``
+    ``launch_global`` sets them up: alignment slack, the 128-row Q tile, a ring of K/V
+    stages (3 of 128 keys with the bias on 64-token grid rows, else 4 of 64), their
+    mbarriers and, with the bias, the (128, gh | 1) and (128, gw | 1) f32 projections.
+    Raises ``ValueError`` over 227 KB."""
+    if gh < 1 or gw < 1:
+        raise ValueError(f"global_attention: empty {gh}x{gw} grid")
+    stages, keys = (3, 128) if has_bias and gw == 64 else (4, 64)
+    smem = 1024 + 128 * 128 + stages * 2 * keys * 128 + (1 + 2 * stages) * 8
+    if has_bias:
+        smem += 128 * ((gh | 1) + (gw | 1)) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"global_attention: a {gh}x{gw} grid needs {smem} B of shared "
+                         f"memory, over the {_SMEM_LIMIT} B a block may use")
+    return smem
 
 
 def global_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    rh: Optional[torch.Tensor],
-    rw: Optional[torch.Tensor],
+    rel_pos_h: Optional[torch.Tensor],
+    rel_pos_w: Optional[torch.Tensor],
     grid_hw: Tuple[int, int],
     scale: float,
 ) -> torch.Tensor:
-    """Global attention with the decomposed rel-pos bias (``rh`` None: no bias)."""
-    rel = bias_projections(q, rh, rw, grid_hw) if rh is not None else (None, None)
-    return _global_attention_kernel(q, k, v, *rel, grid_hw, scale)
+    """Global attention over the whole (gh, gw) grid with the decomposed rel-pos bias:
+    ``rel_pos_h (2gh - 1, D)`` / ``rel_pos_w (2gw - 1, D)`` are the compact tables
+    (``interp_rel_pos`` of the parameters; None: no bias). On the card one kernel
+    computes the bias projections too, from the compact tables."""
+    gh, gw = grid_hw
+    has_bias = rel_pos_h is not None
+    if has_bias != (rel_pos_w is not None):
+        raise ValueError("global_attention: give both rel-pos tables or neither")
+    if q.device.type == "cpu":
+        rel = (bias_projections(q, get_rel_pos(gh, gh, rel_pos_h),
+                                get_rel_pos(gw, gw, rel_pos_w), grid_hw)
+               if has_bias else (None, None))
+        return attention_plain(q, k, v, *rel, grid_hw, scale)
+    _check(q, k, v, "global_attention")
+    bh, s, d = q.shape
+    if s != gh * gw:
+        raise ValueError(f"global_attention: S={s} is not the {gh}x{gw} grid's")
+    global_geometry(gh, gw, has_bias)
+    if has_bias:
+        rel_pos_h, rel_pos_w = (t.to(q.device, torch.float32).contiguous()
+                                for t in (rel_pos_h, rel_pos_w))
+        if rel_pos_h.shape != (2 * gh - 1, d) or rel_pos_w.shape != (2 * gw - 1, d):
+            raise ValueError(f"global_attention: tables {tuple(rel_pos_h.shape)} / "
+                             f"{tuple(rel_pos_w.shape)} are not the compact tables of a "
+                             f"{gh}x{gw} grid")
+    out = torch.empty_like(q)
+    _build.launch(
+        "global_attn", "attn", "tmr_global_attn",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rel_pos_h.data_ptr() if has_bias else None,
+        rel_pos_w.data_ptr() if has_bias else None,
+        out.data_ptr(), bh, s, gh, gw, float(scale), int(has_bias),
+        _build.stream_of(q),
+    )
+    return out
 
 
 def window_geometry(gh: int, gw: int) -> Tuple[int, int, int]:

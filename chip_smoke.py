@@ -9,7 +9,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, compiled from ``tmr_tpu_torch/csrc``; then the
-   toolchain probe ``add1`` runs, before any other kernel;
+   toolchain probe ``add1`` runs, before any other kernel, and its event-bracketed time
+   is printed beside its profiled device time and the host's cost per launch;
 3. kernels: each kernel at the main path's shapes against its plain PyTorch version on
    the same inputs, with the tolerance stated, timed beside its plain version, a
    PyTorch library call computing the same function (timed here, never used by the
@@ -18,7 +19,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside SDPA with the bias mask precomputed and, printed with it, what SDPA's time
    leaves out: ``bias_projections`` and the mask build; the global kernel, with and
    without the bias, is also held to its plain version on 24x40, 96x96 (one image),
-   20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows;
+   20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows; the
+   f32 correlation at T = 1 to 65 on the matcher's map with its 3xTF32 tensor bound and
+   its f32 bound, and on 96^2 and 64^2 maps, a ragged map, a bf16-valued feature and a
+   feature with non-finite values planted;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
@@ -53,10 +57,11 @@ import sys
 import time
 from pathlib import Path
 
-#: published peaks of one H100 SXM (dense): bf16 and int8 tensor cores, f32 CUDA cores,
-#: HBM. An int8 x int8 -> int32 sum is bounded at the int8 rate whatever instruction a
-#: kernel uses for it
+#: published peaks of one H100 SXM (dense): bf16, TF32 and int8 tensor cores, f32 CUDA
+#: cores, HBM. An int8 x int8 -> int32 sum is bounded at the int8 rate whatever
+#: instruction a kernel uses for it
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -68,7 +73,19 @@ PEAK_BYTES = 3.35e12
 ATTN_REL_TOL = 2.0 ** -7
 ATTN_ABS_TOL = 2.0 ** -9
 ATTN_MEAN_TOL = 2.0 ** -8
-XCORR_REL_TOL = 2e-5  # f32 sums of T^2 products, another order (FMA vs mul + add)
+#: the f32 correlation (3xTF32 on the tensor cores, about 2^-21 per product) vs its
+#: plain version's f32 sums of T^2 products in another order, relative to max|want|
+XCORR_REL_TOL = 2e-5
+#: templates the f32 correlation is held at on the matcher's map; the main path takes
+#: 9, 17 and 33, the direct path every odd T up to 65
+XCORR_TS = (1, 3, 9, 17, 33, 65)
+#: other maps, (B, C, H, W, templates, feature rounded to bf16): the 768 and 512 inputs'
+#: 96^2 and 64^2 maps, a ragged map with 7 planes, and the main path's bf16 feature
+#: (``fp.float()`` of a bf16 map, exact in tf32)
+XCORR_MAPS = ((4, 512, 96, 96, (9, 17, 33, 65), False),
+              (4, 512, 64, 64, (9, 17, 33, 65), False),
+              (1, 7, 100, 76, XCORR_TS, False),
+              (4, 512, 128, 128, (9, 33, 65), True))
 OBJ_REL_TOL = 5e-2  # bf16 network vs f32 CPU network, relative to the map's max
 #: tmr_tpu/ops/quant.py OUTPUT_TIER_REL: the int8 tail vs the exact tail on the JAX
 #: package's own tier inputs (quant_int8dot_ok), and the stored-weight (dequant) path's
@@ -241,24 +258,64 @@ def attn_accuracy(acc: dict) -> str:
             f"err/limit {acc['worst_err_over_limit']:.3f})")
 
 
-def check_xcorr(torch, F, cuda_xcorr, t: int, seed: int):
+def check_xcorr(torch, F, cuda_xcorr, t: int, seed: int, shape=(4, 512, 128, 128),
+                bf16: bool = False, yardsticks: bool = True) -> dict:
+    """The f32 correlation vs its plain version on one map; its time, and with
+    ``yardsticks`` the plain version's and a grouped ``F.conv2d``'s. Bounds of the
+    useful products: 3xTF32 at the TF32 tensor peak (the kernel's) and f32 at the CUDA
+    cores' peak, each against the bytes."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    b, c, h, w = 4, 512, 128, 128
+    b, c, h, w = shape
     feat = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    if bf16:
+        feat = feat.bfloat16().float()
     tmpl = torch.randn(b, c, t, t, generator=gen, device="cuda")
     got = cuda_xcorr.xcorr(feat, tmpl)
     want = cuda_xcorr.xcorr_plain(feat, tmpl)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = XCORR_REL_TOL * want.abs().max().item()
-    ms = cuda_ms(lambda: cuda_xcorr.xcorr(feat, tmpl))
-    plain_ms = cuda_ms(lambda: cuda_xcorr.xcorr_plain(feat, tmpl), reps=1, warmup=0)
-    lib_ms = cuda_ms(lambda: F.conv2d(feat.view(1, b * c, h, w),
-                                      tmpl.view(b * c, 1, t, t), padding=t // 2,
-                                      groups=b * c))
+    r = dict(err=(got - want).abs().max().item(),
+             tol=XCORR_REL_TOL * want.abs().max().item(),
+             ms=cuda_ms(lambda: cuda_xcorr.xcorr(feat, tmpl)), plain_ms=None, lib_ms=None)
+    if yardsticks:
+        r["plain_ms"] = cuda_ms(lambda: cuda_xcorr.xcorr_plain(feat, tmpl), reps=1,
+                                warmup=0)
+        r["lib_ms"] = cuda_ms(lambda: F.conv2d(feat.view(1, b * c, h, w),
+                                               tmpl.view(b * c, 1, t, t), padding=t // 2,
+                                               groups=b * c))
     flops = 2.0 * b * c * h * w * t * t
     nbytes = (2 * b * c * h * w + b * c * t * t) * 4
-    return err, tol, ms, plain_ms, lib_ms, bound(flops, nbytes, PEAK_F32_FLOPS)
+    r["tensor_bound"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    r["f32_bound"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return r
+
+
+def check_xcorr_maps(torch, F, cuda_xcorr) -> None:
+    """The f32 correlation against its plain version on XCORR_MAPS."""
+    for b, c, h, w, ts, bf16 in XCORR_MAPS:
+        for t in ts:
+            r = check_xcorr(torch, F, cuda_xcorr, t, SEED, (b, c, h, w), bf16, False)
+            what = f"xcorr {b}x{c}x{h}x{w}{' bf16 feature' if bf16 else ''} T={t}"
+            print(f"kernel {what}: max_err {r['err']:.3e} tol {r['tol']:.3e} kernel_ms "
+                  f"{r['ms']:.4f} bound_ms {r['tensor_bound'][0]:.4f} (3xTF32)", flush=True)
+            if not r["err"] <= r["tol"]:
+                fail(f"{what} disagrees with its plain version: {r['err']} > {r['tol']}")
+    # non-finite inputs: every output the plain version makes non-finite is NaN or
+    # infinite from the kernel too (which spreads them over the band), the rest agree
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    feat = torch.randn(1, 7, 100, 76, generator=gen, device="cuda")
+    feat[0, 1, 40, 30], feat[0, 4, 3, 70], feat[0, 6, 99, 0] = math.nan, math.inf, -math.inf
+    tmpl = torch.randn(1, 7, 9, 9, generator=gen, device="cuda")
+    got, want = cuda_xcorr.xcorr(feat, tmpl), cuda_xcorr.xcorr_plain(feat, tmpl)
+    lost = int((~want.isfinite() & got.isfinite()).sum().item())
+    both = got.isfinite() & want.isfinite()
+    err = (got - want)[both].abs().max().item()
+    tol = XCORR_REL_TOL * want[both].abs().max().item()
+    print(f"kernel xcorr 1x7x100x76 T=9, a NaN and two infinities planted: non-finite "
+          f"outputs {int((~want.isfinite()).sum())} plain, {int((~got.isfinite()).sum())} "
+          f"kernel, {lost} lost (must be 0); max_err where both are finite {err:.3e} tol "
+          f"{tol:.3e}", flush=True)
+    if lost or not err <= tol:
+        fail("xcorr loses a non-finite output or disagrees beside one")
 
 
 def check_xcorr_int8(torch, F, cuda_xcorr, t: int, seed: int):
@@ -456,17 +513,20 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
               f"{attn_times(t)} bound_ms {bms:.4f}", flush=True)
         if not acc["ok"]:
             fail(f"window_attn at {grid} windows disagrees with its plain version: {acc}")
-    for t in (9, 17, 33, 65):
-        err, tol, ms, plain_ms, lib_ms, (bms, bby) = check_xcorr(
-            torch, F, cuda_xcorr, t, SEED)
-        print(f"kernel xcorr T={t}: max_err {err:.3e} tol {tol:.3e} kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.4f} "
-              f"({bby})", flush=True)
-        if not err <= tol:
-            fail(f"xcorr T={t} disagrees with its plain version: {err} > {tol}")
+    for t in XCORR_TS:
+        r = check_xcorr(torch, F, cuda_xcorr, t, SEED)
+        (bms, bby), (f32ms, f32by) = r["tensor_bound"], r["f32_bound"]
+        print(f"kernel xcorr T={t}: max_err {r['err']:.3e} tol {r['tol']:.3e} kernel_ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['lib_ms']:.4f} "
+              f"(grouped F.conv2d) bound_ms {bms:.4f} ({bby}, 3xTF32 at the TF32 peak) "
+              f"f32_bound_ms {f32ms:.4f} ({f32by}, f32 CUDA cores)", flush=True)
+        if not r["err"] <= r["tol"]:
+            fail(f"xcorr T={t} disagrees with its plain version: {r['err']} > {r['tol']}")
         if t == 33:
-            entries["xcorr"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+            entries["xcorr"] = dict(max_abs_err=r["err"], ms=r["ms"],
+                                    plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
+                                    library_ms=r["lib_ms"])
+    check_xcorr_maps(torch, F, cuda_xcorr)
     mism, kept, ms, plain_ms, (bms, bby) = check_nms(torch, cuda_nms, thr, SEED)
     print(f"kernel nms: keep mismatches {mism} (must be 0), kept {kept} of 4x2000, "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
@@ -503,8 +563,39 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
     return entries
 
 
+def profiled_device_ms(torch, fn, reps: int = 20):
+    """Device time per call of ``fn`` from torch.profiler's kernel records, or None when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` (its enqueue: no synchronize inside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def run_probe(torch, probe, _build) -> dict:
-    """The toolchain probe: add1 on a 256^2 f32 block, the first kernel of the run."""
+    """The toolchain probe: add1 on a 256^2 f32 block, the first kernel of the run. Its
+    event-bracketed time (10 launches back to back) is printed beside its device time
+    from the profiler and the host's cost per launch, its own and torch.add's, so the
+    gap to torch.add reads as host or device time."""
     _build.reset_launches()
     x = torch.zeros(256, 256, device="cuda")
     y = probe.add1(x)
@@ -516,9 +607,35 @@ def run_probe(torch, probe, _build) -> dict:
     ms = cuda_ms(lambda: probe.add1(x))
     plain_ms = cuda_ms(lambda: probe.add1_plain(x))
     lib_ms = cuda_ms(lambda: torch.add(x, 1.0))
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_of(x))
+
+    def unbound():  # each launch looks its C function up again, under lib()'s lock
+        _build._FNS.clear()
+        probe.add1(x)
+
+    # host cost per call, in turns over 3 rounds (median): the wrapper, the wrapper with
+    # the lookup of the C function each launch, torch.add, and the wrapper's parts
+    calls = {"wrapper": lambda: probe.add1(x), "wrapper_lookup_each": unbound,
+             "torch_add": lambda: torch.add(x, 1.0),
+             "stream_lookup": lambda: _build.stream_of(x),
+             "empty_like": lambda: torch.empty_like(x),
+             "c_call": lambda: _build.launch("add1", "probe", "tmr_add1", *args)}
+    rounds = {name: [] for name in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            rounds[name].append(host_us(torch, fn))
+    host = {name: sorted(v)[1] for name, v in rounds.items()}
+    dev, lib_dev = (profiled_device_ms(torch, fn)
+                    for fn in (lambda: probe.add1(x), lambda: torch.add(x, 1.0)))
     bms, bby = bound(float(x.numel()), 2.0 * x.numel() * 4, PEAK_F32_FLOPS)
-    print(f"probe add1 256x256: mismatches 0, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {lib_ms:.4f} (torch.add) bound_ms {bms:.6f} ({bby})", flush=True)
+    dev_s, lib_dev_s = ("not measured" if v is None else f"{v:.4f}" for v in (dev, lib_dev))
+    print(f"probe add1 256x256: mismatches 0, kernel_ms {ms:.4f} (events, 10 launches back "
+          f"to back) device_ms {dev_s} (profiler) plain_ms {plain_ms:.4f} library_ms "
+          f"{lib_ms:.4f} (torch.add; device_ms {lib_dev_s}) bound_ms {bms:.6f} ({bby})",
+          flush=True)
+    print("probe host_us per call (median of 3 rounds in turns): "
+          + ", ".join(f"{name} {us:.2f}" for name, us in host.items()), flush=True)
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms)
 

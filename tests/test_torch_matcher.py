@@ -127,3 +127,117 @@ def test_template_matcher_matches_jax(squeeze):
         got = m(torch.from_numpy(f).permute(0, 3, 1, 2).contiguous(),
                 torch.from_numpy(EXEMPLARS), 9).permute(0, 2, 3, 1).numpy()
     assert _rel_err(got, want) < 1e-5
+
+
+# The f32 card kernel (csrc/xcorr.cu xcorr_tf32_kernel) emulated on the CPU: its CTA tile,
+# its zero-filled staging window and, per template row i, the product of the window's
+# rows i .. i + BM - 1 with the Toeplitz band B_i[k, n] = t[i, k - n] (0 outside [0, T)).
+XCORR_BM = XCORR_BN = 64  # output rows and columns of a CTA
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: the f32 bit pattern rounded to 10 mantissa bits, nearest, ties
+    away from zero (half an ulp added to the magnitude, then the low 13 bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(np.asarray(x, np.float32) - hi)
+
+
+def _band_xcorr(f, tm, three_tf32: bool):
+    """f (P, H, W), tm (P, T, T) -> (P, H, W). ``three_tf32=False``: every product and sum
+    in f64. ``three_tf32=True``: the kernel's arithmetic, lo*hi + hi*lo + hi*hi of the
+    tf32 splits per template row (exact in f64, as the tensor cores' products are),
+    the row's sum rounded to f32 and added to the f32 total."""
+    p, h, w = f.shape
+    t = tm.shape[-1]
+    c = t // 2
+    kb = (t + 14) // 8  # k-blocks of 8 per n8 column tile: ceil((T + 7) / 8)
+    rows, cols = XCORR_BM + t - 1, XCORR_BN + 8 * (kb - 1)
+    j = np.arange(cols)[:, None] - np.arange(XCORR_BN)[None, :]
+    in_band = (j >= 0) & (j < t)
+    out = np.zeros((p, h, w), np.float64 if not three_tf32 else np.float32)
+    for y0 in range(0, h, XCORR_BM):
+        for x0 in range(0, w, XCORR_BN):
+            ys, xs = y0 - c + np.arange(rows), x0 - c + np.arange(cols)
+            ok = (((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+                  & (np.arange(cols) < XCORR_BN + t - 1)[None, :])
+            win = np.where(ok, f[:, ys.clip(0, h - 1)][:, :, xs.clip(0, w - 1)], 0.0)
+            acc = np.zeros((p, XCORR_BM, XCORR_BN), out.dtype)
+            for i in range(t):
+                band = np.where(in_band, tm[:, i, j.clip(0, t - 1)], 0.0)  # (P, cols, BN)
+                a = win[:, i:i + XCORR_BM]
+                if not three_tf32:
+                    acc += a @ band
+                    continue
+                (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(band)
+                ah, al, bh, bl = (v.astype(np.float64) for v in (ah, al, bh, bl))
+                part = (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+                acc = (acc + part).astype(np.float32)
+            out[:, y0:y0 + XCORR_BM, x0:x0 + XCORR_BN] = acc[:, :h - y0, :w - x0]
+    return out
+
+
+#: ragged maps (planes, H, W): two row tiles and one column tile, one row tile and two
+#: column tiles, and a map smaller than one tile
+XCORR_RAGGED = ((3, 70, 45), (2, 37, 75), (2, 13, 11))
+
+
+def test_tf32_rna_rounds_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)  # a tf32 ulp at 1
+    x = np.array([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + 3 * ulp / 2, -(1 + ulp / 2),
+                  1 + ulp / 4], np.float32)
+    want = np.array([1 + ulp, 1, 1 + 2 * ulp, -(1 + ulp), one], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+    hi, lo = _split_tf32(np.float32(1 + 2 ** -11 + 2 ** -22))
+    assert hi == 1 + 2 ** -10 and lo == np.float32(-(2 ** -11) + 2 ** -22)
+
+
+@pytest.mark.parametrize("shape", XCORR_RAGGED)
+@pytest.mark.parametrize("t", [1, 3, 9, 33, 65])
+def test_xcorr_band_index_maths_equals_plain(t, shape):
+    """The band formulation over the kernel's tiles and zero-filled windows, in f64 on
+    small integers (every sum exact in f64 and in f32), equals xcorr_plain exactly."""
+    rng = np.random.default_rng(t * 100 + shape[1])
+    p, h, w = shape
+    f = rng.integers(-8, 9, (p, h, w)).astype(np.float64)
+    tm = rng.integers(-8, 9, (p, t, t)).astype(np.float64)
+    want = cuda_xcorr.xcorr_plain(torch.from_numpy(f[None]).float(),
+                                  torch.from_numpy(tm[None]).float())[0].numpy()
+    np.testing.assert_array_equal(_band_xcorr(f, tm, three_tf32=False), want)
+
+
+@pytest.mark.parametrize("t", [1, 3, 9, 17, 33, 65])
+def test_xcorr_3xtf32_within_tolerance(t):
+    """The kernel's 3xTF32 arithmetic on normal f32 inputs stays within the card check's
+    2e-5 x max of the Pallas kernel (interpret mode; it takes T <= 33) or, at 65, of
+    xcorr_plain; one tf32 pass alone does not."""
+    rng = np.random.default_rng(t)
+    p, h, w = XCORR_RAGGED[0] if t <= 33 else XCORR_RAGGED[1]
+    f = rng.standard_normal((p, h, w)).astype(np.float32)
+    tm = rng.standard_normal((p, t, t)).astype(np.float32)
+    if t <= 33:
+        want = np.asarray(xcorr_pallas(jnp.asarray(f[None]), jnp.asarray(tm[None]),
+                                       interpret=True))[0]
+    else:
+        want = cuda_xcorr.xcorr_plain(torch.from_numpy(f[None]),
+                                      torch.from_numpy(tm[None]))[0].numpy()
+    assert _rel_err(_band_xcorr(f, tm, three_tf32=True), want) < 2e-5
+    one_pass = _band_xcorr(_tf32_rna(f), _tf32_rna(tm), three_tf32=False)
+    if t > 1:
+        assert _rel_err(one_pass, want) > 2e-5
+
+
+def test_xcorr_3xtf32_bf16_feature():
+    """A bf16 feature (the main path's fp.float()) is exact in tf32: its lo part is 0."""
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy(rng.standard_normal((3, 70, 45)).astype(np.float32))
+    f = f.bfloat16().float().numpy()
+    tm = rng.standard_normal((3, 33, 33)).astype(np.float32)
+    assert not _split_tf32(f)[1].any()
+    want = cuda_xcorr.xcorr_plain(torch.from_numpy(f[None]), torch.from_numpy(tm[None]))[0]
+    assert _rel_err(_band_xcorr(f, tm, three_tf32=True), want.numpy()) < 2e-5

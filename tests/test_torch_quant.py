@@ -393,6 +393,27 @@ def test_every_kernel_has_a_source_and_a_counter():
                                     "xcorr_int8", "int8_mm", "add1"}
 
 
+def test_launch_binds_each_c_function_once(monkeypatch):
+    """A C function is looked up through lib() (its lock, the attribute lookup) on its
+    first launch only; every launch is counted, and a CUDA error code raises uncounted."""
+    looked_up = []
+
+    class FakeLib:
+        def __getattr__(self, fn):
+            looked_up.append(fn)
+            return lambda rc: rc  # the C function returns its argument as the error code
+
+    monkeypatch.setattr(_build, "_FNS", {})
+    monkeypatch.setattr(_build, "lib", lambda name: FakeLib())
+    monkeypatch.setitem(_build.LAUNCHES, "add1", 0)
+    for _ in range(3):
+        _build.launch("add1", "probe", "tmr_add1", 0)
+    assert looked_up == ["tmr_add1"] and _build.LAUNCHES["add1"] == 3
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        _build.launch("add1", "probe", "tmr_add1", 7)
+    assert looked_up == ["tmr_add1"] and _build.LAUNCHES["add1"] == 3
+
+
 # ------------------------------------------------------- the whole slice at TINY
 
 

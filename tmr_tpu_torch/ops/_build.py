@@ -57,6 +57,9 @@ LAUNCHES: Dict[str, int] = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: bound C functions by name, kept after the first launch so that later launches skip
+#: ``lib()``'s lock and the attribute lookup
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -125,7 +128,10 @@ def lib(name: str) -> ctypes.CDLL:
 
 def launch(kernel: str, lib_name: str, fn: str, *args) -> None:
     """Call one C launcher, raise on its CUDA error code, count the launch."""
-    rc = getattr(lib(lib_name), fn)(*args)
+    bound = _FNS.get(fn)
+    if bound is None:
+        bound = _FNS[fn] = getattr(lib(lib_name), fn)
+    rc = bound(*args)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
     LAUNCHES[kernel] += 1

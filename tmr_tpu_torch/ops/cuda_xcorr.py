@@ -10,11 +10,15 @@ up to :data:`MAX_T` (65); larger buckets take the FFT path in ``ops/xcorr.py``.
 convolution in ``tmr_tpu/ops/xcorr.py`` (``_xcorr_int8dot``): int8 feature and template,
 the sum exact in int32, then ``float(acc) * (f_scale * t_scale)`` per (image, channel).
 PyTorch has no int8 grouped convolution on CUDA, and an f32 run of int8 values is not
-exact past 2^24, so it is a second instance of the same hand-written kernel.
+exact past 2^24, so it is a hand-written kernel of its own in the same source.
+
+On the card, :func:`xcorr` runs the correlation on the tensor cores: each template row
+as a Toeplitz band in ``mma.sync`` TF32 products, in three passes of the operands' tf32
+splits (3xTF32, f32 grade). :func:`xcorr_int8` sums int8 products on the CUDA cores.
 
 The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
 only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
-header says what bounds it on the card) or raises.
+header says what bounds it on the card and how each kernel is laid out) or raises.
 """
 
 from __future__ import annotations

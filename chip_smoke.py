@@ -22,7 +22,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows; the
    f32 correlation at T = 1 to 65 on the matcher's map with its 3xTF32 tensor bound and
    its f32 bound, and on 96^2 and 64^2 maps, a ragged map, a bf16-valued feature and a
-   feature with non-finite values planted;
+   feature with non-finite values planted; the fused int8 3x3 layer at the int8 tail's
+   shape and a ragged one, timed in turns with the per-tap composition it replaces,
+   beside the bare ``torch._int_mm`` of the im2col'd product and its ``-Xptxas -v``;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
@@ -32,8 +34,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4b. the int8 path: the same preset with ``quant="int8", quant_storage="int8",
    quant_kernel="int8"`` and phase 4's weights (stored as int8) answers the same 3
    batches; its launch counts must be exactly those of its path; its decoder tail on
-   one ``f_cat`` must equal the same tail run with the int8 matmul's plain version on
-   the card; the int8 tail must lie within the JAX package's output tier (5e-2) of the
+   one ``f_cat`` must equal the same tail run with the int8 kernels' plain versions on
+   the card; the activation quantization passes are timed on that ``f_cat``; the int8
+   tail must lie within the JAX package's output tier (5e-2) of the
    exact tail on that tier's inputs at the production geometry, and the stored-weight
    path with the dequant arm within it of phase 4's objectness map; the int8 path's
    objectness is printed beside phase 4's and held to a bound on gross faults (its
@@ -98,10 +101,15 @@ QUANT_TIER_REL = 5e-2
 #: spatial variation, so the JAX function itself reads ~0.1 on this measure here (and
 #: within 5e-2 on its tier's, both maps; tests/test_torch_quant.py, PERF.md)
 INT8_PATH_OBJ_BOUND = 0.25
-#: launches of the int8 path over its 3 batches: 9 taps + 1 head matmul, one int8
-#: correlation, 4 global and 8 windowed attention blocks, one NMS per batch
+#: launches of the int8 path over its 3 batches: one fused 3x3 layer and one head
+#: matmul, one int8 correlation, 4 global and 8 windowed attention blocks, one NMS per
+#: batch
 QUANT_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 0, "nms": 3,
-                  "xcorr_int8": 3, "int8_mm": 30, "add1": 0}
+                  "xcorr_int8": 3, "int8_mm": 3, "int8_conv": 3, "add1": 0}
+#: the fused int8 3x3 layer's shapes (B, H, W, C_in, N): the int8 tail's (4 x 128^2,
+#: 1024 -> 2048 [objectness | bbox]) and a ragged one (W past no tile edge, N not a
+#: multiple of 8, C_in not of 128)
+INT8_CONV_SHAPES = ((4, 128, 128, 1024, 2048), (1, 37, 53, 48, 20))
 BUCKET_SIDES_PX = {9: 56, 17: 120, 33: 240}  # exemplar sides that land in each bucket
 SEED = 0  # weights, images and kernel inputs are all drawn from it
 
@@ -407,6 +415,81 @@ def check_int8_mm(torch, cuda_int8, kind: str, seed: int):
             bound(ops, nbytes, PEAK_INT8_OPS))
 
 
+def ptxas_info(log, kernel: str) -> str:
+    """Registers, shared memory and spills that ``-Xptxas -v`` reported for ``kernel``."""
+    if not log:
+        return "not rebuilt in this run"
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            return " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                              if "bytes" in x or "Used" in x)
+    return "not in the log"
+
+
+def check_int8_conv(torch, F, cuda_int8, shape, seed: int) -> dict:
+    """The fused 3x3 layer vs its plain version on random int8 operands: exact int32
+    sums and the same f32 steps, so equal bit for bit (0 mismatches). Timed in turns
+    with the composition it replaces on the int8 path (9 ``int8_mm`` launches on the
+    zero-padded activation, the f32 tap adds, the bias and ``leaky_relu``; its
+    mismatches against the kernel are counted too). The rate yardstick is the bare
+    ``torch._int_mm`` of the im2col'd product, (B H W x 9 C_in) . (9 C_in x N): not the
+    same function (no per-tap scales), None where its shape rules refuse."""
+    b, h, w, c, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 3, n, c), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand(b, generator=gen, device="cuda") * 0.01 + 1e-4
+    sw = torch.rand(3, 3, n, generator=gen, device="cuda") * 0.01 + 1e-4
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    slope = 0.01
+
+    def kernel():
+        return cuda_int8.int8_conv3x3(xq, sx, wq, sw, bias, slope)
+
+    def composition():
+        xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+        rows = sx[:, None, None].expand(b, h, w).contiguous()
+        acc = None
+        for dy in range(3):
+            for dx in range(3):
+                tap = cuda_int8.int8_mm(xp[:, dy:dy + h, dx:dx + w], wq[dy, dx], rows,
+                                        sw[dy, dx])
+                acc = tap if acc is None else acc.add_(tap)
+        return F.leaky_relu(acc + bias, slope)
+
+    got = kernel()
+    want = cuda_int8.int8_conv3x3_plain(xq, sx, wq, sw, bias, slope)
+    comp = composition()
+    torch.cuda.synchronize()
+    r = dict(mism=int((got != want).sum().item()), err=(got - want).abs().max().item(),
+             comp_mism=int((comp != got).sum().item()), negative=(got < 0).float().mean()
+             .item())
+    reps = 10 if b * h * w > 4096 else 50
+    ms, comp_ms = [], []
+    for fn, dst in ((kernel, ms), (composition, comp_ms), (composition, comp_ms),
+                    (kernel, ms)):
+        dst.append(cuda_ms(fn, reps=reps))
+    r.update(ms=min(ms), ms_turns=ms, comp_ms=min(comp_ms), comp_turns=comp_ms,
+             plain_ms=cuda_ms(lambda: cuda_int8.int8_conv3x3_plain(xq, sx, wq, sw, bias,
+                                                                   slope), reps=1, warmup=0))
+    m = b * h * w
+    r["bare_ms"] = None
+    if n % 8 == 0 and c % 8 == 0 and m > 16:
+        xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                         dim=-1).reshape(m, 9 * c)
+        wt = wq.permute(2, 0, 1, 3).reshape(n, 9 * c).t()
+        r["bare_ms"] = cuda_ms(lambda: torch._int_mm(cols, wt))
+        del cols
+    ops = 2.0 * m * n * 9 * c
+    nbytes = m * c + 9 * n * c + 4 * (b + 9 * n + n) + 4 * m * n
+    r["bound"] = bound(ops, nbytes, PEAK_INT8_OPS)
+    return r
+
+
 def nms_inputs(torch, seed: int, b: int = 4, n: int = 2000):
     """Dense overlapping boxes with planted ties: identical boxes with tied scores, and
     pairs at IoU exactly 0.5 (kept: the rule is strict)."""
@@ -557,9 +640,32 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
               f"bound_ms {bms:.4f} ({bby})", flush=True)
         if mism:
             fail(f"int8_mm {kind} differs from its plain version in {mism} outputs")
-        if kind == "tap":
+        if kind == "head":  # the int8 path's one launch of it per batch
             entries["int8_mm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+    from tmr_tpu_torch.ops import _build
+
+    print(f"ptxas int8_conv3x3_kernel: {ptxas_info(_build.LOGS.get('int8_mm'), 'int8_conv')}",
+          flush=True)
+    for shape in INT8_CONV_SHAPES:
+        r = check_int8_conv(torch, F, cuda_int8, shape, SEED)
+        (bms, bby), bare = r["bound"], r["bare_ms"]
+        turns = lambda v: " ".join(f"{x:.4f}" for x in v)  # noqa: E731
+        print(f"kernel int8_conv3x3 {'x'.join(map(str, shape[:4]))} -> {shape[4]}: "
+              f"mismatches {r['mism']} (must be 0), max_err {r['err']:.3e}, negative share "
+              f"{r['negative']:.3f}; kernel_ms {r['ms']:.4f} (turns {turns(r['ms_turns'])}) "
+              f"replaced composition_ms {r['comp_ms']:.4f} (turns {turns(r['comp_turns'])}; "
+              f"9 int8_mm + f32 adds + bias + leaky_relu, {r['comp_mism']} mismatches) "
+              f"plain_ms {r['plain_ms']:.4f} bare _int_mm over the im2col'd product "
+              f"{'null' if bare is None else f'{bare:.4f}'} (not the same function: no "
+              f"per-tap scales) bound_ms {bms:.4f} ({bby}, int8 peak)", flush=True)
+        if r["mism"] or r["comp_mism"]:
+            fail(f"int8_conv3x3 at {shape} differs from its plain version in {r['mism']} "
+                 f"outputs and from the composition in {r['comp_mism']}")
+        if shape == INT8_CONV_SHAPES[0]:
+            entries["int8_conv"] = dict(max_abs_err=r["err"], ms=r["ms"],
+                                        plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
+                                        library_ms=None)
     return entries
 
 
@@ -783,7 +889,7 @@ def check_quant_path(torch, np, pred, batches, caps, obj, reg, card, modules) ->
         want = fused_heads.fused_decoder_heads(
             f_cat.permute(0, 2, 3, 1), *qpred.model._tail_params(),
             dtype=qpred.model.compute_dtype, quant="stored", kernel_arm="int8",
-            int8_matmul=cuda_int8.int8_mm_plain)
+            int8_matmul=cuda_int8.int8_mm_plain, int8_conv=cuda_int8.int8_conv3x3_plain)
         torch.cuda.synchronize()
     tail_diff = max((got["objectness"] - want[0][..., 0]).abs().max().item(),
                     (got["regressions"] - want[1]).abs().max().item())
@@ -792,6 +898,14 @@ def check_quant_path(torch, np, pred, batches, caps, obj, reg, card, modules) ->
           f"epilogue and tap order)", flush=True)
     if tail_diff != 0.0:
         fail(f"int8 tail with the kernels differs from the plain tail: {tail_diff}")
+    with torch.inference_mode():
+        x = f_cat.permute(0, 2, 3, 1)
+        act = torch.randn(*x.shape[:3], 2 * x.shape[3], device="cuda")
+        q_in = cuda_ms(lambda: fused_heads._quant_act(x.to(qpred.model.compute_dtype)))
+        q_head = cuda_ms(lambda: fused_heads._quant_act(act))
+    print(f"int8 tail's activation quantization (_quant_act) per batch: the layer's input "
+          f"{tuple(x.shape)} {x.dtype} {q_in:.4f} ms, the heads' input {tuple(act.shape)} "
+          f"f32 {q_head:.4f} ms", flush=True)
     int8_arm_on_fcat(torch, pred, qpred, f_cat, fused_heads)
     return launches, qpred
 
@@ -868,7 +982,7 @@ def main(argv=None) -> int:
     missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    stray = [k for k in ("xcorr_int8", "int8_mm", "add1") if launches[k]]
+    stray = [k for k in ("xcorr_int8", "int8_mm", "int8_conv", "add1") if launches[k]]
     if stray:
         fail(f"int8 or probe kernels launched on the unquantized path: {stray}")
 
@@ -906,10 +1020,12 @@ def main(argv=None) -> int:
         "nms": ("tmr_tpu_torch/csrc/nms.cu", "tmr_tpu/ops/pallas_nms.py:32"),
         "xcorr_int8": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/xcorr.py:171"),
         "int8_mm": ("tmr_tpu_torch/csrc/int8_mm.cu", "tmr_tpu/ops/pallas_int8.py:50"),
+        "int8_conv": ("tmr_tpu_torch/csrc/int8_mm.cu", "tmr_tpu/ops/pallas_int8.py:50"),
         "add1": ("tmr_tpu_torch/csrc/probe.cu", "scripts/gate_probe.py:84"),
     }
     path_launches = dict(launches, xcorr_int8=qlaunches["xcorr_int8"],
-                         int8_mm=qlaunches["int8_mm"], add1=probe_launches)
+                         int8_mm=qlaunches["int8_mm"], int8_conv=qlaunches["int8_conv"],
+                         add1=probe_launches)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=path_launches[name], **entries[name])
                for name, (src, rep) in meta.items()]

@@ -6,6 +6,10 @@
 - ``int8_mm_plain`` equals ``tmr_tpu.ops.pallas_int8.int8_matmul`` in interpret mode bit
   for bit (exact int32 sums, the same epilogue); the int8 correlation equals
   ``_xcorr_int8dot`` bit for bit.
+- The fused 3x3 layer (``int8_conv3x3``) equals the JAX int8dot arm's ``conv_mm`` then
+  ``leaky_relu`` bit for bit, and the per-tap composition on the padded activation:
+  quantizing the unpadded activation changes nothing. Under the int8 arm each 3x3 layer
+  is one ``int8_conv`` call and the heads one ``int8_matmul`` call.
 - ``fused_decoder_heads`` vs the JAX function for each arm, in f32 and bf16: the int8
   arm bit for bit (exact int32 sums, the same f32 epilogue and tap order); the others
   within 1e-5 of the map's max (f32 sums of exact products in another order; measured
@@ -152,6 +156,116 @@ def test_int8_mm_reads_a_tap_window_through_its_strides():
     want = cuda_int8.int8_mm(view.contiguous(), w, sx, sw)
     assert got.shape == (2, 5, 7, 3)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------- kernel 7: the fused 3x3 layer
+
+
+def _conv_inputs(b, h, w, c, n, zero_image=False, seed=0):
+    """A bf16-valued activation (one image all zero if asked) and a 3x3 layer's HWIO
+    weights and bias, from numpy."""
+    rng = np.random.default_rng(seed + b + h + w + c + n)
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    if zero_image:
+        x[-1] = 0.0
+    x = torch.from_numpy(x).bfloat16().float().numpy()
+    wk = (rng.standard_normal((3, 3, c, n)) * 0.05).astype(np.float32)
+    bias = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    return x, wk, bias
+
+
+def _port_conv_operands(x, wk, bias):
+    xq, xs = fused_heads._quant_act(torch.from_numpy(x))
+    wq, sw = quant.quantize_conv(_oihw(wk))
+    return xq, xs, wq, sw, torch.from_numpy(bias)
+
+
+#: (B, H, W, C_in, N, last image all zero)
+CONV_SHAPES = {"2x8x8x16-8": (2, 8, 8, 16, 8, False),
+               "ragged-1x5x7x32-12": (1, 5, 7, 32, 12, False),
+               "zero-image-2x6x6x16-8": (2, 6, 6, 16, 8, True)}
+
+
+@pytest.mark.parametrize("shape", list(CONV_SHAPES))
+def test_int8_conv3x3_plain_matches_jax_int8dot(shape):
+    """The fused layer's plain version equals the JAX int8dot arm's conv_mm followed by
+    jax.nn.leaky_relu bit for bit (exact int32 sums, the same epilogue, tap order and
+    bias add). An all-zero image quantizes with scale 1."""
+    b, h, w, c, n, zero = CONV_SHAPES[shape]
+    x, wk, bias = _conv_inputs(b, h, w, c, n, zero)
+    jw, js = jq.quantize_int8(jnp.asarray(wk), axis=2)
+    want = np.asarray(jax.nn.leaky_relu(jfh.conv_mm(
+        jnp.asarray(x), jw, jnp.asarray(bias), dtype=jnp.float32, quant="stored", scale=js,
+        kernel_arm="int8dot"), 0.01))
+    xq, xs, wq, sw, tb = _port_conv_operands(x, wk, bias)
+    if zero:
+        assert xs[-1].item() == 1.0 and not xq[-1].any()
+    before = dict(_build.LAUNCHES)
+    got = cuda_int8.int8_conv3x3(xq, xs, wq, sw, tb, 0.01)
+    assert _build.LAUNCHES == before  # the plain version launches nothing
+    assert got.shape == (b, h, w, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(cuda_int8.int8_conv3x3_plain(xq, xs, wq, sw, tb).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("shape", list(CONV_SHAPES))
+def test_int8_conv3x3_equals_the_padded_tap_composition(shape):
+    """Quantizing the unpadded activation changes nothing: the fused layer on it equals
+    the per-tap composition that quantizes the zero-padded activation (conv_mm with the
+    int8 product's plain version, then F.leaky_relu), bit for bit."""
+    b, h, w, c, n, zero = CONV_SHAPES[shape]
+    x, wk, bias = _conv_inputs(b, h, w, c, n, zero, seed=1)
+    xq, xs, wq, sw, tb = _port_conv_operands(x, wk, bias)
+    xt = torch.from_numpy(x)
+    pq, ps = fused_heads._quant_act(torch.nn.functional.pad(xt, (0, 0, 1, 1, 1, 1)))
+    assert torch.equal(ps, xs) and torch.equal(pq[:, 1:-1, 1:-1], xq)
+    want = torch.nn.functional.leaky_relu(fused_heads.conv_mm(
+        xt, wq, tb, torch.float32, "stored", sw, "int8",
+        int8_matmul=cuda_int8.int8_mm_plain), 0.01)
+    assert torch.equal(cuda_int8.int8_conv3x3(xq, xs, wq, sw, tb, 0.01), want)
+
+
+@pytest.mark.parametrize("bad", ["xq_3d", "wq_channels", "wq_1x1", "sx", "sw", "bias"])
+def test_int8_conv3x3_rejects_shapes(bad):
+    xq, xs, wq, sw, tb = _port_conv_operands(*_conv_inputs(2, 4, 4, 16, 8))
+    args = dict(xq=xq, sx=xs, wq=wq, sw=sw, bias=tb)
+    args.update({"xq_3d": dict(xq=xq[0]), "wq_channels": dict(wq=wq[..., :8]),
+                 "wq_1x1": dict(wq=wq[:1, :1]), "sx": dict(sx=xs[:1]),
+                 "sw": dict(sw=sw[:, :, :4]), "bias": dict(bias=tb[:4])}[bad])
+    with pytest.raises(ValueError, match="int8_conv3x3"):
+        cuda_int8.int8_conv3x3(**args)
+    with pytest.raises(ValueError, match="int8_conv3x3"):
+        cuda_int8.int8_conv3x3_plain(**args)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_int8_arm_calls_the_fused_layer_once_per_3x3_layer(layers):
+    """Under the int8 arm every 3x3 layer is one int8_conv call (the combined first
+    layer, then one per stack) and the heads one int8_matmul call; the dequant arm calls
+    neither. The injected plain versions give the default wrappers' result."""
+    calls = {"conv": 0, "mm": 0}
+
+    def conv(*a):
+        calls["conv"] += 1
+        return cuda_int8.int8_conv3x3_plain(*a)
+
+    def mm(*a):
+        calls["mm"] += 1
+        return cuda_int8.int8_mm_plain(*a)
+
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, 6, 6, 16))
+                         .astype(np.float32))
+    entries = _port_entries(_tail_params(layers=layers, seed=3), stored=True)
+    got = fused_heads.fused_decoder_heads(x, *entries, dtype=torch.float32, quant="stored",
+                                          kernel_arm="int8", int8_matmul=mm, int8_conv=conv)
+    assert calls == {"conv": 1 + 2 * (layers - 1), "mm": 1}
+    want = fused_heads.fused_decoder_heads(x, *entries, dtype=torch.float32, quant="stored",
+                                           kernel_arm="int8")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fused_heads.fused_decoder_heads(x, *entries, dtype=torch.float32, quant="stored",
+                                    kernel_arm="dequant", int8_matmul=mm, int8_conv=conv)
+    assert calls == {"conv": 1 + 2 * (layers - 1), "mm": 1}
 
 
 # ------------------------------------------------------------- the int8 correlation
@@ -390,7 +504,7 @@ def test_every_kernel_has_a_source_and_a_counter():
     for lib_name in _build.SIGNATURES:
         assert (_build.CSRC / f"{lib_name}.cu").is_file()
     assert set(_build.LAUNCHES) == {"global_attn", "window_attn", "xcorr", "nms",
-                                    "xcorr_int8", "int8_mm", "add1"}
+                                    "xcorr_int8", "int8_mm", "int8_conv", "add1"}
 
 
 def test_launch_binds_each_c_function_once(monkeypatch):

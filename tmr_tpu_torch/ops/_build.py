@@ -39,7 +39,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tmr_xcorr_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "nms": {"tmr_nms": (_P, _P, _P, _I, _I, _F, _P)},
-    "int8_mm": {"tmr_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P)},
+    "int8_mm": {
+        "tmr_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P),
+        "tmr_int8_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
     "probe": {"tmr_add1": (_P, _P, _L, _P)},
 }
 
@@ -52,8 +55,12 @@ NVCC_FLAGS = (
 #: where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
     "global_attn": 0, "window_attn": 0, "xcorr": 0, "nms": 0,
-    "xcorr_int8": 0, "int8_mm": 0, "add1": 0,
+    "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
 }
+
+#: nvcc's output (``-Xptxas -v``: registers, shared memory and spills per kernel) of each
+#: source this process built; a library found already built has no entry
+LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -97,12 +104,13 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
             continue

@@ -17,10 +17,13 @@ same per-tap layout, so every tap is an ``(N, K)`` matrix.
 next to its matmul (fake quantization); ``"stored"`` the int8 weights themselves.
 ``kernel_arm`` (stored only): ``"dequant"`` widens the int8 operand to ``dtype`` next to
 an f32-accumulated product (bitwise the fake path); ``"int8"`` quantizes the activation
-per image as well and contracts on the int8 grid through the hand-written kernel
-(``ops/cuda_int8.int8_mm``), the scales applied in its f32 epilogue. Rounding points are
-the JAX package's: layer inputs are cast to ``dtype`` and zero-padded before an int8
-arm quantizes them; the heads quantize the f32 activation after ``leaky_relu``.
+per image as well and contracts on the int8 grid through the hand-written kernels, the
+scales applied in their f32 epilogue: each 3x3 layer is one ``ops/cuda_int8.int8_conv3x3``
+launch (nine taps, bias and ``leaky_relu`` inside), the heads and any other conv go tap
+by tap through ``ops/cuda_int8.int8_mm``. Rounding points are the JAX package's: layer
+inputs are cast to ``dtype`` before an int8 arm quantizes them (the JAX package pads
+first, which changes nothing: the padded zeros never set the amax); the heads quantize
+the f32 activation after ``leaky_relu``.
 
 The ``"dequant"`` and unquantized arms multiply f32 operands that hold ``dtype``'s
 values: the products are exact in f32 and the sums f32, which is what JAX's
@@ -36,7 +39,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from tmr_tpu_torch.ops.cuda_int8 import int8_mm
+from tmr_tpu_torch.ops.cuda_int8 import int8_conv3x3, int8_mm
 from tmr_tpu_torch.ops.quant import dequantize, fake_quant, quantize_int8
 
 ParamPair = Tuple[torch.Tensor, ...]  # (weight, bias[, scale])
@@ -101,6 +104,20 @@ def conv_mm(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
     return acc + bias.float()
 
 
+def _conv_act(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, dtype, quant,
+              scale, kernel_arm: str, negative_slope: float, int8_matmul,
+              int8_conv) -> torch.Tensor:
+    """``leaky_relu(conv_mm(...))``. A 3x3 layer of the int8 arm is one ``int8_conv`` call
+    on the unpadded activation quantized per image: zeros never set an amax (an all-zero
+    image takes scale 1 either way), so its int8 values and scale are those of the padded
+    activation that :func:`conv_mm` quantizes."""
+    if quant == "stored" and kernel_arm == "int8" and tuple(taps.shape[:2]) == (3, 3):
+        xq, xs = _quant_act(x.to(dtype))
+        return int8_conv(xq, xs, taps, scale, bias.float(), negative_slope)
+    return F.leaky_relu(conv_mm(x, taps, bias, dtype, quant, scale, kernel_arm, int8_matmul),
+                        negative_slope)
+
+
 def _entry(pair):
     """(weight, bias[, scale]) -> (per-tap (k, k, O, I) weight, bias, scale or None)."""
     if len(pair) > 2:
@@ -123,11 +140,13 @@ def fused_decoder_heads(f_cat: torch.Tensor, dec_o: Sequence[ParamPair],
                         dec_b: Sequence[ParamPair], head_o: ParamPair,
                         head_b: ParamPair, dtype: torch.dtype = torch.bfloat16,
                         negative_slope: float = 0.01, quant=False,
-                        kernel_arm: str = "dequant",
-                        int8_matmul=int8_mm) -> Tuple[torch.Tensor, torch.Tensor]:
+                        kernel_arm: str = "dequant", int8_matmul=int8_mm,
+                        int8_conv=int8_conv3x3) -> Tuple[torch.Tensor, torch.Tensor]:
     """f_cat (B, H, W, C_in) NHWC; dec_o/dec_b: per-layer (weight, bias[, scale]) of the
     objectness/bbox stacks; head_o/head_b: the 1x1 heads; ``int8_matmul`` as in
-    :func:`conv_mm`. Returns (objectness (B, H, W, 1), regressions (B, H, W, 4)), f32."""
+    :func:`conv_mm`; ``int8_conv`` the int8 arm's 3x3 layer (the kernel, or
+    ``cuda_int8.int8_conv3x3_plain``). Returns (objectness (B, H, W, 1), regressions
+    (B, H, W, 4)), f32."""
     if len(dec_o) != len(dec_b):
         raise ValueError("fused_decoder_heads: the stacks must have equal depth")
     stored = quant == "stored"
@@ -138,17 +157,15 @@ def fused_decoder_heads(f_cat: torch.Tensor, dec_o: Sequence[ParamPair],
     w0 = torch.cat([ko0, kb0], dim=2)
     b0 = torch.cat([bo0, bb0])
     s0 = torch.cat([so0, sb0], dim=2) if stored else None
-    act = F.leaky_relu(conv_mm(f_cat, w0, b0, dtype, quant, s0, kernel_arm, int8_matmul),
-                       negative_slope)
+    arm = (kernel_arm, negative_slope, int8_matmul, int8_conv)
+    act = _conv_act(f_cat, w0, b0, dtype, quant, s0, *arm)
 
     for eo, eb in zip(dec_o[1:], dec_b[1:]):
         wo, bo, so = _entry(eo)
         wb, bb, sb = _entry(eb)
-        ao = conv_mm(act[..., :c].to(dtype), wo, bo, dtype, quant, so, kernel_arm,
-                     int8_matmul)
-        ab = conv_mm(act[..., c:].to(dtype), wb, bb, dtype, quant, sb, kernel_arm,
-                     int8_matmul)
-        act = F.leaky_relu(torch.cat([ao, ab], dim=-1), negative_slope)
+        ao = _conv_act(act[..., :c], wo, bo, dtype, quant, so, *arm)
+        ab = _conv_act(act[..., c:], wb, bb, dtype, quant, sb, *arm)
+        act = torch.cat([ao, ab], dim=-1)
 
     w1, b1, s1 = _entry(head_o)
     w4, b4, s4 = _entry(head_b)

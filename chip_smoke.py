@@ -22,7 +22,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows; the
    f32 correlation at T = 1 to 65 on the matcher's map with its 3xTF32 tensor bound and
    its f32 bound, and on 96^2 and 64^2 maps, a ragged map, a bf16-valued feature and a
-   feature with non-finite values planted; the fused int8 3x3 layer at the int8 tail's
+   feature with non-finite values planted; the int8 correlation at T = 1 to 65 on the
+   matcher's map, timed in turns with the CUDA-core kernel it replaced, beside the
+   function's bound and the band's, and on two ragged maps and a map of -128/-127/127
+   only (0 mismatches everywhere); the fused int8 3x3 layer at the int8 tail's
    shape and a ragged one, timed in turns with the per-tap composition it replaces,
    beside the bare ``torch._int_mm`` of the im2col'd product and its ``-Xptxas -v``;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
@@ -55,6 +58,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -326,39 +330,84 @@ def check_xcorr_maps(torch, F, cuda_xcorr) -> None:
         fail("xcorr loses a non-finite output or disagrees beside one")
 
 
-def check_xcorr_int8(torch, F, cuda_xcorr, t: int, seed: int):
-    """The int8 correlation at the matcher's shapes vs its int32 plain version: the sums
-    are exact in both, so the f32 results must be equal (0 mismatches). The library
-    yardstick is a float64 grouped ``F.conv2d`` of the int8 values (the sums stay below
-    2^53, so it is exact too) and the same epilogue; its mismatches are printed."""
+def int8_xcorr_inputs(torch, shape, t: int, seed: int, extreme: bool = False):
+    """(feature, template, f_scale, t_scale) of the int8 correlation: int8 values drawn
+    over [-128, 127], or with ``extreme`` from {-128, -127, 127} only (full magnitude of
+    both signs; -128 never comes from the quantizer but the kernel takes any int8)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    b, c, h, w = 4, 512, 128, 128
-    feat = torch.randint(-127, 128, (b, c, h, w), generator=gen, device="cuda",
-                         dtype=torch.int8)
-    tmpl = torch.randint(-127, 128, (b, c, t, t), generator=gen, device="cuda",
-                         dtype=torch.int8)
+    b, c, h, w = shape
+
+    def i8(*dims):
+        if extreme:
+            vals = torch.tensor([-128, -127, 127], dtype=torch.int8, device="cuda")
+            return vals[torch.randint(0, 3, dims, generator=gen, device="cuda")]
+        return torch.randint(-128, 128, dims, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    feat, tmpl = i8(b, c, h, w), i8(b, c, t, t)
     fs = torch.rand(b, c, 1, 1, generator=gen, device="cuda") * 0.01 + 1e-4
     ts = torch.rand(b, c, 1, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+    return feat, tmpl, fs, ts
+
+
+def check_xcorr_int8(torch, F, cuda_xcorr, _build, t: int, seed: int,
+                     shape=(4, 512, 128, 128), extreme: bool = False,
+                     yardsticks: bool = True) -> dict:
+    """The int8 correlation vs its int32 plain version: the sums are exact in both, so
+    the f32 results must be equal (0 mismatches). With ``yardsticks``: timed in turns
+    with the CUDA-core kernel it replaced (``tmr_xcorr_int8_cuda_cores``, same inputs,
+    its mismatches counted too), beside the plain version and the library yardstick, a
+    float64 grouped ``F.conv2d`` of the int8 values (the sums stay below 2^53, so it is
+    exact too) and the same epilogue. Bounds: the function's (the map in and out once,
+    the useful products at the int8 peak) and the band's (the products the kernel
+    performs, the band's depth per output and template row)."""
+    b, c, h, w = shape
+    feat, tmpl, fs, ts = int8_xcorr_inputs(torch, shape, t, seed, extreme)
     got = cuda_xcorr.xcorr_int8(feat, tmpl, fs, ts)
     want = cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts)
     torch.cuda.synchronize()
-    mism = int((got != want).sum().item())
-    err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: cuda_xcorr.xcorr_int8(feat, tmpl, fs, ts))
-    plain_ms = cuda_ms(lambda: cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts), reps=1,
-                       warmup=0)
+    r = dict(mism=int((got != want).sum().item()), err=(got - want).abs().max().item())
+    del want
+    kernel = lambda: cuda_xcorr.xcorr_int8(feat, tmpl, fs, ts)  # noqa: E731
+    if not yardsticks:
+        r["ms"] = cuda_ms(kernel)
+        return r
+    old_fn = _build.lib("xcorr").tmr_xcorr_int8_cuda_cores
+    stream = _build.stream_of(feat)
+
+    def old():
+        out = torch.empty(feat.shape, dtype=torch.float32, device="cuda")
+        rc = old_fn(feat.data_ptr(), tmpl.data_ptr(), fs.data_ptr(), ts.data_ptr(),
+                    out.data_ptr(), b * c, h, w, t, stream)
+        if rc:
+            fail(f"tmr_xcorr_int8_cuda_cores: CUDA error {rc} at launch")
+        return out
+
+    r["old_mism"] = int((old() != got).sum().item())
+    ms, old_ms = [], []
+    for fn, dst in ((kernel, ms), (old, old_ms), (old, old_ms), (kernel, ms)):
+        dst.append(cuda_ms(fn))
+    r.update(ms=min(ms), ms_turns=ms, old_ms=min(old_ms), old_turns=old_ms)
+    r["plain_ms"] = cuda_ms(lambda: cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts), reps=1,
+                            warmup=0)
 
     def library():
         acc = F.conv2d(feat.view(1, b * c, h, w).double(),
                        tmpl.view(b * c, 1, t, t).double(), padding=t // 2, groups=b * c)
         return acc.view(b, c, h, w).float() * (fs * ts)
 
-    lib_mism = int((library() != want).sum().item())
-    lib_ms = cuda_ms(library, reps=3, warmup=1)
-    ops = 2.0 * b * c * h * w * t * t  # a multiply and an add per product
+    r["lib_mism"] = int((library() != got).sum().item())
+    r["lib_ms"] = cuda_ms(library, reps=3, warmup=1)
+    depth = cuda_xcorr.int8_geometry(t)["depth"]
     nbytes = b * c * h * w * (1 + 4) + b * c * t * t + 2 * b * c * 4
-    return (mism, err, ms, plain_ms, lib_ms, lib_mism,
-            bound(ops, nbytes, PEAK_INT8_OPS))
+    r["bound"] = bound(2.0 * b * c * h * w * t * t, nbytes, PEAK_INT8_OPS)
+    r["band_bound"] = bound(2.0 * b * c * h * w * depth * t, nbytes, PEAK_INT8_OPS)
+    return r
+
+
+#: other maps of the int8 correlation, (B, C, H, W, extreme values): ragged maps whose
+#: rows are not 16-byte aligned (staged bytewise), and a map of -128/-127/127 only
+XCORR_INT8_MAPS = ((1, 7, 100, 76, False), (1, 3, 37, 53, False), (2, 4, 64, 64, True))
 
 
 def int8_mm_inputs(torch, kind: str, seed: int):
@@ -413,6 +462,26 @@ def check_int8_mm(torch, cuda_int8, kind: str, seed: int):
     nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
     return ((m, n, k), mism, err, ms, plain_ms, lib_ms, bare_ms,
             bound(ops, nbytes, PEAK_INT8_OPS))
+
+
+def sass_opcodes(lib_path, kernel: str, opcode: str):
+    """{function: count} of the SASS instructions starting with ``opcode`` in each function
+    of the library whose name contains ``kernel`` (``cuobjdump -sass``), or None where the
+    toolkit has no ``cuobjdump``."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        if kernel in name:
+            # an instruction line: /*addr*/ [@predicate] OPCODE.modifiers operands ; /*code*/
+            counts[name.strip()] = sum(
+                1 for line in body.splitlines()
+                if re.match(rf"\s*/\*[0-9a-f]+\*/\s*(@!?U?P\w+\s+)?{opcode}\b", line))
+    return counts
 
 
 def ptxas_info(log, kernel: str) -> str:
@@ -574,6 +643,8 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                   thr: float) -> dict:
     """Each kernel at the main path's shapes against its plain version; returns the
     kernels line's entries (all but the launch counts)."""
+    from tmr_tpu_torch.ops import _build
+
     entries = {}
     for name, windowed, has_bias, grid in (("global_attn", False, True, (64, 64)),
                                            ("global_attn_nobias", False, False, (64, 64)),
@@ -618,18 +689,47 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         fail(f"nms keep masks differ from the plain version in {mism} slots")
     entries["nms"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=bby, library_ms=None)
-    for t in (9, 17, 33, 65):
-        mism, err, ms, plain_ms, lib_ms, lib_mism, (bms, bby) = check_xcorr_int8(
-            torch, F, cuda_xcorr, t, SEED)
-        print(f"kernel xcorr_int8 T={t}: mismatches {mism} (must be 0), max_err {err:.3e} "
-              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-              f"(float64 grouped F.conv2d + scales, {lib_mism} mismatches) "
-              f"bound_ms {bms:.4f} ({bby}, int8 peak)", flush=True)
-        if mism:
-            fail(f"xcorr_int8 T={t} differs from its plain version in {mism} outputs")
+    for kb in (1, 2, 3):
+        for k16 in (0, 1):
+            info = ptxas_info(_build.LOGS.get("xcorr"), f"xcorr_int8_kernelILi{kb}ELb{k16}E")
+            print(f"ptxas xcorr_int8_kernel<{kb}, {bool(k16)}>: {info}", flush=True)
+    # the products are tensor-core s8 MMAs: IMMA in the SASS of every instantiation
+    imma = sass_opcodes(_build._lib_path("xcorr"), "xcorr_int8_kernel", "IMMA")
+    if imma is None:
+        print("sass xcorr_int8_kernel: cuobjdump not found, IMMA not counted", flush=True)
+    else:
+        print(f"sass xcorr_int8_kernel IMMA per instantiation: "
+              f"{json.dumps(sorted(imma.values()))}", flush=True)
+        if len(imma) != 6 or not all(imma.values()):
+            fail(f"xcorr_int8_kernel: expected IMMA in all 6 instantiations, got {imma}")
+    for t in XCORR_TS:
+        r = check_xcorr_int8(torch, F, cuda_xcorr, _build, t, SEED)
+        (bms, bby), (band_ms, band_by) = r["bound"], r["band_bound"]
+        turns = lambda v: " ".join(f"{x:.4f}" for x in v)  # noqa: E731
+        print(f"kernel xcorr_int8 T={t}: mismatches {r['mism']} (must be 0), max_err "
+              f"{r['err']:.3e} kernel_ms {r['ms']:.4f} (turns {turns(r['ms_turns'])}) "
+              f"replaced CUDA-core kernel_ms {r['old_ms']:.4f} (turns "
+              f"{turns(r['old_turns'])}; {r['old_mism']} mismatches) plain_ms "
+              f"{r['plain_ms']:.4f} library_ms {r['lib_ms']:.4f} (float64 grouped F.conv2d "
+              f"+ scales, {r['lib_mism']} mismatches) bound_ms {bms:.4f} ({bby}, int8 peak) "
+              f"band_bound_ms {band_ms:.4f} ({band_by}, the band's performed products)",
+              flush=True)
+        if r["mism"] or r["old_mism"]:
+            fail(f"xcorr_int8 T={t} differs from its plain version in {r['mism']} outputs "
+                 f"and from the replaced kernel in {r['old_mism']}")
         if t == 33:
-            entries["xcorr_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+            entries["xcorr_int8"] = dict(max_abs_err=r["err"], ms=r["ms"],
+                                         plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
+                                         library_ms=r["lib_ms"])
+    for b, c, h, w, extreme in XCORR_INT8_MAPS:
+        for t in XCORR_TS:
+            r = check_xcorr_int8(torch, F, cuda_xcorr, _build, t, SEED, (b, c, h, w),
+                                 extreme, False)
+            what = f"xcorr_int8 {b}x{c}x{h}x{w}{' -128/-127/127 only' if extreme else ''} T={t}"
+            print(f"kernel {what}: mismatches {r['mism']} (must be 0), max_err "
+                  f"{r['err']:.3e} kernel_ms {r['ms']:.4f}", flush=True)
+            if r["mism"]:
+                fail(f"{what} differs from its plain version in {r['mism']} outputs")
     for kind in ("tap", "head", "ragged"):
         (m, n, k), mism, err, ms, plain_ms, lib_ms, bare_ms, (bms, bby) = check_int8_mm(
             torch, cuda_int8, kind, SEED)
@@ -643,8 +743,6 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         if kind == "head":  # the int8 path's one launch of it per batch
             entries["int8_mm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bms, bound_by=bby, library_ms=lib_ms)
-    from tmr_tpu_torch.ops import _build
-
     print(f"ptxas int8_conv3x3_kernel: {ptxas_info(_build.LOGS.get('int8_mm'), 'int8_conv')}",
           flush=True)
     for shape in INT8_CONV_SHAPES:

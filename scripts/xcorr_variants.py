@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Where the f32 correlation kernel's time goes on the card: variants of the source, timed in turns.
+"""Where a correlation kernel's time goes on the card: variants of the source, timed in turns.
 
 Run from the root of a checkout on a machine with a Hopper GPU and the CUDA toolkit:
 
-    python3 scripts/xcorr_variants.py [--variants NAME ...] [--baseline XCORR_CU ...]
+    python3 scripts/xcorr_variants.py [--int8] [--variants NAME ...] [--src XCORR_CU ...]
 
 Builds variants of ``tmr_tpu_torch/csrc/xcorr.cu`` made by text edits of the source
-(:data:`EDITS`: phases cut out of the kernel, another warp or CTA tile), one ``nvcc
--Xptxas -v`` each, all started together, into the git-ignored
-``tmr_tpu_torch/_build/variants/``. ``--baseline`` adds other sources of the same C
-interface unedited (for example a parent commit's ``xcorr.cu``, unpacked beside this
-checkout), named ``baseline<i>``. Prints each variant's registers and spills per
-instantiation, times every variant in turns over three rounds with CUDA events on the
-matcher's map (4 x 512 x 128^2 f32, T = 9, 17, 33, 65), and holds each against the plain
-version with ``chip_smoke.py``'s tolerance (2e-5 x max); a variant that cuts a phase out
-computes garbage and is marked so. Prints the card, one line per template size and
-variant, and a JSON line of the times.
+(:data:`EDITS` for the f32 kernel, :data:`EDITS_INT8` for the int8 kernel with
+``--int8``: phases cut out of the kernel, another warp or CTA tile), one ``nvcc -Xptxas
+-v`` each, all started together, into the git-ignored ``tmr_tpu_torch/_build/variants/``.
+``--src`` (or ``--baseline``) adds other sources of the same C interface unedited (for
+example a parent commit's ``xcorr.cu`` from ``git show HEAD~1:tmr_tpu_torch/csrc/xcorr.cu``),
+named ``baseline<i>``. Prints each variant's registers and spills per instantiation of
+the kernel, times every variant in turns over three rounds with CUDA events on the
+matcher's map (4 x 512 x 128^2, f32 or int8; T = 9, 17, 33, 65 by default), and holds
+each against the plain version: f32 with ``chip_smoke.py``'s tolerance (2e-5 x max),
+int8 bit for bit (mismatches counted); a variant that cuts a phase out computes garbage
+and is marked so. Prints the card, one line per template size and variant, and a JSON
+line of the times.
 
 Imports nothing of JAX or ``tmr_tpu``; exits 2 without a CUDA device.
 """
@@ -90,6 +92,54 @@ EDITS = {
     "cta_128x64": ((_WARPS, "constexpr int WARPS_M = 8, WARPS_N = 1;"),),
 }
 
+_I8_MMA = ('asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "\n'
+           '      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"')
+_I8_MMA16 = ('asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "\n'
+             '      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"')
+_I8_A_LOADS = """        wa[u] = ra[2 * u];
+        wb[u] = rb[2 * u];
+"""
+#: A words made in registers, distinct for every u and template row, no shared loads
+_I8_A_REGS = """        wa[u] = bf[0][0] ^ (uint32_t)(u + i);
+        wb[u] = bf[0][1] ^ (uint32_t)(u + 1);
+"""
+_I8_STAGE = "      cp_async16(sW + r * LD + k, ok ? fp + (size_t)y * W + x : fp, ok);\n"
+_I8_STORE = "          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);\n"
+#: the store kept in the code but (all but) never taken: every accumulator is still read
+_I8_RARE_STORE = ("          if (v0 == 1.2345e-30f && v1 == 1.2345e-30f)\n"
+                  "            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);\n")
+
+#: name -> text edits (old, new) of xcorr.cu for the int8 kernel (``--int8``)
+EDITS_INT8 = {
+    "full": (),
+    # the products cut out: each mma an empty asm that still takes its operands, so the
+    # window and template loads stay (garbage output)
+    "no_products": ((_I8_MMA, 'asm volatile(""'), (_I8_MMA16, 'asm volatile(""')),
+    # no A loads from shared memory: the words made in registers (garbage output)
+    "no_loads": ((_I8_A_LOADS, _I8_A_REGS),),
+    # no f32 store: every output computed, none written (nothing written)
+    "no_store": ((_I8_STORE, _I8_RARE_STORE),),
+    # no window staging: the window holds whatever shared memory held (garbage output)
+    "no_staging": ((_I8_STAGE, ""),),
+    # the products alone: no staging, no A loads, no store (nothing written)
+    "products_only": ((_I8_A_LOADS, _I8_A_REGS), (_I8_STAGE, ""),
+                      (_I8_STORE, _I8_RARE_STORE)),
+    # every k-block 32 deep: no m16n8k16 tail block
+    "no_k16": (("  return t + 7 + ((-(t / 2)) & 3) - 32 * (i8_kb(t) - 1) <= 16;",
+                "  return t < 0;"),),
+    # 8 warps of 16 x 128: a 128 x 128 CTA tile (less halo per output)
+    "cta_128x128": (("constexpr int I8_WARPS = 4;", "constexpr int I8_WARPS = 8;"),),
+    # warps of 32 x 128 (two m16 tiles share each B gather): a 128 x 128 CTA tile
+    "warp_32x128": (("constexpr int I8_WM = 1, I8_WN = 16;",
+                     "constexpr int I8_WM = 2, I8_WN = 16;"),),
+    # warps of 16 x 64: a 64 x 64 CTA tile (fewer registers, more CTAs, more halo)
+    "warp_16x64": (("constexpr int I8_WM = 1, I8_WN = 16;",
+                    "constexpr int I8_WM = 1, I8_WN = 8;"),),
+    # a register cap for 5 CTAs of 128 threads per SM
+    "min_blocks5": (("__global__ void __launch_bounds__(I8_THREADS)\n    xcorr_int8_kernel",
+                     "__global__ void __launch_bounds__(I8_THREADS, 5)\n    xcorr_int8_kernel"),),
+}
+
 TS = (9, 17, 33, 65)
 SHAPE = (4, 512, 128, 128)
 
@@ -100,9 +150,9 @@ def _sub(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def variants(src: str) -> dict:
+def variants(src: str, edits_by_name: dict) -> dict:
     out = {}
-    for name, edits in EDITS.items():
+    for name, edits in edits_by_name.items():
         text = src
         for old, new in edits:
             text = _sub(text, old, new)
@@ -110,9 +160,10 @@ def variants(src: str) -> dict:
     return out
 
 
-def build(sources: dict, out: Path, flags) -> dict:
+def build(sources: dict, out: Path, flags, int8: bool) -> dict:
     """sources: name -> source text. One nvcc each, all started together; returns name ->
-    the loaded library's ``tmr_xcorr``, its argtypes set."""
+    the loaded library's ``tmr_xcorr`` (``tmr_xcorr_int8`` with ``int8``), its argtypes
+    set."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
@@ -127,22 +178,27 @@ def build(sources: dict, out: Path, flags) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for the {name} variant:\n{log}")
         lines = log.splitlines()
-        for i, line in enumerate(lines):  # the f32 kernels' entries: spills, registers
-            if "Compiling entry function" in line and "int8" not in line:
+        kernel = "xcorr_int8_kernel" if int8 else "xcorr_tf32_kernel"
+        for i, line in enumerate(lines):  # the kernel's entries: spills, registers
+            if "Compiling entry function" in line and kernel in line:
                 inst = line.split("'")[1][-24:]
                 stats = " | ".join(x.strip() for x in lines[i + 2:i + 4])
                 print(f"ptxas {name} ...{inst}: {stats}", flush=True)
-        fn = ctypes.CDLL(str(out / f"libxcorr_{name}.so")).tmr_xcorr
-        fn.argtypes = [P, P, P, I, I, I, I, P]
+        lib = ctypes.CDLL(str(out / f"libxcorr_{name}.so"))
+        fn = lib.tmr_xcorr_int8 if int8 else lib.tmr_xcorr
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, P] if int8 else [P, P, P, I, I, I, I, P]
         fns[name] = fn
     return fns
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", nargs="+", choices=list(EDITS),
-                    help="variants to build (default: all)")
-    ap.add_argument("--baseline", nargs="+", type=Path, default=[],
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 kernel (tmr_xcorr_int8) and EDITS_INT8")
+    ap.add_argument("--variants", nargs="+", choices=sorted({*EDITS, *EDITS_INT8}),
+                    help="variants to build (default: all of the kernel's)")
+    ap.add_argument("--src", "--baseline", dest="baseline", nargs="+", type=Path,
+                    default=[],
                     help="other xcorr.cu sources with the same C interface, timed unedited")
     ap.add_argument("--ts", nargs="+", type=int, default=list(TS),
                     help=f"template sizes (default: {' '.join(map(str, TS))})")
@@ -159,25 +215,34 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    sources = {name: text for name, text in variants((_build.CSRC / "xcorr.cu").read_text())
-               .items() if args.variants is None or name in args.variants}
+    edits = EDITS_INT8 if args.int8 else EDITS
+    sources = {name: text for name, text in variants((_build.CSRC / "xcorr.cu").read_text(),
+                                                     edits).items()
+               if args.variants is None or name in args.variants}
     for i, path in enumerate(args.baseline):
         print(f"baseline{i}: {path}", flush=True)
         sources[f"baseline{i}"] = path.read_text()
-    fns = build(sources, _build.BUILD_DIR / "variants", _build.NVCC_FLAGS)
+    fns = build(sources, _build.BUILD_DIR / "variants", _build.NVCC_FLAGS, args.int8)
     stream = torch.cuda.current_stream().cuda_stream
     b, c, h, w = SHAPE
     times = {}
     for t in args.ts:
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        feat = torch.randn(b, c, h, w, generator=gen, device="cuda")
-        tmpl = torch.randn(b, c, t, t, generator=gen, device="cuda")
-        want = cuda_xcorr.xcorr_plain(feat, tmpl)
-        tol = chip_smoke.XCORR_REL_TOL * want.abs().max().item()
-        out = torch.empty_like(feat)
+        if args.int8:
+            feat, tmpl, fs, ts = chip_smoke.int8_xcorr_inputs(torch, SHAPE, t, 0)
+            want = cuda_xcorr.xcorr_int8_plain(feat, tmpl, fs, ts)
+            args_of = (feat.data_ptr(), tmpl.data_ptr(), fs.data_ptr(), ts.data_ptr())
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            feat = torch.randn(b, c, h, w, generator=gen, device="cuda")
+            tmpl = torch.randn(b, c, t, t, generator=gen, device="cuda")
+            want = cuda_xcorr.xcorr_plain(feat, tmpl)
+            args_of = (feat.data_ptr(), tmpl.data_ptr())
+        # f32: the card check's tolerance; int8: bit for bit
+        tol = 0.0 if args.int8 else chip_smoke.XCORR_REL_TOL * want.abs().max().item()
+        out = torch.empty(feat.shape, dtype=torch.float32, device="cuda")
 
         def launch(fn):
-            rc = fn(feat.data_ptr(), tmpl.data_ptr(), out.data_ptr(), b * c, h, w, t, stream)
+            rc = fn(*args_of, out.data_ptr(), b * c, h, w, t, stream)
             if rc:
                 raise SystemExit(f"xcorr_variants: error {rc} at launch")
 
@@ -192,12 +257,14 @@ def main(argv=None) -> int:
             launch(fn)
             torch.cuda.synchronize()
             err = (out - want).abs().max().item()
+            mism = int((out != want).sum().item())
             first = out.clone() if first is None else first
             same = int((out != first).sum().item())
             ms = " ".join(f"{x:.4f}" for x in times[key][name])
             print(f"{b}x{c}x{h}x{w} {key:5s} {name:13s} ms {ms} max_err {err:.3e} tol "
-                  f"{tol:.3e}{'' if err <= tol else ' (fails the tolerance)'}, {same} "
-                  f"outputs differ from the first variant's", flush=True)
+                  f"{tol:.3e}{'' if err <= tol else ' (fails the tolerance)'}, {mism} "
+                  f"outputs differ from the plain version's, {same} from the first "
+                  f"variant's", flush=True)
     print(f"card: {card}")
     print(json.dumps({"card": card, "ms": times}))
     return 0

@@ -5,7 +5,9 @@
   bit for bit (the same f32 operations).
 - ``int8_mm_plain`` equals ``tmr_tpu.ops.pallas_int8.int8_matmul`` in interpret mode bit
   for bit (exact int32 sums, the same epilogue); the int8 correlation equals
-  ``_xcorr_int8dot`` bit for bit.
+  ``_xcorr_int8dot`` bit for bit, and so does a numpy model of its card kernel's index
+  maths (tiles, zero-filled window, the lanes' ``mma.sync`` fragments), whose int32 sums
+  equal the JAX integer conv's on int8 values of full magnitude.
 - The fused 3x3 layer (``int8_conv3x3``) equals the JAX int8dot arm's ``conv_mm`` then
   ``leaky_relu`` bit for bit, and the per-tap composition on the padded activation:
   quantizing the unpadded activation changes nothing. Under the int8 arm each 3x3 layer
@@ -41,7 +43,8 @@ from tmr_tpu.ops import quant as jq  # noqa: E402
 from tmr_tpu.ops import xcorr as jxcorr  # noqa: E402
 from tmr_tpu.ops.pallas_int8 import int8_matmul  # noqa: E402
 from tmr_tpu_torch.config import Config, preset  # noqa: E402
-from tmr_tpu_torch.ops import _build, cuda_int8, fused_heads, probe, quant, xcorr  # noqa: E402
+from tmr_tpu_torch.ops import (_build, cuda_int8, cuda_xcorr, fused_heads, probe,  # noqa: E402
+                                quant, xcorr)
 
 OUTPUT_TIER_REL = 5e-2  # tmr_tpu/ops/quant.py:79
 
@@ -486,6 +489,132 @@ def test_admitted_combinations_build():
         cfg = preset("TMR_FSCD147", **fields)
         assert (cfg.quant, cfg.quant_storage) == (fields.get("quant", "off"),
                                                   fields.get("quant_storage", "off"))
+
+
+# The int8 card kernel (csrc/xcorr.cu xcorr_int8_kernel) emulated on the CPU with its own
+# index maths: its CTA tiles, the window staged from the 16-aligned column x0 - c - e with
+# zero fill, and per template row i the mma.sync fragments each lane (g, q) loads: A words
+# at column delta + 8 u + 4 q (u = nb + 4 kb; a2 the word of u + 2) of rows g and g + 8, B
+# words of the zero-padded template row joined by the byte shift (o & 3), o = 4 q - g -
+# rho + I8_TPAD, and an m16n8k16 tail block where int8_geometry says k16.
+
+
+def _int8_band_columns(geo, wn):
+    """For the n8 column tiles and the band's k slots (k-blocks in order, 32 deep, the
+    last 16 deep where k16): the window column each A slot reads, (wn, depth); and for
+    each B slot (k, n) the byte of the padded template row it reads, (depth, 8)."""
+    g, q = np.arange(8)[:, None, None], np.arange(4)[None, :, None]
+    kk = np.arange(4)[None, None, :]
+    o = 4 * q - g - geo["rho"] + cuda_xcorr.INT8_TPAD
+    a_cols = np.zeros((wn, geo["depth"]), np.int64)
+    b_bytes = np.zeros((geo["depth"], 8), np.int64)
+    for kb in range(geo["kb"]):
+        halves = 1 if geo["k16"] and kb == geo["kb"] - 1 else 2
+        for h in range(halves):
+            # slots 32 kb + 16 h + 4 q + kk of the band, as the lane registers hold them
+            slot = (32 * kb + 16 * h + 4 * q + kk)[0]  # (4, 4)
+            for nb in range(wn):
+                word = geo["delta"] // 4 + q[0] + 2 * (nb + 4 * kb + 2 * h)  # (4, 1)
+                a_cols[nb, slot] = 4 * word + kk[0]
+            word = (o >> 2) + 8 * kb + 4 * h  # (8, 4, 1): the first of the two words
+            byte = 4 * word + (o & 3) + kk  # __byte_perm(w, w + 1, 0x3210 + 0x1111 (o & 3))
+            for gg in range(8):
+                b_bytes[slot, gg] = byte[gg]
+    return a_cols, b_bytes
+
+
+def _band_xcorr_int8(f, tm):
+    """f (P, H, W), tm (P, T, T) int8 values -> (P, H, W) int64: the kernel's sums."""
+    p, h, w = f.shape
+    t = tm.shape[-1]
+    c = t // 2
+    geo = cuda_xcorr.int8_geometry(t)
+    bm, bn = cuda_xcorr.INT8_BM, cuda_xcorr.INT8_BN
+    wn = bn // 8
+    e = geo["delta"] + geo["rho"]
+    a_cols, b_bytes = _int8_band_columns(geo, wn)
+    padded = np.zeros((p, t, geo["tpitch"]), np.float64)
+    padded[:, :, cuda_xcorr.INT8_TPAD:cuda_xcorr.INT8_TPAD + t] = tm
+    band = padded[:, :, b_bytes]  # (P, T, depth, 8)
+    out = np.zeros((p, h, w), np.int64)
+    rows = bm + t - 1
+    for y0 in range(0, h, bm):
+        for x0 in range(0, w, bn):
+            ys, xs = y0 - c + np.arange(rows), x0 - c - e + np.arange(geo["cols"])
+            ok = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+            win = np.where(ok, f[:, ys.clip(0, h - 1)][:, :, xs.clip(0, w - 1)], 0.0)
+            acc = np.zeros((p, bm, wn, 8))  # f64: every partial sum is an exact integer
+            for i in range(t):
+                a = win[:, i:i + bm][:, :, a_cols]  # (P, BM, WN, depth)
+                acc += np.einsum("pmbk,pkn->pmbn", a, band[:, i], optimize=True)
+            tile = acc.reshape(p, bm, bn).astype(np.int64)
+            out[:, y0:y0 + bm, x0:x0 + bn] = tile[:, :h - y0, :w - x0]
+    return out
+
+
+def _int8_epilogue(acc, fs, ts):
+    """float(acc) * (fs * ts), each step rounded to f32, as the kernel does."""
+    return acc.astype(np.float32) * (fs * ts).astype(np.float32)
+
+
+INT8_XCORR_MAP = (2, 3, 40, 53)  # odd W: rows not 16-byte aligned; one tile at T <= 65
+
+
+def test_int8_geometry_fits_every_template():
+    """Every odd T <= 65 fits a CTA's shared memory; the k-blocks cover the band (an n8
+    tile needs T + 7 + rho columns of it) with no 16-deep block to spare."""
+    for t in range(1, cuda_xcorr.MAX_T + 1, 2):
+        geo = cuda_xcorr.int8_geometry(t)
+        need = t + 7 + geo["rho"]
+        assert geo["kb"] == -(-need // 32) and geo["kb"] in (1, 2, 3)
+        assert geo["depth"] >= need > geo["depth"] - 16
+        assert geo["delta"] % 4 == 0 and (geo["delta"] + geo["rho"] + t // 2) % 16 == 0
+        assert geo["pitch"] % 32 == 16 and geo["pitch"] >= geo["cols"]
+        assert geo["smem"] <= 227 * 1024
+    assert [cuda_xcorr.int8_geometry(t)["depth"] for t in (9, 17, 33, 65)] == [16, 32, 48, 80]
+    for bad in (0, 2, 67):
+        with pytest.raises(ValueError, match="odd T"):
+            cuda_xcorr.int8_geometry(bad)
+
+
+@pytest.mark.parametrize("t", [1, 3, 9, 17, 33, 65])
+def test_int8_band_model_equals_plain_and_jax_sums(t):
+    """The kernel's index maths on int8 values of full magnitude (-128, -127, 127 only,
+    and odd W): the same int32 sums as the JAX int8dot arm's integer conv (the call
+    ``_xcorr_int8dot`` makes) and the same f32 map as ``xcorr_int8_plain``."""
+    rng = np.random.default_rng(t)
+    b, c, h, w = INT8_XCORR_MAP
+    f = rng.choice(np.array([-128, -127, 127], np.int8), (b, c, h, w))
+    tm = rng.choice(np.array([-128, -127, 127], np.int8), (b, c, t, t))
+    fs = rng.uniform(1e-4, 1e-2, (b, c, 1, 1)).astype(np.float32)
+    ts = rng.uniform(1e-4, 1e-2, (b, c, 1, 1)).astype(np.float32)
+    acc = _band_xcorr_int8(f.reshape(b * c, h, w), tm.reshape(b * c, t, t))
+    jax_acc = jax.lax.conv_general_dilated(
+        jnp.asarray(f).reshape(1, b * c, h, w), jnp.asarray(tm).reshape(b * c, 1, t, t),
+        window_strides=(1, 1), padding=[(t // 2, t // 2), (t // 2, t // 2)],
+        feature_group_count=b * c, dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(acc, np.asarray(jax_acc).reshape(b * c, h, w))
+    want = cuda_xcorr.xcorr_int8_plain(*(torch.from_numpy(a) for a in (f, tm, fs, ts)))
+    got = _int8_epilogue(acc.reshape(b, c, h, w), fs, ts)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("t", [1, 3, 9, 17, 33, 65])
+def test_int8_band_model_equals_jax_int8dot(t):
+    """The kernel's index maths on the port's quantized operands of f32 inputs, with its
+    epilogue, equals the JAX ``_xcorr_int8dot`` map bit for bit."""
+    rng = np.random.default_rng(100 + t)
+    b, c, h, w = INT8_XCORR_MAP
+    f = rng.standard_normal((b, c, h, w)).astype(np.float32)
+    tm = rng.standard_normal((b, c, t, t)).astype(np.float32)
+    fq, fs = quant.quantize_int8(torch.from_numpy(f).reshape(b, c, h * w), -1)
+    tq, ts = quant.quantize_int8_template(torch.from_numpy(tm))
+    acc = _band_xcorr_int8(fq.reshape(b * c, h, w).numpy(), tq.reshape(b * c, t, t).numpy())
+    got = _int8_epilogue(acc.reshape(b, c, h, w), fs.reshape(b, c, 1, 1).numpy(),
+                         ts.numpy())
+    want = np.asarray(jxcorr._xcorr_int8dot(jnp.asarray(f), jnp.asarray(tm)))
+    np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------------------- kernel 8: add1

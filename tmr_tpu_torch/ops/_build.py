@@ -37,6 +37,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "xcorr": {
         "tmr_xcorr": (_P, _P, _P, _I, _I, _I, _I, _P),
         "tmr_xcorr_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "tmr_xcorr_int8_cuda_cores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "nms": {"tmr_nms": (_P, _P, _P, _I, _I, _F, _P)},
     "int8_mm": {

@@ -12,9 +12,10 @@ the sum exact in int32, then ``float(acc) * (f_scale * t_scale)`` per (image, ch
 PyTorch has no int8 grouped convolution on CUDA, and an f32 run of int8 values is not
 exact past 2^24, so it is a hand-written kernel of its own in the same source.
 
-On the card, :func:`xcorr` runs the correlation on the tensor cores: each template row
-as a Toeplitz band in ``mma.sync`` TF32 products, in three passes of the operands' tf32
-splits (3xTF32, f32 grade). :func:`xcorr_int8` sums int8 products on the CUDA cores.
+On the card, both run on the tensor cores, each template row as a Toeplitz band in
+``mma.sync`` products: :func:`xcorr` in TF32, in three passes of the operands' tf32 splits
+(3xTF32, f32 grade); :func:`xcorr_int8` in s8 (m16n8k32), one pass with one exact int32
+sum (:func:`int8_geometry` mirrors its launch geometry).
 
 The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
 only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
@@ -30,6 +31,32 @@ from tmr_tpu_torch.ops import _build
 
 #: largest template the kernel takes (its staged tile grows with T)
 MAX_T = 65
+
+#: the int8 kernel's CTA tile (output rows, columns) and the zero bytes staged before each
+#: template row (``csrc/xcorr.cu`` I8_BM, I8_BN, I8_TPAD)
+INT8_BM, INT8_BN, INT8_TPAD = 64, 128, 12
+
+
+def int8_geometry(t: int) -> dict:
+    """The int8 kernel's geometry for template size ``t``, as ``csrc/xcorr.cu`` computes it
+    (``i8_kb``, ``i8_k16``, ``i8_cols``, ``i8_pitch``, ``i8_smem_bytes``). The window starts at the
+    16-aligned column ``x0 - c - e``, ``e = (-c) mod 16``; ``delta = e & ~3`` goes into the
+    A-fragment index and ``rho = e & 3`` into the band. ``kb``: k-blocks per n8 column
+    tile, 32 deep (``mma.sync`` m16n8k32) but for the last, which is 16 deep (m16n8k16)
+    where ``k16``; ``depth``: the band's depth the products run over; ``cols``/``pitch``: the staged window's bytes per row and its row pitch;
+    ``tpitch``: a staged template row; ``smem``: shared bytes of a CTA. Raises
+    ``ValueError`` for a size the kernel does not take."""
+    if not (1 <= t <= MAX_T and t % 2):
+        raise ValueError(f"xcorr_int8: the kernel takes odd T <= {MAX_T}, got {t}")
+    e = (-(t // 2)) % 16
+    delta, rho = e & ~3, e & 3
+    kb = -(-(t + 7 + rho) // 32)
+    k16 = t + 7 + rho - 32 * (kb - 1) <= 16
+    cols = -(-(delta + INT8_BN + 32 * kb - 8) // 16) * 16
+    pitch = -(-(cols - 16) // 32) * 32 + 16
+    tpitch = 32 * kb + 16
+    return dict(kb=kb, k16=k16, depth=32 * kb - 16 * k16, delta=delta, rho=rho, cols=cols,
+                pitch=pitch, tpitch=tpitch, smem=(INT8_BM + t - 1) * pitch + t * tpitch)
 
 
 def xcorr_plain(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
@@ -99,8 +126,7 @@ def xcorr_int8(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Ten
         return xcorr_int8_plain(feature, template, f_scale, t_scale)
     if feature.dtype != torch.int8 or template.dtype != torch.int8:
         raise ValueError("xcorr_int8: the kernel takes int8 feature and template")
-    if t > MAX_T:
-        raise ValueError(f"xcorr_int8: the kernel takes T <= {MAX_T}, got {t}")
+    int8_geometry(t)
     feature = feature.contiguous()
     template = template.contiguous()
     f_scale = f_scale.float().contiguous()

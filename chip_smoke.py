@@ -25,15 +25,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    feature with non-finite values planted; the int8 correlation at T = 1 to 65 on the
    matcher's map, timed in turns with the CUDA-core kernel it replaced, beside the
    function's bound and the band's, and on two ragged maps and a map of -128/-127/127
-   only (0 mismatches everywhere); the fused int8 3x3 layer at the int8 tail's
-   shape and a ragged one, timed in turns with the per-tap composition it replaces,
+   only (0 mismatches everywhere); greedy NMS (an IoU bitmask and a block scan, two
+   launches a call) on 4 x 2000 boxes with planted ties at IoU 0.5 and 0.15 (keep masks
+   equal to the plain version's on the card and on the CPU), timed in turns with the
+   sequential kernel it replaced, its launches split by the profiler, beside the
+   function's bound and the design's, with both kernels' ``-Xptxas -v``, and on a ragged
+   2 x 2001, 1 x 63, 1 x 65, 1 x 12000 (past the old 9000-box cap), an all-invalid batch,
+   2000 identical boxes and a chain of 2000 (0 mismatches); the fused int8 3x3 layer at
+   the int8 tail's shape and a ragged one, timed in turns with the per-tap composition it replaces,
    beside the bare ``torch._int_mm`` of the im2col'd product and its ``-Xptxas -v``;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
    must be > 0 (``window_attn`` exactly 24: one per windowed block), nothing may call
-   ``bias_projections`` (both attention kernels make their own projections), and image
-   0's objectness map must agree with an f32 CPU run of the same port and weights;
+   ``bias_projections`` (both attention kernels make their own projections), batch 0's
+   keep mask must equal the plain version's on the same detections, and image 0's
+   objectness map must agree with an f32 CPU run of the same port and weights;
 4b. the int8 path: the same preset with ``quant="int8", quant_storage="int8",
    quant_kernel="int8"`` and phase 4's weights (stored as int8) answers the same 3
    batches; its launch counts must be exactly those of its path; its decoder tail on
@@ -153,12 +160,13 @@ def exact_f32(torch):
 
 @contextlib.contextmanager
 def call_count(module, name: str):
-    """Counts the calls of ``module.name`` made through the module while the block runs."""
-    calls = [0]
+    """Records the calls of ``module.name`` made through the module while the block runs,
+    as (args, kwargs), in order."""
+    calls = []
     orig = getattr(module, name)
 
     def counted(*args, **kwargs):
-        calls[0] += 1
+        calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
     setattr(module, name, counted)
@@ -561,7 +569,7 @@ def check_int8_conv(torch, F, cuda_int8, shape, seed: int) -> dict:
 
 def nms_inputs(torch, seed: int, b: int = 4, n: int = 2000):
     """Dense overlapping boxes with planted ties: identical boxes with tied scores, and
-    pairs at IoU exactly 0.5 (kept: the rule is strict)."""
+    pairs at IoU exactly 0.5 (kept: the rule is strict); 10% invalid."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -569,35 +577,118 @@ def nms_inputs(torch, seed: int, b: int = 4, n: int = 2000):
     wh = rng.uniform(0.02, 0.15, (b, n, 2))
     boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
     scores = rng.uniform(0.3, 1.0, (b, n)).astype(np.float32)
-    boxes[:, 100:150] = boxes[:, 50:100]  # identical boxes ...
-    scores[:, 100:150] = scores[:, 50:100]  # ... with tied scores
-    boxes[:, 200:250] = np.array([0.0, 0.0, 0.5, 0.25], np.float32)  # area 1/8
-    boxes[:, 250:300] = np.array([0.0, 0.0, 0.25, 0.25], np.float32)  # IoU 0.5 with it
+    s = min(50, n // 6)  # the planted runs' length: 50 from n = 300 on
+    boxes[:, 2 * s:3 * s] = boxes[:, s:2 * s]  # identical boxes ...
+    scores[:, 2 * s:3 * s] = scores[:, s:2 * s]  # ... with tied scores
+    boxes[:, 4 * s:5 * s] = np.array([0.0, 0.0, 0.5, 0.25], np.float32)  # area 1/8
+    boxes[:, 5 * s:6 * s] = np.array([0.0, 0.0, 0.25, 0.25], np.float32)  # IoU 0.5 with it
     valid = rng.uniform(size=(b, n)) > 0.1
     return (torch.as_tensor(boxes), torch.as_tensor(scores), torch.as_tensor(valid))
 
 
-def check_nms(torch, cuda_nms, thr: float, seed: int):
-    boxes, scores, valid = nms_inputs(torch, seed)
+def nms_sorted(torch, boxes, scores, valid):
+    """The order ``ops/nms.py`` sorts by (descending score, invalid last, ties by index),
+    and the sorted boxes and valid flags."""
     order = torch.sort(torch.where(valid, scores, torch.full_like(scores, -math.inf)),
                        dim=1, descending=True, stable=True).indices
-    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).cuda()
-    sv = torch.gather(valid, 1, order).cuda()
+    return (order, torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+            torch.gather(valid, 1, order))
+
+
+#: the NMS kernel's other inputs, name -> (images, boxes, how they are made): a ragged
+#: batch, the word edges, a count past the sequential kernel's shared-memory cap (9000),
+#: an all-invalid batch, identical boxes with tied scores (the first suppresses all), and
+#: a chain of boxes sliding by 0.3 of their width (greedy keeps every other box, and the
+#: scan's fixed point runs out of passes in every block)
+NMS_CASES = (("2x2001", 2, 2001, "random"), ("1x63", 1, 63, "random"),
+             ("1x65", 1, 65, "random"), ("1x12000", 1, 12000, "random"),
+             ("4x2000 all invalid", 4, 2000, "invalid"),
+             ("1x2000 identical", 1, 2000, "identical"), ("1x2000 chain", 1, 2000, "chain"))
+
+
+def nms_sequential(torch, _build, sb, sv, thr: float):
+    """The sequential kernel the bitmask design replaced (``tmr_nms_sequential``), called
+    as the port called it before: int32 valid and keep flags, converted each call."""
+    valid_i = sv.to(torch.int32).contiguous()
+    keep = torch.empty_like(valid_i)
+    rc = _build.lib("nms").tmr_nms_sequential(sb.data_ptr(), valid_i.data_ptr(),
+                                              keep.data_ptr(), sb.shape[0], sb.shape[1],
+                                              thr, _build.stream_of(sb))
+    if rc:
+        fail(f"tmr_nms_sequential: CUDA error {rc} at launch")
+    return keep.bool()
+
+
+def nms_bounds(b: int, n: int, keep) -> tuple:
+    """The function's bound (one ~12-flop IoU per (kept i, later j) pair that this data
+    needs; boxes and valid flags in, keep flags out) and the design's (every pair j > i of
+    each image, and the bitmask written and read once)."""
+    keep = keep.cpu().numpy()
+    pairs = sum(int((n - 1 - keep_i.nonzero()[0]).sum()) for keep_i in keep)
+    nbytes = b * n * (16 + 1 + 1)  # the boxes, the valid and keep flags (one byte each)
+    mask_bytes = 2 * b * n * ((n + 63) // 64) * 8
+    return (bound(12.0 * pairs, nbytes, PEAK_F32_FLOPS),
+            bound(12.0 * b * n * (n - 1) / 2, nbytes + mask_bytes, PEAK_F32_FLOPS))
+
+
+def check_nms(torch, cuda_nms, _build, thr: float, seed: int) -> dict:
+    """The NMS kernel vs its plain version (on the card, and on the CPU) on 4 x 2000
+    boxes: keep masks equal; timed in turns with the sequential kernel it replaced (whose
+    masks must be equal too), its two launches split by the profiler."""
+    boxes, scores, valid = nms_inputs(torch, seed)
+    _, sb, sv = (t.cuda() for t in nms_sorted(torch, boxes, scores, valid))
     got = cuda_nms.greedy_keep_sorted(sb, sv, thr)
     want = cuda_nms.greedy_keep_sorted_plain(sb, sv, thr)
     want_cpu = cuda_nms.greedy_keep_sorted_plain(sb.cpu(), sv.cpu(), thr)
+    old = nms_sequential(torch, _build, sb, sv, thr)
     torch.cuda.synchronize()
-    mismatches = int((got != want).sum().item()) + int((got.cpu() != want_cpu).sum().item())
-    ms = cuda_ms(lambda: cuda_nms.greedy_keep_sorted(sb, sv, thr))
-    plain_ms = cuda_ms(lambda: cuda_nms.greedy_keep_sorted_plain(sb, sv, thr),
-                       reps=1, warmup=0)
-    # operations this data needs: one ~12-flop IoU per (kept i, later j) pair
-    keep = want_cpu.numpy()
-    n = keep.shape[1]
-    pairs = sum(int((n - 1 - keep_i.nonzero()[0]).sum()) for keep_i in keep)
-    nbytes = sb.numel() * 4 + sv.numel() * 4 * 2
-    return mismatches, int(want_cpu.sum()), ms, plain_ms, bound(12.0 * pairs, nbytes,
-                                                                PEAK_F32_FLOPS)
+    r = dict(mism=int((got != want).sum().item()) + int((got.cpu() != want_cpu).sum().item()),
+             old_mism=int((old != want).sum().item()), kept=int(want_cpu.sum()))
+    kernel = lambda: cuda_nms.greedy_keep_sorted(sb, sv, thr)  # noqa: E731
+    sequential = lambda: nms_sequential(torch, _build, sb, sv, thr)  # noqa: E731
+    ms, old_ms = [], []
+    for fn, dst in ((kernel, ms), (sequential, old_ms), (sequential, old_ms), (kernel, ms)):
+        dst.append(cuda_ms(fn))
+    r.update(ms=min(ms), ms_turns=ms, old_ms=min(old_ms), old_turns=old_ms)
+    r["plain_ms"] = cuda_ms(lambda: cuda_nms.greedy_keep_sorted_plain(sb, sv, thr), reps=1,
+                            warmup=0)
+    phases = {}
+    for name, kernel_ms in profiled_kernels_ms(torch, kernel).items():
+        key = next((k for k in ("nms_mask_kernel", "nms_scan_kernel") if k in name),
+                   "other")
+        phases[key] = phases.get(key, 0.0) + kernel_ms
+    r["phases"] = phases
+    r["bound"], r["design_bound"] = nms_bounds(*sb.shape[:2], want)
+    return r
+
+
+def check_nms_cases(torch, cuda_nms, thr: float, seed: int) -> None:
+    """The NMS kernel vs its plain version on the card on :data:`NMS_CASES`: 0
+    mismatches."""
+    for name, b, n, kind in NMS_CASES:
+        boxes, scores, valid = nms_inputs(torch, seed, b, n)
+        if kind == "invalid":
+            valid = torch.zeros_like(valid)
+        elif kind == "identical":
+            boxes[:] = torch.tensor([0.1, 0.2, 0.4, 0.6])
+            scores[:] = 0.5
+            valid[:] = True
+        elif kind == "chain":
+            x = torch.arange(n, dtype=torch.float64)[None, :, None] * 0.3
+            boxes = torch.cat([x, torch.zeros_like(x), x + 1.0, torch.ones_like(x)],
+                              -1).float().expand(b, -1, -1).contiguous()
+            scores = torch.linspace(1.0, 0.5, n).expand(b, -1).contiguous()
+            valid[:] = True
+        _, sb, sv = (t.cuda() for t in nms_sorted(torch, boxes, scores, valid))
+        got = cuda_nms.greedy_keep_sorted(sb, sv, thr)
+        want = cuda_nms.greedy_keep_sorted_plain(sb, sv, thr)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum().item())
+        ms = cuda_ms(lambda: cuda_nms.greedy_keep_sorted(sb, sv, thr))
+        print(f"kernel nms {name} IoU {thr}: keep mismatches {mism} (must be 0), kept "
+              f"{int(want.sum())} of {int(sv.sum())} valid, kernel_ms {ms:.4f}", flush=True)
+        if mism:
+            fail(f"nms {name} keep masks differ from the plain version in {mism} slots")
 
 
 def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024):
@@ -616,8 +707,8 @@ def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024):
 
 
 def profile_batch(torch, pred, imgs, ex) -> None:
-    """torch.profiler over one batch: device time by kernel name and the device's busy
-    share of the batch's wall time."""
+    """torch.profiler over one batch: device time by kernel name (the top 25 and the NMS
+    kernels) and the device's busy share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -635,8 +726,11 @@ def profile_batch(torch, pred, imgs, ex) -> None:
     path = "int8 path" if pred.cfg.quant != "off" else "main path"
     print(f"profile {path} (one batch of 4, bucket 33): wall {wall_ms:.1f} ms, device kernel "
           f"time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}", flush=True)
-    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
-        print(f"profile  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top 25, and the NMS kernels wherever they rank
+    for rank, (name, (ms, count)) in enumerate(ranked):
+        if rank < 25 or "nms_" in name:
+            print(f"profile  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
 
 
 def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
@@ -681,14 +775,31 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                     plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
                                     library_ms=r["lib_ms"])
     check_xcorr_maps(torch, F, cuda_xcorr)
-    mism, kept, ms, plain_ms, (bms, bby) = check_nms(torch, cuda_nms, thr, SEED)
-    print(f"kernel nms: keep mismatches {mism} (must be 0), kept {kept} of 4x2000, "
-          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-          f"bound_ms {bms:.6f} ({bby})", flush=True)
-    if mism:
-        fail(f"nms keep masks differ from the plain version in {mism} slots")
-    entries["nms"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                          bound_by=bby, library_ms=None)
+    print(f"ptxas nms_mask_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_mask_kernel')}",
+          flush=True)
+    print(f"ptxas nms_scan_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_scan_kernel')}",
+          flush=True)
+    for nms_thr in (thr, 0.15):
+        r = check_nms(torch, cuda_nms, _build, nms_thr, SEED)
+        (bms, bby), (dms, dby) = r["bound"], r["design_bound"]
+        turns = lambda v: " ".join(f"{x:.4f}" for x in v)  # noqa: E731
+        phases = ", ".join(f"{k} {v:.4f}" for k, v in r["phases"].items()) or "not measured"
+        print(f"kernel nms 4x2000 IoU {nms_thr}: keep mismatches {r['mism']} (must be 0), "
+              f"kept {r['kept']} of 4x2000, kernel_ms {r['ms']:.4f} (turns "
+              f"{turns(r['ms_turns'])}; 2 launches, device ms per call by the profiler: "
+              f"{phases}) replaced sequential kernel_ms {r['old_ms']:.4f} (turns "
+              f"{turns(r['old_turns'])}; {r['old_mism']} mismatches; "
+              f"{r['old_ms'] / r['ms']:.1f}x the kernel's) plain_ms "
+              f"{r['plain_ms']:.4f} library_ms null bound_ms {bms:.6f} ({bby}, the pairs "
+              f"this data needs) design_bound_ms {dms:.6f} ({dby}, every pair and the "
+              f"bitmask)", flush=True)
+        if r["mism"] or r["old_mism"]:
+            fail(f"nms keep masks differ from the plain version in {r['mism']} slots and "
+                 f"the sequential kernel's in {r['old_mism']}")
+        if nms_thr == thr:
+            entries["nms"] = dict(max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+                                  bound_ms=bms, bound_by=bby, library_ms=None)
+    check_nms_cases(torch, cuda_nms, thr, SEED)
     for kb in (1, 2, 3):
         for k16 in (0, 1):
             info = ptxas_info(_build.LOGS.get("xcorr"), f"xcorr_int8_kernelILi{kb}ELb{k16}E")
@@ -709,7 +820,8 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         print(f"kernel xcorr_int8 T={t}: mismatches {r['mism']} (must be 0), max_err "
               f"{r['err']:.3e} kernel_ms {r['ms']:.4f} (turns {turns(r['ms_turns'])}) "
               f"replaced CUDA-core kernel_ms {r['old_ms']:.4f} (turns "
-              f"{turns(r['old_turns'])}; {r['old_mism']} mismatches) plain_ms "
+              f"{turns(r['old_turns'])}; {r['old_mism']} mismatches; "
+              f"{r['old_ms'] / r['ms']:.1f}x the kernel's) plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['lib_ms']:.4f} (float64 grouped F.conv2d "
               f"+ scales, {r['lib_mism']} mismatches) bound_ms {bms:.4f} ({bby}, int8 peak) "
               f"band_bound_ms {band_ms:.4f} ({band_by}, the band's performed products)",
@@ -767,9 +879,9 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
     return entries
 
 
-def profiled_device_ms(torch, fn, reps: int = 20):
-    """Device time per call of ``fn`` from torch.profiler's kernel records, or None when
-    the profiler records no device time."""
+def profiled_kernels_ms(torch, fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn`` by kernel name from torch.profiler's kernel records
+    (empty when the profiler records no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -778,9 +890,17 @@ def profiled_device_ms(torch, fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return {k: v for k, v in by_name.items() if v > 0}
+
+
+def profiled_device_ms(torch, fn, reps: int = 20):
+    """Device time per call of ``fn`` from torch.profiler's kernel records, or None when
+    the profiler records no device time."""
+    return sum(profiled_kernels_ms(torch, fn, reps).values()) or None
 
 
 def host_us(torch, fn, reps: int = 200) -> float:
@@ -842,6 +962,27 @@ def run_probe(torch, probe, _build) -> dict:
           + ", ".join(f"{name} {us:.2f}" for name, us in host.items()), flush=True)
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms)
+
+
+def check_main_path_nms(torch, pred, imgs, ex, cuda_nms) -> None:
+    """Batch 0 once more through the main path, its detections caught on their way into
+    ``batched_nms``: the keep mask the kernel gave must equal the plain version's on the
+    card on the same detections."""
+    from tmr_tpu_torch import inference
+
+    with call_count(inference, "batched_nms") as calls:
+        out = pred(imgs, ex)
+    (dets, thr), _ = calls[0]
+    order, sb, sv = nms_sorted(torch, dets["boxes"].float(), dets["scores"], dets["valid"])
+    keep = torch.zeros_like(sv).scatter(
+        1, order, cuda_nms.greedy_keep_sorted_plain(sb, sv, thr))
+    want = dets["valid"] & keep
+    mism = int((out["valid"] != want).sum().item())
+    print(f"main path batch 0 NMS, {tuple(sv.shape)} slots at IoU {thr}: valid "
+          f"{sv.sum(1).tolist()}, kept {want.sum(1).tolist()}, keep mismatches vs the "
+          f"plain version {mism} (must be 0)", flush=True)
+    if mism:
+        fail(f"the main path's NMS differs from the plain version in {mism} slots")
 
 
 def run_batches(torch, pred, batches, detections_to_numpy, _build):
@@ -1071,10 +1212,10 @@ def main(argv=None) -> int:
     print(f"launches over the 3 batches: {json.dumps(launches)}", flush=True)
     # both attention kernels make their own projections: no f32 copy of q and no
     # projection products on the main path
-    print(f"bias_projections calls over the warm-up and 3 batches: {proj_calls[0]} "
+    print(f"bias_projections calls over the warm-up and 3 batches: {len(proj_calls)} "
           f"(expected 0)", flush=True)
-    if proj_calls[0]:
-        fail(f"bias_projections ran {proj_calls[0]} times on the card, expected 0")
+    if proj_calls:
+        fail(f"bias_projections ran {len(proj_calls)} times on the card, expected 0")
     if launches["window_attn"] != 24:
         fail(f"window_attn launched {launches['window_attn']} times, expected 24")
     missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]
@@ -1083,6 +1224,7 @@ def main(argv=None) -> int:
     stray = [k for k in ("xcorr_int8", "int8_mm", "int8_conv", "add1") if launches[k]]
     if stray:
         fail(f"int8 or probe kernels launched on the unquantized path: {stray}")
+    check_main_path_nms(torch, pred, *batches[0], cuda_nms)
 
     imgs, ex = batches[0]
     out = pred.forward(imgs, ex)

@@ -39,7 +39,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tmr_xcorr_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "tmr_xcorr_int8_cuda_cores": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
-    "nms": {"tmr_nms": (_P, _P, _P, _I, _I, _F, _P)},
+    "nms": {
+        "tmr_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "tmr_nms_sequential": (_P, _P, _P, _I, _I, _F, _P),
+    },
     "int8_mm": {
         "tmr_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P),
         "tmr_int8_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),

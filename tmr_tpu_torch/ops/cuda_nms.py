@@ -6,8 +6,12 @@ whose IoU with it is strictly above the threshold. Areas clamp at 0, the union a
 ``1e-12``. Sorting and unsorting stay outside (``ops/nms.py``), as in the JAX wrapper.
 
 The wrapper runs the plain version only for CPU tensors; a CUDA tensor launches
-``csrc/nms.cu`` (one CTA per image, explicitly rounded IoU, so keep decisions equal the
-plain version's bit for bit) or raises.
+``csrc/nms.cu`` or raises. There the work is an IoU bitmask of every (i, j > i) pair,
+made in parallel into a workspace of :func:`mask_words` 64-bit words per box, then a
+short scan over those words per image that decides the keeps (two kernel launches per
+call, counted as one). The IoU is explicitly rounded, so keep decisions equal the plain
+version's bit for bit. Any N is taken whose workspace fits in device memory; past that
+the workspace's allocation raises.
 """
 
 from __future__ import annotations
@@ -16,8 +20,10 @@ import torch
 
 from tmr_tpu_torch.ops import _build
 
-#: largest box count the kernel's shared-memory footprint takes
-MAX_BOXES = 9000
+
+def mask_words(n: int) -> int:
+    """64-bit words in one row of the kernel's IoU bitmask: one bit per box."""
+    return (n + 63) // 64
 
 
 def greedy_keep_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -44,7 +50,8 @@ def greedy_keep_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor,
 
 def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
                        iou_threshold: float) -> torch.Tensor:
-    """Greedy NMS keep mask in the sorted order, one launch for the whole batch."""
+    """Greedy NMS keep mask in the sorted order, one call of the kernel for the whole
+    batch."""
     b, n, four = boxes.shape
     if four != 4 or valid.shape != (b, n):
         raise ValueError(f"nms: boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
@@ -52,12 +59,13 @@ def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
         return greedy_keep_sorted_plain(boxes, valid, iou_threshold)
     if boxes.dtype != torch.float32:
         raise ValueError("nms: the kernel takes f32 boxes")
-    if n > MAX_BOXES:
-        raise ValueError(f"nms: the kernel takes at most {MAX_BOXES} boxes, got {n}")
     boxes = boxes.contiguous()
-    valid_i = valid.to(torch.int32).contiguous()
-    keep = torch.empty_like(valid_i)
-    _build.launch("nms", "nms", "tmr_nms", boxes.data_ptr(), valid_i.data_ptr(),
-                  keep.data_ptr(), b, n, float(iou_threshold),
+    valid = valid.to(torch.bool).contiguous()
+    keep = torch.empty_like(valid)
+    if keep.numel() == 0:
+        return keep
+    mask = torch.empty((b, n, mask_words(n)), dtype=torch.int64, device=boxes.device)
+    _build.launch("nms", "nms", "tmr_nms", boxes.data_ptr(), valid.data_ptr(),
+                  keep.data_ptr(), mask.data_ptr(), b, n, float(iou_threshold),
                   _build.stream_of(boxes))
-    return keep.bool()
+    return keep

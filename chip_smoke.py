@@ -19,7 +19,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside SDPA with the bias mask precomputed and, printed with it, what SDPA's time
    leaves out: ``bias_projections`` and the mask build; the global kernel, with and
    without the bias, is also held to its plain version on 24x40, 96x96 (one image),
-   20x20, 28x28 and 5x7 token grids, the windowed kernel at 7x7 and 16x16 windows; the
+   20x20, 28x28, 5x7 and 7x64 token grids, the windowed kernel at 7x7 and 16x16 windows;
+   both attention kernels again at head dim 80 (SAM ViT-H: the global kernel at 64x64
+   with BH 64, with and without the bias, beside the bound of the products it performs,
+   and at 24x40, 5x7 and 7x64; the windowed kernel at 14x14 with BH 1600, 7x7 and 16x16),
+   with ``-Xptxas -v`` of every attention instantiation; the
    f32 correlation at T = 1 to 65 on the matcher's map with its 3xTF32 tensor bound and
    its f32 bound, and on 96^2 and 64^2 maps, a ragged map, a bf16-valued feature and a
    feature with non-finite values planted; the int8 correlation at T = 1 to 65 on the
@@ -37,7 +41,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
-   must be > 0 (``window_attn`` exactly 24: one per windowed block), nothing may call
+   must be > 0 (``window_attn`` exactly 24: one per windowed block; the head dim 80
+   counters and the int8 kernels' 0), nothing may call
    ``bias_projections`` (both attention kernels make their own projections), batch 0's
    keep mask must equal the plain version's on the same detections, and image 0's
    objectness map must agree with an f32 CPU run of the same port and weights;
@@ -52,6 +57,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    objectness is printed beside phase 4's and held to a bound on gross faults (its
    difference over both maps, the tier's measure, is printed too), and so are the
    statistics of image 0's ``f_cat`` and the int8 tail's error on it;
+4c. the ViT-H path: ``Predictor(preset("TMR_FSCD147", backbone="sam_vit_h"))`` (SAM
+   ViT-H at 1024: 32 blocks of 1280 over 16 heads of 80, global at 7/15/23/31, batch 4,
+   bf16) with seeded random weights answers the same 3 batches; its launches must be
+   exactly ``global_attn_d80`` 12, ``window_attn_d80`` 84, ``xcorr`` 3, ``nms`` 3 and 0
+   for every other kernel, nothing may call ``bias_projections``, batch 0's keep mask
+   must equal the plain version's, and image 0's objectness must agree with an f32 CPU
+   run of the same port and weights (its seconds printed); printed beside it, the same
+   map from the bf16 network with its attention through ``attention_plain`` on the card
+   (a yardstick of this script, never a path of the port), which separates bf16 drift
+   over 32 blocks from kernel error;
 5. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -116,7 +131,13 @@ INT8_PATH_OBJ_BOUND = 0.25
 #: matmul, one int8 correlation, 4 global and 8 windowed attention blocks, one NMS per
 #: batch
 QUANT_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 0, "nms": 3,
-                  "xcorr_int8": 3, "int8_mm": 3, "int8_conv": 3, "add1": 0}
+                  "xcorr_int8": 3, "int8_mm": 3, "int8_conv": 3, "add1": 0,
+                  "global_attn_d80": 0, "window_attn_d80": 0}
+#: launches of the ViT-H path over its 3 batches: 4 global and 28 windowed attention
+#: blocks at head dim 80, one f32 correlation and one NMS per batch
+VIT_H_LAUNCHES = {"global_attn": 0, "window_attn": 0, "xcorr": 3, "nms": 3,
+                  "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
+                  "global_attn_d80": 12, "window_attn_d80": 84}
 #: the fused int8 3x3 layer's shapes (B, H, W, C_in, N): the int8 tail's (4 x 128^2,
 #: 1024 -> 2048 [objectness | bbox]) and a ragged one (W past no tile edge, N not a
 #: multiple of 8, C_in not of 128)
@@ -181,17 +202,22 @@ def bound(flops: float, nbytes: float, peak_flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+#: heads of the SAM ViT with each head dim the kernels take: ViT-B 12 x 64, ViT-H 16 x 80
+VIT_HEADS = {64: 12, 80: 16}
+
+
 def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: int,
-                    grid=(64, 64), bh=None):
-    """One attention kernel vs its plain version, by default at the main path's batch (4
-    images, 12 heads; windowed: 25 windows each). The global kernel takes compact
-    (2g - 1, 64) tables, the windowed kernel expanded (g, g, 64) ones; the plain version
-    and the yardstick use the expanded tables. Times, on the same inputs: the kernel
-    (one launch, projections inside), ``bias_projections`` alone, the bf16 mask built
-    from the projections, and SDPA with that mask precomputed."""
+                    grid=(64, 64), bh=None, d: int = 64):
+    """One attention kernel vs its plain version at head dim ``d``, by default at the
+    batch of the ViT with that head dim (4 images of 12 heads for ViT-B, 16 for ViT-H;
+    windowed: 25 windows each). The global kernel takes compact (2g - 1, d) tables, the
+    windowed kernel expanded (g, g, d) ones; the plain version and the yardstick use the
+    expanded tables. Times, on the same inputs: the kernel (one launch, projections
+    inside), ``bias_projections`` alone, the bf16 mask built from the projections, and
+    SDPA with that mask precomputed."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    (gh, gw), d = grid, 64
-    bh = bh or (4 * 25 * 12 if windowed else 4 * 12)
+    gh, gw = grid
+    bh = bh or (4 * VIT_HEADS[d] * (25 if windowed else 1))
     s = gh * gw
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
                for _ in range(3))
@@ -247,15 +273,18 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
 #: rows in an odd count (7x64: the main path's 128-key tiles end half empty)
 GLOBAL_GRIDS = ((24, 40, 48), (96, 96, 12), (20, 20, 48), (28, 28, 48), (5, 7, 48),
                 (7, 64, 48))
+#: the same at head dim 80 (ViT-H's 16 heads of 4 images)
+GLOBAL_GRIDS_D80 = ((24, 40, 64), (5, 7, 64), (7, 64, 64))
 
 
-def check_global_grids(torch, F, cuda_attn) -> None:
-    """The global kernel against its plain version on GLOBAL_GRIDS."""
-    for gh, gw, bh in GLOBAL_GRIDS:
+def check_global_grids(torch, F, cuda_attn, d: int = 64, grids=GLOBAL_GRIDS) -> None:
+    """The global kernel at head dim ``d`` against its plain version on ``grids``."""
+    for gh, gw, bh in grids:
         for has_bias in (True, False):
             acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, False, has_bias, SEED,
-                                                 (gh, gw), bh)
-            what = f"global_attn{'' if has_bias else '_nobias'} {gh}x{gw} grid, BH={bh}"
+                                                 (gh, gw), bh, d)
+            what = (f"global_attn{'' if has_bias else '_nobias'}{'' if d == 64 else f'_d{d}'}"
+                    f" {gh}x{gw} grid, BH={bh}")
             print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms "
                   f"{bms:.4f} ({bby})", flush=True)
             if not acc["ok"]:
@@ -706,7 +735,7 @@ def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024):
     return imgs, exemplars
 
 
-def profile_batch(torch, pred, imgs, ex) -> None:
+def profile_batch(torch, pred, imgs, ex, path: str) -> None:
     """torch.profiler over one batch: device time by kernel name (the top 25 and the NMS
     kernels) and the device's busy share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -723,7 +752,6 @@ def profile_batch(torch, pred, imgs, ex) -> None:
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    path = "int8 path" if pred.cfg.quant != "off" else "main path"
     print(f"profile {path} (one batch of 4, bucket 33): wall {wall_ms:.1f} ms, device kernel "
           f"time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -740,27 +768,52 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
     from tmr_tpu_torch.ops import _build
 
     entries = {}
-    for name, windowed, has_bias, grid in (("global_attn", False, True, (64, 64)),
-                                           ("global_attn_nobias", False, False, (64, 64)),
-                                           ("window_attn", True, True, (14, 14))):
+    for name, windowed, has_bias, grid, d in (
+            ("global_attn", False, True, (64, 64), 64),
+            ("global_attn_nobias", False, False, (64, 64), 64),
+            ("window_attn", True, True, (14, 14), 64),
+            ("global_attn_d80", False, True, (64, 64), 80),
+            ("global_attn_nobias_d80", False, False, (64, 64), 80),
+            ("window_attn_d80", True, True, (14, 14), 80)):
         acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, has_bias, SEED,
-                                             grid)
+                                             grid, d=d)
+        extra = ""
+        if d == 80 and not windowed:  # p.v over two 64-column panels: 128 of 80 columns
+            bh, s = 4 * VIT_HEADS[d], grid[0] * grid[1]
+            pms, pby = bound(2.0 * bh * s * s * (d + 128), 4 * bh * s * d * 2,
+                             PEAK_BF16_FLOPS)
+            extra = f" performed_work_bound_ms {pms:.4f} ({pby}: p.v over 128 columns)"
         print(f"kernel {name}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
-              f"({bby})", flush=True)
+              f"({bby}){extra}", flush=True)
         if not acc["ok"]:
             fail(f"{name} disagrees with its plain version: {acc}")
         entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=t["ms"],
                              plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
                              library_ms=t["lib_ms"])
     check_global_grids(torch, F, cuda_attn)
+    check_global_grids(torch, F, cuda_attn, 80, GLOBAL_GRIDS_D80)
     # the windowed kernel at 7x7 windows (8-slot key rows, a pad key row, 64 query rows)
-    # and 16x16 (full 16-slot key rows, one CTA per SM)
-    for grid in ((7, 7), (16, 16)):
-        acc, t, (bms, _) = check_attention(torch, F, cuda_attn, True, True, SEED, grid)
-        print(f"kernel window_attn {grid[0]}x{grid[1]} windows: {attn_accuracy(acc)} "
-              f"{attn_times(t)} bound_ms {bms:.4f}", flush=True)
-        if not acc["ok"]:
-            fail(f"window_attn at {grid} windows disagrees with its plain version: {acc}")
+    # and 16x16 (full 16-slot key rows, one CTA per SM), at both head dims
+    for d in (64, 80):
+        for grid in ((7, 7), (16, 16)):
+            acc, t, (bms, _) = check_attention(torch, F, cuda_attn, True, True, SEED, grid,
+                                               d=d)
+            what = f"window_attn{'' if d == 64 else f'_d{d}'} {grid[0]}x{grid[1]} windows"
+            print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f}",
+                  flush=True)
+            if not acc["ok"]:
+                fail(f"{what} disagrees with its plain version: {acc}")
+    # -Xptxas -v of every attention instantiation: registers and spills
+    log = _build.LOGS.get("attn")
+    for d in (64, 80):
+        bk = 128 if d == 64 else 64
+        for bias, row_tile, tiles in ((1, 1, bk), (1, 0, 64), (0, 0, 64)):
+            inst = f"global_attn_kernelILi{d}ELi{tiles}ELb{bias}ELb{row_tile}E"
+            print(f"ptxas global_attn_kernel<{d}, {tiles}, {bool(bias)}, {bool(row_tile)}>: "
+                  f"{ptxas_info(log, inst)}", flush=True)
+        for ntw in (1, 2, 4, 8):
+            print(f"ptxas window_attn_kernel<{d}, {ntw}>: "
+                  f"{ptxas_info(log, f'window_attn_kernelILi{d}ELi{ntw}E')}", flush=True)
     for t in XCORR_TS:
         r = check_xcorr(torch, F, cuda_xcorr, t, SEED)
         (bms, bby), (f32ms, f32by) = r["tensor_bound"], r["f32_bound"]
@@ -964,7 +1017,7 @@ def run_probe(torch, probe, _build) -> dict:
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms)
 
 
-def check_main_path_nms(torch, pred, imgs, ex, cuda_nms) -> None:
+def check_main_path_nms(torch, pred, imgs, ex, cuda_nms, name: str = "main path") -> None:
     """Batch 0 once more through the main path, its detections caught on their way into
     ``batched_nms``: the keep mask the kernel gave must equal the plain version's on the
     card on the same detections."""
@@ -978,11 +1031,11 @@ def check_main_path_nms(torch, pred, imgs, ex, cuda_nms) -> None:
         1, order, cuda_nms.greedy_keep_sorted_plain(sb, sv, thr))
     want = dets["valid"] & keep
     mism = int((out["valid"] != want).sum().item())
-    print(f"main path batch 0 NMS, {tuple(sv.shape)} slots at IoU {thr}: valid "
+    print(f"{name} batch 0 NMS, {tuple(sv.shape)} slots at IoU {thr}: valid "
           f"{sv.sum(1).tolist()}, kept {want.sum(1).tolist()}, keep mismatches vs the "
           f"plain version {mism} (must be 0)", flush=True)
     if mism:
-        fail(f"the main path's NMS differs from the plain version in {mism} slots")
+        fail(f"the {name}'s NMS differs from the plain version in {mism} slots")
 
 
 def run_batches(torch, pred, batches, detections_to_numpy, _build):
@@ -1149,10 +1202,93 @@ def check_quant_path(torch, np, pred, batches, caps, obj, reg, card, modules) ->
     return launches, qpred
 
 
+@contextlib.contextmanager
+def plain_attention(cuda_attn):
+    """While the block runs, the ViT's attention blocks call ``attention_plain`` on the
+    card (projections by ``bias_projections``, dense f32 scores) in place of the kernels:
+    a yardstick of this script, never a path of the port."""
+    from tmr_tpu_torch.models import vit
+
+    def plain(q, k, v, rh, rw, grid, scale, expand):
+        if expand:  # the global blocks pass the compact tables
+            rh, rw = (cuda_attn.get_rel_pos(g, g, t) for g, t in zip(grid, (rh, rw)))
+        rel = cuda_attn.bias_projections(q, rh, rw, grid)
+        return cuda_attn.attention_plain(q, k, v, *rel, grid, scale)
+
+    saved = vit.global_attention, vit.window_attention
+    vit.global_attention = lambda *a: plain(*a, expand=True)
+    vit.window_attention = lambda *a: plain(*a, expand=False)
+    try:
+        yield
+    finally:
+        vit.global_attention, vit.window_attention = saved
+
+
+def check_vit_h_path(torch, np, batches, caps, card, modules):
+    """Phase 4c: ``preset("TMR_FSCD147", backbone="sam_vit_h")`` (SAM ViT-H at 1024, 32
+    blocks of 1280 over 16 heads of 80, batch 4, bf16) with seeded random weights on the
+    phase 4 batches; returns its launches and the predictor."""
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_attn, cuda_nms = modules
+    t0 = time.perf_counter()
+    hpred = Predictor(preset("TMR_FSCD147", backbone="sam_vit_h"), device="cuda")
+    hpred.init_params(SEED)
+    torch.cuda.synchronize()
+    n_enc = sum(p.numel() for p in hpred.model.backbone.parameters())
+    n_all = sum(p.numel() for p in hpred.model.parameters())
+    print(f"ViT-H path: {n_enc} encoder parameters ({n_all} in all), built and initialized "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    hcaps = [hpred.pick_capacity(ex, 1024) for _, ex in batches]
+    if hcaps != caps:
+        fail(f"ViT-H path: exemplars picked buckets {hcaps}, expected {caps}")
+    with call_count(cuda_attn, "bias_projections") as proj_calls:
+        times, outs, launches = run_batches(torch, hpred, batches, detections_to_numpy,
+                                            _build)
+    report_batches(np, "ViT-H path", caps, times, outs, card)
+    print(f"ViT-H path launches over the 3 batches: {json.dumps(launches)}", flush=True)
+    print(f"ViT-H path bias_projections calls over the warm-up and 3 batches: "
+          f"{len(proj_calls)} (expected 0)", flush=True)
+    if proj_calls:
+        fail(f"bias_projections ran {len(proj_calls)} times on the ViT-H path, expected 0")
+    if launches != VIT_H_LAUNCHES:
+        fail(f"ViT-H path launches {launches}, expected {VIT_H_LAUNCHES}")
+    check_main_path_nms(torch, hpred, *batches[0], cuda_nms, "ViT-H path")
+
+    imgs, ex = batches[0]
+    obj = hpred.forward(imgs, ex)["objectness"][0].float().cpu()
+    with plain_attention(cuda_attn), torch.inference_mode():
+        plain_obj = hpred.forward(imgs[:1], ex[:1])["objectness"][0].float().cpu()
+    torch.cuda.empty_cache()
+    ref = Predictor(preset("TMR_FSCD147", backbone="sam_vit_h", compute_dtype="float32"),
+                    device="cpu")
+    ref.model.load_state_dict({k: v.cpu() for k, v in hpred.model.state_dict().items()})
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref_obj = ref.forward(imgs[:1], ex[:1])["objectness"][0]
+    cpu_s = time.perf_counter() - t0
+    del ref
+    scale = ref_obj.abs().max().item()
+    diff = (obj - ref_obj).abs().max().item()
+    plain_diff = (plain_obj - ref_obj).abs().max().item()
+    kernel_plain = (obj - plain_obj).abs().max().item()
+    print(f"ViT-H objectness image 0 vs an f32 CPU run ({cpu_s:.1f} s on the CPU), map max "
+          f"{scale:.4e}: kernels (bf16, batch of 4) max_abs_diff {diff:.4e} = "
+          f"{diff / scale:.4f} of the max, tol {OBJ_REL_TOL}; the same bf16 network with "
+          f"the attention through attention_plain on the card (image 0 alone) "
+          f"{plain_diff:.4e} = {plain_diff / scale:.4f}; kernels vs that run "
+          f"{kernel_plain:.4e} = {kernel_plain / scale:.4f}", flush=True)
+    if not (torch.isfinite(obj).all() and obj.shape == (128, 128)
+            and diff <= OBJ_REL_TOL * scale):
+        fail("ViT-H objectness map disagrees with the f32 CPU reference")
+    return launches, hpred
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, print a torch.profiler breakdown of "
+                    help="after each path, print a torch.profiler breakdown of "
                          "one batch (device time by kernel, device busy share)")
     args = ap.parse_args(argv)
 
@@ -1221,9 +1357,10 @@ def main(argv=None) -> int:
     missing = [k for k in ("global_attn", "window_attn", "xcorr", "nms") if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    stray = [k for k in ("xcorr_int8", "int8_mm", "int8_conv", "add1") if launches[k]]
+    stray = [k for k in ("xcorr_int8", "int8_mm", "int8_conv", "add1", "global_attn_d80",
+                         "window_attn_d80") if launches[k]]
     if stray:
-        fail(f"int8 or probe kernels launched on the unquantized path: {stray}")
+        fail(f"int8, probe or head dim 80 kernels launched on the ViT-B bf16 path: {stray}")
     check_main_path_nms(torch, pred, *batches[0], cuda_nms)
 
     imgs, ex = batches[0]
@@ -1249,13 +1386,24 @@ def main(argv=None) -> int:
     qlaunches, qpred = check_quant_path(torch, np, pred, batches, caps, obj, reg, card,
                                         (_build, cuda_int8, fused_heads))
     if args.profile:
-        profile_batch(torch, pred, *batches[2])
-        profile_batch(torch, qpred, *batches[2])
+        profile_batch(torch, pred, *batches[2], "main path")
+        profile_batch(torch, qpred, *batches[2], "int8 path")
+    del pred, qpred
+    torch.cuda.empty_cache()
+
+    # 4c. SAM ViT-H (head dim 80) on the same batches
+    hlaunches, hpred = check_vit_h_path(torch, np, batches, caps, card,
+                                        (_build, cuda_attn, cuda_nms))
+    if args.profile:
+        profile_batch(torch, hpred, *batches[2], "ViT-H path")
+    del hpred
 
     # 5. the kernels line
     meta = {
         "global_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
         "window_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
+        "global_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
+        "window_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
         "xcorr": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/pallas_xcorr.py:47"),
         "nms": ("tmr_tpu_torch/csrc/nms.cu", "tmr_tpu/ops/pallas_nms.py:32"),
         "xcorr_int8": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/xcorr.py:171"),
@@ -1265,7 +1413,9 @@ def main(argv=None) -> int:
     }
     path_launches = dict(launches, xcorr_int8=qlaunches["xcorr_int8"],
                          int8_mm=qlaunches["int8_mm"], int8_conv=qlaunches["int8_conv"],
-                         add1=probe_launches)
+                         add1=probe_launches,
+                         global_attn_d80=hlaunches["global_attn_d80"],
+                         window_attn_d80=hlaunches["window_attn_d80"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=path_launches[name], **entries[name])
                for name, (src, rep) in meta.items()]

@@ -11,10 +11,11 @@ alternatives), one ``nvcc -Xptxas -v`` each, all started together, into the git-
 ``tmr_tpu_torch/_build/variants/``. Prints each variant's registers and spills, times
 the variants in turns over three rounds with CUDA events, and holds each against the
 plain version (the per-element attention tolerance of ``chip_smoke.py``); a variant that
-cuts a phase out computes garbage and is marked so. Shapes, head dim 64, bf16: the
-windowed kernel on SAM's 1200 window-heads of 14x14 tokens; the global kernel on SAM
-ViT-B's 48 x 4096 with and without the bias and on the 1536 bucket's 96x96 grid at one
-image. Prints the card, one line per kernel, shape and variant, and a JSON line of the
+cuts a phase out computes garbage and is marked so. Shapes, bf16: the windowed kernel on
+SAM ViT-B's 1200 window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim
+80; the global kernel on ViT-B's 48 x 4096 with and without the bias, on the 1536
+bucket's 96x96 grid at one image, and on ViT-H's 64 x 4096 (head dim 80) with and
+without the bias. Prints the card, one line per kernel, shape and variant, and a JSON line of the
 times. ``--src`` compares several versions of the source (for example a parent commit's,
 unpacked beside this one) under every variant, in the same turns.
 
@@ -43,21 +44,34 @@ def _sub(src: str, old: str, new: str) -> str:
 
 # windowed kernel: cp.async of Q, then of K and V; the bias projections (after Q lands,
 # with K and V in flight); the attention strips
-_W_PROJ = "  window_projections(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);\n"
-_W_STRIPS = "strip * 16 < sp; strip += WIN_WARPS"
-_W_Q_LOOP = "  for (int i = threadIdx.x; i < sp * 8; i += blockDim.x) {"
-_W_KV_LOOP = "  for (int i = threadIdx.x; i < nkey * 8; i += blockDim.x) {"
+_W_PROJ = "  window_projections<D>(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);\n"
+_W_STRIPS = "strip * 16 < sp; strip += WIN_WARPS<D>"
+_W_Q_LOOP = "  for (int i = threadIdx.x; i < sp * CH; i += blockDim.x) {"
+_W_KV_LOOP = "  for (int i = threadIdx.x; i < nkey * CH; i += blockDim.x) {"
 _W_COMMIT = "  cp_async_commit();\n"
+_W_WARPS = "constexpr int WIN_WARPS = D == 64 ? 8 : 16;"
+_W_QREGS = "constexpr bool WIN_Q_REGS = D == 64;"
 
 
 def window_variants(src: str) -> dict:
     kv0 = src.index(_W_KV_LOOP)
     kv1 = src.index(_W_COMMIT, kv0) + len(_W_COMMIT)
-    no_strips = _sub(src, _W_STRIPS, "strip * 16 < 0; strip += WIN_WARPS")
+    no_strips = _sub(src, _W_STRIPS, "strip * 16 < 0; strip += WIN_WARPS<D>")
     kv_after = _sub(src[:kv0] + src[kv1:], "  cp_async_wait<1>();\n  __syncthreads();",
                     "  cp_async_wait<0>();\n  __syncthreads();")
     kv_after = _sub(kv_after, _W_PROJ, _W_PROJ + src[kv0:kv1])
     q0 = src.index(_W_Q_LOOP)
+    # the windowed CTA's warps and where a warp keeps its strip's Q fragments, at D = 80
+    # (shipped: 16 warps, Q re-read from shared memory for each key chunk): the first
+    # D = 80 build (8 warps, Q in registers), 16 warps with Q in registers (over 128
+    # registers: spills), 12 warps; and at D = 64 Q re-read (shipped: in registers)
+    q_regs = "constexpr bool WIN_Q_REGS = true;"
+    warps = {
+        "d80_first": _sub(_sub(src, _W_WARPS, "constexpr int WIN_WARPS = 8;"), _W_QREGS, q_regs),
+        "d80_qregs": _sub(src, _W_QREGS, q_regs),
+        "d80_warps12": _sub(src, _W_WARPS, "constexpr int WIN_WARPS = D == 64 ? 8 : 12;"),
+        "d64_qsmem": _sub(src, _W_QREGS, "constexpr bool WIN_Q_REGS = false;"),
+    }
     return {
         "full": src,
         "loads_only": _sub(no_strips, _W_PROJ, ""),
@@ -65,21 +79,31 @@ def window_variants(src: str) -> dict:
         "loads_strips": _sub(src, _W_PROJ, ""),
         "strips_only": _sub(src[:q0] + src[kv1:], _W_PROJ, ""),
         "kv_after_projections": kv_after,
+        **warps,
     }
 
 
 _G_SOFTMAX = "global_softmax<BK, HAS_BIAS, ROW_TILE, {}>(s, m, l, a, rw0, rw1, rows, kt);"
-_G_STAGES = "static constexpr int NS = BK == 64 ? 4 : 3;"
+_G_STAGES = "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 3;"
+_G_BK = "constexpr int BK = HAS_BIAS && ROW_TILE && D == 64 ? 128 : 64;"
 #: global kernel: name -> text edits
 _G_EDITS = {
     "full": (),
-    # deeper K/V rings: 4 stages of 128 keys on the main path (128 KB) in place of 3, and
-    # 6 stages of 64 keys elsewhere (96 KB) in place of 4
-    "stages4_128": ((_G_STAGES, "static constexpr int NS = BK == 64 ? 4 : 4;"),),
-    "stages6_64": ((_G_STAGES, "static constexpr int NS = BK == 64 ? 6 : 3;"),),
-    # 64-key tiles on the main path in place of 128
-    "bk64": (("constexpr int BK = HAS_BIAS && ROW_TILE ? 128 : 64;",
-              "constexpr int BK = HAS_BIAS && ROW_TILE ? 64 : 64;"),),
+    # deeper K/V rings at head dim 64: 4 stages of 128 keys on the main path (128 KB) in
+    # place of 3, and 6 stages of 64 keys elsewhere (96 KB) in place of 4
+    "stages4_128": ((_G_STAGES, "static constexpr int NS = GPanels<D>::NP == 1 ? 4 : 3;"),),
+    "stages6_64": ((_G_STAGES,
+                    "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 6 : 3) : 3;"),),
+    # 64-key tiles on the main path in place of 128 at head dim 64
+    "bk64": ((_G_BK, "constexpr int BK = 64;"),),
+    # head dim 80 (two panels): 4 stages of 64 keys (128 KB; 231,496 B with the 64x64
+    # projections) in place of 3, or 2 stages of 128-key tiles on 64-token grid rows
+    "d80_stages4": ((_G_STAGES,
+                     "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 4;"),),
+    "d80_bk128": ((_G_STAGES,
+                   "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) "
+                   ": (BK == 64 ? 3 : 2);"),
+                  (_G_BK, "constexpr int BK = HAS_BIAS && ROW_TILE ? 128 : 64;")),
     # the consumer warpgroups' turn-taking flipped: none with the bias, turns without it
     "turns_flipped": (("constexpr bool TURNS = HAS_BIAS;",
                        "constexpr bool TURNS = !HAS_BIAS;"),),
@@ -110,19 +134,22 @@ def global_variants(src: str) -> dict:
     return out
 
 
-#: name -> entry point, its argtypes, the variants, the shapes (gh, gw, batch*heads, bias),
-#: launches per timing, and the entry's arguments before the stream for inputs x
+#: name -> entry point, its argtypes, the variants, the shapes (gh, gw, batch*heads, bias,
+#: head dim), launches per timing, and the entry's arguments before the stream for inputs x
 KERNELS = {
     "window": SimpleNamespace(
-        entry="tmr_window_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, F, P],
-        variants=window_variants, shapes=((14, 14, 4 * 25 * 12, True),), reps=50,
-        args=lambda x: (*x.qkv, *x.expanded, x.out, x.bh, x.s, x.gh, x.gw, x.scale)),
+        entry="tmr_window_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, P],
+        variants=window_variants,
+        shapes=((14, 14, 4 * 25 * 12, True, 64), (14, 14, 4 * 25 * 16, True, 80),
+                (7, 7, 4 * 25 * 16, True, 80), (16, 16, 4 * 25 * 16, True, 80)), reps=50,
+        args=lambda x: (*x.qkv, *x.expanded, x.out, x.bh, x.s, x.gh, x.gw, x.d, x.scale)),
     "global": SimpleNamespace(
-        entry="tmr_global_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, F, I, P],
+        entry="tmr_global_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, I, P],
         variants=global_variants,
-        shapes=((64, 64, 48, True), (64, 64, 48, False), (96, 96, 12, True)), reps=20,
+        shapes=((64, 64, 48, True, 64), (64, 64, 48, False, 64), (96, 96, 12, True, 64),
+                (64, 64, 64, True, 80), (64, 64, 64, False, 80)), reps=20,
         args=lambda x: (*x.qkv, *(x.compact if x.bias else (None, None)), x.out, x.bh, x.s,
-                        x.gh, x.gw, x.scale, int(x.bias))),
+                        x.gh, x.gw, x.d, x.scale, int(x.bias))),
 }
 
 
@@ -197,9 +224,9 @@ def main(argv=None) -> int:
         spec = KERNELS[kernel]
         mine = {name: getattr(lib, spec.entry)
                 for (k, name), lib in libs.items() if k == kernel}
-        for gh, gw, bh, bias in spec.shapes:
+        for gh, gw, bh, bias, d in spec.shapes:
             gen = torch.Generator(device="cuda").manual_seed(0)
-            s, d, scale = gh * gw, 64, 64 ** -0.5
+            s, scale = gh * gw, d ** -0.5
             q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
                        for _ in range(3))
             compact = (torch.randn(2 * gh - 1, d, generator=gen, device="cuda") * 0.1,
@@ -215,14 +242,14 @@ def main(argv=None) -> int:
                 qkv=(q.data_ptr(), k.data_ptr(), v.data_ptr()), out=out.data_ptr(),
                 compact=tuple(t.data_ptr() for t in compact),
                 expanded=tuple(t.data_ptr() for t in expanded),
-                bh=bh, s=s, gh=gh, gw=gw, scale=scale, bias=bias)
+                bh=bh, s=s, gh=gh, gw=gw, d=d, scale=scale, bias=bias)
 
             def launch(fn):
                 rc = fn(*spec.args(x), stream)
                 if rc:
                     raise SystemExit(f"attn_variants: {kernel} error {rc} at launch")
 
-            key = f"{kernel} {gh}x{gw} BH={bh} {'bias' if bias else 'no bias'}"
+            key = f"{kernel} d={d} {gh}x{gw} BH={bh} {'bias' if bias else 'no bias'}"
             times[key] = {name: [] for name in mine}
             for _ in range(3):
                 for name, fn in mine.items():
@@ -233,7 +260,7 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 worst = ((out.float() - want).abs() / limit).max().item()
                 ms = " ".join(f"{t:.4f}" for t in times[key][name])
-                print(f"{key:31s} {name:22s} ms {ms} worst err/limit {worst:.3f}"
+                print(f"{key:36s} {name:22s} ms {ms} worst err/limit {worst:.3f}"
                       f"{'' if worst <= 1 else ' (garbage: a phase is cut out)'}", flush=True)
     print(f"card: {card}")
     print(json.dumps({"card": card, "ms": times}))

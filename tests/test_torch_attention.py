@@ -260,3 +260,128 @@ def test_bias_projections_layout():
     tok = 2 * 5 + 3  # (y, x) = (2, 3)
     np.testing.assert_allclose(rel_h[0, tok].numpy(), rh[2] @ q[0, 0, tok], rtol=1e-5)
     np.testing.assert_allclose(rel_w[0, tok].numpy(), rw[3] @ q[0, 0, tok], rtol=1e-5)
+
+
+# ------------------------------------------------ head dim 80 (SAM ViT-H: 1280 / 16 heads)
+
+
+def _assert_close(got, want, dtype):
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        _assert_bf16_close(got, want)
+
+
+_DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+# a 64-token grid row (2x64: the main path's row tiles) against both Pallas global kernels
+# in interpret mode, and a ragged grid (5x7: one partial tile) against the blockwise
+# attention the JAX ViT runs where the Pallas kernels refuse the token count
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("grid,jax_fn", [
+    ((2, 64), pallas_decomposed_attention), ((2, 64), pallas_fused_attention),
+    ((5, 7), blockwise_decomposed_attention)], ids=["2x64-decomposed", "2x64-fused",
+                                                    "5x7-blockwise"])
+def test_global_attention_head_dim_80_matches_jax(grid, jax_fn, bias, dtype):
+    d = 80
+    q, k, v, rph, rpw = _global_inputs(11, 1, 2, *grid, d)
+    rh, rw = _expand(rph, rpw, grid)
+    if not bias:
+        rph = rpw = rh = rw = None
+    scale = d ** -0.5
+    jd, td = _DTYPES[dtype]
+    want = _jax(jax_fn, q, k, v, rh, rw, grid, scale, jd)
+    got = _port(cuda_attn.global_attention, q, k, v, rph, rpw, grid, scale, td)
+    _assert_close(got, want, dtype)
+
+
+# SAM's 14x14 windows (208 query rows, 14 key rows of 16 slots) and 7x7 (8-slot key rows, a
+# pad key row) at head dim 80
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [14, 7])
+def test_window_attention_head_dim_80_matches_pallas(window, dtype):
+    d = 80
+    q, k, v, rh, rw = _inputs(12, 2, 2, window, window, d)
+    scale = d ** -0.5
+    grid = (window, window)
+    jd, td = _DTYPES[dtype]
+    want = _jax(pallas_windowed_attention, q, k, v, rh, rw, grid, scale, jd)
+    got = _port(cuda_attn.window_attention, q, k, v, rh, rw, grid, scale, td)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d,ok", [(64, True), (80, True), (72, False), (96, False),
+                                  (128, False)])
+def test_kernels_take_head_dims_64_and_80_only(d, ok):
+    """The card's wrappers take head dim 64 (ViT-B) and 80 (ViT-H) and raise for any other
+    (no fallback to the plain version)."""
+    q = torch.zeros(2, 196, d, dtype=torch.bfloat16)
+    if ok:
+        cuda_attn._check(q, q.clone(), q.clone(), "test")
+    else:
+        with pytest.raises(ValueError, match="head dim 64 or 80"):
+            cuda_attn._check(q, q.clone(), q.clone(), "test")
+
+
+def _global_smem_mirror(gh, gw, has_bias, d):
+    """csrc/attn.cu launch_global's shared bytes: 1024 alignment slack, the Q tile of 128
+    rows in 64-column panels, the K/V ring of NS stages of BK keys (GStages, BK in
+    launch_global), NS full + NS empty + 1 mbarriers, and the (128, gh | 1) + (128, gw | 1)
+    f32 projections."""
+    np_ = (d + 63) // 64
+    bk = 128 if has_bias and gw == 64 and d == 64 else 64
+    ns = (4 if bk == 64 else 3) if np_ == 1 else 3
+    fixed = 1024 + np_ * 128 * 128 + ns * 2 * np_ * bk * 128 + (1 + 2 * ns) * 8
+    return fixed + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0)
+
+
+def _window_smem_mirror(gh, gw, d):
+    """csrc/attn.cu launch_window's shared bytes: Q (sp rows), K and V (ghp key rows of
+    8 NTW slots) in bf16 rows of d, and the f32 projections (sp, st_h + gwp)."""
+    ntw = next(n for n in (1, 2, 4, 8) if gw <= 8 * n)
+    gwp, ghp, sp, st_h = 8 * ntw, gh + ((gh * ntw) & 1), (gh * gw + 15) // 16 * 16, (gh + 1) | 1
+    return gwp, ghp, (sp + 2 * ghp * gwp) * d * 2 + sp * (st_h + gwp) * 4
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_geometry_mirrors_the_c_side(d):
+    """global_geometry and window_geometry equal the C side's formulas at both head dims, and
+    ViT-H's shapes (a 64x64 grid, 14x14 windows) fit the 227 KB a block may use."""
+    limit = 227 * 1024
+    for gh, gw in ((64, 64), (24, 40), (5, 7), (7, 64), (96, 96), (1, 1)):
+        for has_bias in (True, False):
+            assert (cuda_attn.global_geometry(gh, gw, has_bias, d)
+                    == _global_smem_mirror(gh, gw, has_bias, d))
+    for gh, gw in ((14, 14), (7, 7), (16, 16), (1, 64), (13, 13)):
+        assert cuda_attn.window_geometry(gh, gw, d) == _window_smem_mirror(gh, gw, d)
+    assert cuda_attn.global_geometry(64, 64, True, d) <= limit
+    assert cuda_attn.window_geometry(14, 14, d)[2] <= limit
+    with pytest.raises(ValueError):
+        cuda_attn.global_geometry(150, 150, True, d)
+    with pytest.raises(ValueError):
+        cuda_attn.window_geometry(17, 17, d)
+
+
+def _window_swizzle(row, chunk, d):
+    """csrc/attn.cu swz<D>: the element offset of 16-byte chunk ``chunk`` of bf16 row ``row``
+    in a (rows, d) tile of the windowed kernel."""
+    f = (row & 7) if d == 64 else ((row >> 2) & 1)
+    return row * d + ((chunk ^ f) << 3)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_window_swizzle_is_a_bijection_and_free_of_bank_conflicts(d):
+    """Each row's chunks land on its own chunks, once each; and for every chunk, the 8 rows
+    an ldmatrix phase reads (8 consecutive rows from a multiple of 8) sit in 8 distinct
+    bank groups of 16 bytes."""
+    chunks = d // 8
+    rows = np.arange(256)[:, None]
+    off = _window_swizzle(rows, np.arange(chunks)[None, :], d)  # elements
+    for r in range(256):
+        np.testing.assert_array_equal(np.sort(off[r] - r * d) // 8, np.arange(chunks))
+    group = (off * 2 // 16) % 8  # 16-byte bank group of each chunk's address
+    for r0 in range(0, 256, 8):
+        for c in range(chunks):
+            assert len(set(group[r0:r0 + 8, c].tolist())) == 8, (r0, c)

@@ -633,7 +633,8 @@ def test_every_kernel_has_a_source_and_a_counter():
     for lib_name in _build.SIGNATURES:
         assert (_build.CSRC / f"{lib_name}.cu").is_file()
     assert set(_build.LAUNCHES) == {"global_attn", "window_attn", "xcorr", "nms",
-                                    "xcorr_int8", "int8_mm", "int8_conv", "add1"}
+                                    "xcorr_int8", "int8_mm", "int8_conv", "add1",
+                                    "global_attn_d80", "window_attn_d80"}
 
 
 def test_launch_binds_each_c_function_once(monkeypatch):

@@ -19,6 +19,8 @@ from tmr_tpu_torch.utils.weights import params_from_jax  # noqa: E402
 
 TINY = dict(embed_dim=32, depth=4, num_heads=2, global_attn_indexes=(1, 3),
             patch_size=8, window_size=3, out_chans=16)
+#: ViT-H's head dim (1280 / 16 = 80) at TINY's depth and layout
+TINY_H80 = dict(TINY, embed_dim=160)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,6 +94,23 @@ def test_sam_vit_matches_jax(size):
         jmodel.init(jax.random.key(1), jnp.asarray(x))["params"]), rng)
     want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
     model = vit.SamViT(pretrain_img_size=32, **TINY)
+    model.load_state_dict(params_from_jax(params))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("size", [32, 48])  # native grid, and the resized grid
+def test_sam_vit_head_dim_80_matches_jax(size):
+    """A ViT with ViT-H's head dim (80: embed 160 over 2 heads), global blocks 1 and 3."""
+    rng = np.random.default_rng(size + 80)
+    x = rng.standard_normal((2, size, size, 3)).astype(np.float32)
+    jmodel = jvit.SamViT(pretrain_img_size=32, **TINY_H80)
+    params = _randomize_tables(_np_tree(
+        jmodel.init(jax.random.key(2), jnp.asarray(x))["params"]), rng)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
+    model = vit.SamViT(pretrain_img_size=32, **TINY_H80)
+    assert model.blocks[0].attn.rel_pos_h.shape[-1] == 80
     model.load_state_dict(params_from_jax(params))
     with torch.no_grad():
         got = model(torch.from_numpy(x)).permute(0, 2, 3, 1).numpy()

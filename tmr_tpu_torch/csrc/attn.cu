@@ -59,10 +59,17 @@
 // 16 registers for the whole loop and its rel-h terms one shared read per key row and
 // tile; other grids (24x40, 96x96, 20x20, ...) derive each column's (ky, kx) once per tile
 // by a reciprocal multiply and read both terms from shared memory. The head dim is a
-// template parameter (64-column panels; 64 instantiated).
-// nvcc -Xptxas -v (CUDA 12.9, sm_90a), each of <64, 128, bias, row tile>,
-// <64, 64, bias, general> and <64, 64, no bias>: 168 registers (the launch bound's share of
-// 384 threads), 0 bytes stack frame, 0 spills.
+// template parameter (64-column panels; 64 and 80 instantiated).
+// Head dim 80 (SAM ViT-H: 4 blocks of 64 x 4096 x 80 per batch of 4; 4 S^2 D BH = 344
+// GFLOP, 0.347 ms at the bf16 peak): q.k takes 5 k-steps; Q, K and V take two panels, the
+// second zero-filled by TMA past column 80, so p.v performs 128 / 80 of the products it
+// needs (0.452 ms at the peak). With two panels a ring of 128-key tiles and the 64x64
+// projections fits only 2 stages, so every D = 80 instantiation takes 3 stages of 64 keys
+// (a 96x96 grid's projections still fit). Measured in turns (scripts/attn_variants.py,
+// PERF.md): 4 stages of 64 keys 2-4% slower, 2 stages of 128 keys ~45% slower.
+// nvcc 12.9 -Xptxas -v (sm_90a), each of <64, 128, bias, row tile>,
+// <64, 64, bias, general>, <64, 64, no bias> and <80, 64, *, *>: 168 registers (the
+// launch bound's share of 384 threads), 0 bytes stack frame, 0 spills.
 //
 // Windowed kernel (SAM: 14x14 windows, S = 196, BH = 4 * 25 * 12 = 1200 per block). Its
 // bound is bytes: q, k, v in and out, bf16, 120 MB per call, 0.036 ms at 3.35 TB/s; its
@@ -104,6 +111,16 @@
 // warpgroup reads a K/V tile once for 64 rows, is the next step; it is not used here
 // because 208 rows fill 64-row tiles poorly and the first goal was the library's time.
 // Window rows up to 64 tokens and staging up to 227 KB (squares up to 16x16) are taken.
+// Head dim 80 (SAM ViT-H: 1600 window-heads per block, 28 blocks per batch of 4; q, k, v
+// and out are 201 MB a call, 0.060 ms at 3.35 TB/s): rows of 160 bytes in 10 chunks keep
+// the ldmatrix phases conflict-free with a one-bit swizzle (swz), and the 14x14 staging
+// is 130,752 B, so one CTA fits an SM. That CTA runs 16 warps, one per query strip, and a
+// warp re-reads its Q fragments from shared memory for each key chunk rather than holding
+// them, so 16 warps fit 128 registers. nvcc 12.9 -Xptxas -v (sm_90a), <80, NTW>: 128
+// registers; NTW = 1 and 2 (SAM's 14x14) spill 8 bytes, NTW = 4 and 8 (rows over 16
+// tokens) 32 and 92. Measured in turns at 14x14 (scripts/attn_variants.py, PERF.md): 8
+// warps holding Q in registers (171 registers, no spills) 0.253-0.260 ms, this design
+// 0.208-0.214. <64, NTW> as above.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -114,7 +131,6 @@
 
 namespace {
 
-constexpr int HD = 64;  // head dim of the windowed kernel
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
@@ -163,15 +179,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <int D>
 struct WarpState {
-  uint32_t qf[4][4];  // Q fragments for the 4 head-dim chunks of 16
-  float o[8][4];      // output accumulators, 8 head-dim n-tiles of 8
-  float m[2];         // running max (log2 domain) of rows g and g+8
-  float l[2];         // this thread's partial denominators of rows g and g+8
+  uint32_t qf[D / 16][4];  // Q fragments for the D / 16 head-dim chunks of 16
+  float o[D / 8][4];       // output accumulators, D / 8 head-dim n-tiles of 8
+  float m[2];              // running max (log2 domain) of rows g and g+8
+  float l[2];              // this thread's partial denominators of rows g and g+8
 };
 
-__device__ __forceinline__ void store_out(WarpState& st, __nv_bfloat16* or0, __nv_bfloat16* or1,
-                                          bool ok0, bool ok1) {
+template <int D>
+__device__ __forceinline__ void store_out(WarpState<D>& st, __nv_bfloat16* or0,
+                                          __nv_bfloat16* or1, bool ok0, bool ok1) {
   const int t = threadIdx.x & 3;
   float l0 = st.l[0], l1 = st.l[1];
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -179,7 +197,7 @@ __device__ __forceinline__ void store_out(WarpState& st, __nv_bfloat16* or0, __n
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
     if (ok0)
       *reinterpret_cast<__nv_bfloat162*>(or0 + c) =
@@ -192,13 +210,29 @@ __device__ __forceinline__ void store_out(WarpState& st, __nv_bfloat16* or0, __n
 
 // ---- windowed attention ------------------------------------------------------------------
 
-constexpr int WIN_WARPS = 8;  // 256 threads per (window, head) CTA
+// Warps of a (window, head) CTA, and whether a warp holds its strip's Q fragments in
+// registers. D = 64: 8 warps, two CTAs an SM, Q in registers. D = 80: one CTA an SM (its
+// staging), 16 warps so that each of a 14x14 window's 13 query strips has its own, and Q
+// re-read from shared memory for each key chunk so that 16 warps fit 128 registers
+// (scripts/attn_variants.py: 18% faster than 8 warps with Q in registers; the re-read costs
+// D = 64 1%).
+template <int D>
+constexpr int WIN_WARPS = D == 64 ? 8 : 16;
+template <int D>
+constexpr bool WIN_Q_REGS = D == 64;
 
-// Row-swizzled (rows, 64) bf16 tile, rows of 128 bytes: the 16-byte chunk c of row r lives
-// at chunk c ^ (r & 7), so the 8 rows an ldmatrix phase reads sit in 8 distinct bank groups
-// without padding the rows.
+// Row-swizzled (rows, D) bf16 tile of D / 8 chunks of 16 bytes a row, rows of 2D bytes
+// with no padding: chunk c of row r lives at chunk c ^ f(r), so that the 8 rows an ldmatrix
+// phase reads (8 consecutive rows from a multiple of 8, one chunk) sit in 8 distinct bank
+// groups of 16 bytes. D = 64 (128-byte rows): f(r) = r & 7. D = 80 (160-byte rows): row r
+// starts at bank group 2r mod 8, so rows r and r + 4 of each 8 would collide; f(r) =
+// (r >> 2) & 1 flips the chunk's low bit in rows 4-7, which moves them to the groups of the
+// other parity (a bijection on chunks 0-9: it swaps 2i and 2i + 1). Mirrored, with the
+// bank-group check, by tests/test_torch_attention.py.
+template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 3);
+  static_assert(D == 64 || D == 80, "the windowed kernel takes head dim 64 or 80");
+  return row * D + ((chunk ^ (D == 64 ? (row & 7) : ((row >> 2) & 1))) << 3);
 }
 
 // cp.async of 16 bytes that writes zeros when `bytes` is 0 (the source is not read then).
@@ -226,10 +260,11 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
 // The bias projections of one (window, head), f32, into shared memory, pre-multiplied by
 // log2 e: sRH[t][ky] = q_t . rh[y_t, ky] and sRW[t][kx] = q_t . rw[x_t, kx]. All tokens of
 // one grid row y share the matrix rh[y] (and of one column x, rw[x]), so each is a small
-// product (tokens of the row or column, 64) x (64, gh or gw) on the tensor cores: q is bf16
+// product (tokens of the row or column, D) x (D, gh or gw) on the tensor cores: q is bf16
 // and exact as an mma operand, the f32 table is split into bf16 hi + lo terms, the sums are
 // f32. The A rows are gathered by ldmatrix (one row address per lane); the B fragments are
 // read straight from the tables (L1/L2: every CTA of the call reads the same ~50 KB).
+template <int D>
 __device__ __forceinline__ void window_projections(const __nv_bfloat16* sQ, const float* rh,
                                                    const float* rw, float* sRH, float* sRW,
                                                    int gh, int gw, int st_h, int st_w) {
@@ -237,28 +272,29 @@ __device__ __forceinline__ void window_projections(const __nv_bfloat16* sQ, cons
   const int lm = lane >> 3, lr = lane & 7;
   const int mt_h = (gw + 15) >> 4, mt_w = (gh + 15) >> 4;  // 16-token tiles per group
   const int nh = gh * mt_h, units = nh + gw * mt_w;
-  for (int u = warp; u < units; u += WIN_WARPS) {
+  for (int u = warp; u < units; u += WIN_WARPS<D>) {
     const bool is_h = u < nh;
     const int uu = is_h ? u : u - nh, mt_n = is_h ? mt_h : mt_w;
     const int grp = uu / mt_n, m0 = (uu - grp * mt_n) * 16;
     // group grp: tokens tok0 + i * tstep for i < nrows; output columns ncols
     const int nrows = is_h ? gw : gh, ncols = is_h ? gh : gw;
     const int tok0 = is_h ? grp * gw : grp, tstep = is_h ? 1 : gw;
-    const float* tab = (is_h ? rh : rw) + (size_t)grp * ncols * HD;
+    const float* tab = (is_h ? rh : rw) + (size_t)grp * ncols * D;
     float* dst = is_h ? sRH : sRW;
     const int st = is_h ? st_h : st_w;
-    uint32_t a[4][4];
+    uint32_t a[D / 16][4];
     const int ai = min(m0 + (lm & 1) * 8 + lr, nrows - 1);  // pad rows repeat a real one
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], sQ + swz(tok0 + ai * tstep, kk * 2 + (lm >> 1)));
-    for (int n0 = 0; n0 < ncols; n0 += 16) {  // two n-tiles: 16 table loads in flight
-      float2 x[2][4][2];
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(a[kk], sQ + swz<D>(tok0 + ai * tstep, kk * 2 + (lm >> 1)));
+    for (int n0 = 0; n0 < ncols; n0 += 16) {  // two n-tiles: D / 4 table loads in flight
+      float2 x[2][D / 16][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + 8 * h + g;
-        const float* brow = tab + (size_t)min(col, ncols - 1) * HD + 2 * t;
+        const float* brow = tab + (size_t)min(col, ncols - 1) * D + 2 * t;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           x[h][kk][0] = *reinterpret_cast<const float2*>(brow + kk * 16);
           x[h][kk][1] = *reinterpret_cast<const float2*>(brow + kk * 16 + 8);
           if (col >= ncols) x[h][kk][0] = x[h][kk][1] = make_float2(0.f, 0.f);
@@ -269,7 +305,7 @@ __device__ __forceinline__ void window_projections(const __nv_bfloat16* sQ, cons
         if (n0 + 8 * h >= ncols) break;
         float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t h0, l0, h1, l1;
           split_bf16(x[h][kk][0].x, x[h][kk][0].y, h0, l0);
           split_bf16(x[h][kk][1].x, x[h][kk][1].y, h1, l1);
@@ -297,9 +333,10 @@ __device__ __forceinline__ void window_projections(const __nv_bfloat16* sQ, cons
 // 8 (n % NTW) + 2t + {0, 1} for this lane: the bias of a score is this lane's rel-h value of
 // that key row (one shared read per row and key row) plus one of its 4 NTW rel-w registers.
 // Pad slots carry a -inf rel-w (columns >= gw) or rel-h (the pad key row) and fall out.
-template <int NTW, int NT>
-__device__ __forceinline__ void window_chunk(WarpState& st, const __nv_bfloat16* sK,
+template <int D, int NTW, int NT>
+__device__ __forceinline__ void window_chunk(WarpState<D>& st, const __nv_bfloat16* sK,
                                              const __nv_bfloat16* sV, int ky,
+                                             const __nv_bfloat16* sQ, int qrow,
                                              const float* rh0, const float* rh1,
                                              const float (&rw0)[NTW][2],
                                              const float (&rw1)[NTW][2], float scale_log2) {
@@ -309,11 +346,12 @@ __device__ __forceinline__ void window_chunk(WarpState& st, const __nv_bfloat16*
 #pragma unroll
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if (!WIN_Q_REGS<D>) ldsm_x4(st.qf[kk], sQ + swz<D>(qrow, kk * 2 + (lm >> 1)));
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];
-      ldsm_x4(b, sK + swz(key0 + np * 16 + (lm >> 1) * 8 + lr, kk * 2 + (lm & 1)));
+      ldsm_x4(b, sK + swz<D>(key0 + np * 16 + (lm >> 1) * 8 + lr, kk * 2 + (lm & 1)));
       mma_bf16(s[2 * np], st.qf[kk], b[0], b[1]);
       mma_bf16(s[2 * np + 1], st.qf[kk], b[2], b[3]);
     }
@@ -355,7 +393,7 @@ __device__ __forceinline__ void window_chunk(WarpState& st, const __nv_bfloat16*
   st.l[0] = st.l[0] * a0 + ps0;
   st.l[1] = st.l[1] * a1 + ps1;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     st.o[n][0] *= a0;
     st.o[n][1] *= a0;
     st.o[n][2] *= a1;
@@ -369,20 +407,22 @@ __device__ __forceinline__ void window_chunk(WarpState& st, const __nv_bfloat16*
     a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
     a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
+    for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t b[4];
-      ldsm_x4_trans(b, sV + swz(key0 + kc * 16 + (lm & 1) * 8 + lr, dp * 2 + (lm >> 1)));
+      ldsm_x4_trans(b, sV + swz<D>(key0 + kc * 16 + (lm & 1) * 8 + lr, dp * 2 + (lm >> 1)));
       mma_bf16(st.o[2 * dp], a, b[0], b[1]);
       mma_bf16(st.o[2 * dp + 1], a, b[2], b[3]);
     }
   }
 }
 
-// One CTA per (window, head): q/k/v/out (BH, S, 64) bf16, S = gh * gw; rh (gh, gh, 64) and
-// rw (gw, gw, 64) f32, the get_rel_pos tables. Shared memory: Q (sp rows), K and V (ghp
+// One CTA per (window, head): q/k/v/out (BH, S, D) bf16, S = gh * gw; rh (gh, gh, D) and
+// rw (gw, gw, D) f32, the get_rel_pos tables. Shared memory: Q (sp rows), K and V (ghp
 // key rows of GWP slots each), all row-swizzled bf16; sRH (sp, st_h) and sRW (sp, GWP) f32.
-template <int NTW>
-__global__ void __launch_bounds__(WIN_WARPS * 32, 2)
+// D = 64: two CTAs per SM (registers capped at 128); D = 80 stages 130,752 B at 14x14, so
+// one CTA per SM, registers uncapped.
+template <int D, int NTW>
+__global__ void __launch_bounds__(WIN_WARPS<D> * 32, D == 64 ? 2 : 1)
     window_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ rh,
                        const float* __restrict__ rw, __nv_bfloat16* __restrict__ out, int S,
@@ -391,25 +431,26 @@ __global__ void __launch_bounds__(WIN_WARPS * 32, 2)
   extern __shared__ __align__(128) unsigned char smem[];
   const int nkey = ghp * GWP;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + sp * HD;
-  __nv_bfloat16* sV = sK + nkey * HD;
-  float* sRH = reinterpret_cast<float*>(sV + nkey * HD);
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  __nv_bfloat16* sK = sQ + sp * D;
+  __nv_bfloat16* sV = sK + nkey * D;
+  float* sRH = reinterpret_cast<float*>(sV + nkey * D);
   float* sRW = sRH + sp * st_h;
-  const size_t base = (size_t)blockIdx.x * S * HD;
+  const size_t base = (size_t)blockIdx.x * S * D;
   // Q, then K and V in key-slot order, all by cp.async (pad rows and slots zero-filled:
   // zero K and V keep the masked slots finite and out of the sums)
-  for (int i = threadIdx.x; i < sp * 8; i += blockDim.x) {
-    const int r = i >> 3, c = i & 7;
-    cp_async16_zfill(sQ + swz(r, c), q + base + (size_t)min(r, S - 1) * HD + c * 8,
+  for (int i = threadIdx.x; i < sp * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    cp_async16_zfill(sQ + swz<D>(r, c), q + base + (size_t)min(r, S - 1) * D + c * 8,
                      r < S ? 16 : 0);
   }
   cp_async_commit();
-  for (int i = threadIdx.x; i < nkey * 8; i += blockDim.x) {
-    const int j = i >> 3, c = i & 7, ky = j / GWP, kx = j % GWP;
+  for (int i = threadIdx.x; i < nkey * CH; i += blockDim.x) {
+    const int j = i / CH, c = i % CH, ky = j / GWP, kx = j % GWP;
     const bool ok = ky < gh && kx < gw;
-    const size_t src = base + (size_t)(ok ? ky * gw + kx : 0) * HD + c * 8;
-    cp_async16_zfill(sK + swz(j, c), k + src, ok ? 16 : 0);
-    cp_async16_zfill(sV + swz(j, c), v + src, ok ? 16 : 0);
+    const size_t src = base + (size_t)(ok ? ky * gw + kx : 0) * D + c * 8;
+    cp_async16_zfill(sK + swz<D>(j, c), k + src, ok ? 16 : 0);
+    cp_async16_zfill(sV + swz<D>(j, c), v + src, ok ? 16 : 0);
   }
   cp_async_commit();
   // the -inf columns of the pad slots: rel-w columns gw..GWP-1, the rel-h column of the
@@ -421,20 +462,23 @@ __global__ void __launch_bounds__(WIN_WARPS * 32, 2)
   for (int r = threadIdx.x; r < sp; r += blockDim.x) sRH[r * st_h + gh] = -INFINITY;
   cp_async_wait<1>();
   __syncthreads();  // Q has landed; K and V are still in flight under the projections
-  window_projections(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);
+  window_projections<D>(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);
   cp_async_wait<0>();
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int lm = lane >> 3, lr = lane & 7;
   constexpr int CROWS = 8 / NTW;  // key rows per chunk of 8 n-tiles
-  for (int strip = warp; strip * 16 < sp; strip += WIN_WARPS) {
+  for (int strip = warp; strip * 16 < sp; strip += WIN_WARPS<D>) {
     const int r0 = strip * 16 + g, r1 = r0 + 8;
-    WarpState st;
+    const int qrow = strip * 16 + (lm & 1) * 8 + lr;  // this lane's ldmatrix row of Q
+    WarpState<D> st;
+    if (WIN_Q_REGS<D>) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ldsm_x4(st.qf[kk], sQ + swz(strip * 16 + (lm & 1) * 8 + lr, kk * 2 + (lm >> 1)));
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(st.qf[kk], sQ + swz<D>(qrow, kk * 2 + (lm >> 1)));
+    }
 #pragma unroll
-    for (int n = 0; n < 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
+    for (int n = 0; n < D / 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
     st.m[0] = st.m[1] = -INFINITY;
     st.l[0] = st.l[1] = 0.f;
     float rw0[NTW][2], rw1[NTW][2];
@@ -451,14 +495,21 @@ __global__ void __launch_bounds__(WIN_WARPS * 32, 2)
     const float* rh1 = sRH + r1 * st_h;
     int ky = 0;
     for (; ky + CROWS <= ghp; ky += CROWS)
-      window_chunk<NTW, 8>(st, sK, sV, ky, rh0, rh1, rw0, rw1, scale_log2);
+      window_chunk<D, NTW, 8>(st, sK, sV, ky, sQ, qrow, rh0, rh1, rw0, rw1, scale_log2);
     switch ((ghp - ky) * NTW) {  // the last chunk: 2, 4 or 6 n-tiles (ghp * NTW is even)
-      case 2: window_chunk<NTW, 2>(st, sK, sV, ky, rh0, rh1, rw0, rw1, scale_log2); break;
-      case 4: window_chunk<NTW, 4>(st, sK, sV, ky, rh0, rh1, rw0, rw1, scale_log2); break;
-      case 6: window_chunk<NTW, 6>(st, sK, sV, ky, rh0, rh1, rw0, rw1, scale_log2); break;
+      case 2:
+        window_chunk<D, NTW, 2>(st, sK, sV, ky, sQ, qrow, rh0, rh1, rw0, rw1, scale_log2);
+        break;
+      case 4:
+        window_chunk<D, NTW, 4>(st, sK, sV, ky, sQ, qrow, rh0, rh1, rw0, rw1, scale_log2);
+        break;
+      case 6:
+        window_chunk<D, NTW, 6>(st, sK, sV, ky, sQ, qrow, rh0, rh1, rw0, rw1, scale_log2);
+        break;
       default: break;
     }
-    store_out(st, out + base + (size_t)r0 * HD, out + base + (size_t)r1 * HD, r0 < S, r1 < S);
+    store_out<D>(st, out + base + (size_t)r0 * D, out + base + (size_t)r1 * D, r0 < S,
+                 r1 < S);
   }
 }
 
@@ -468,15 +519,20 @@ constexpr int GQ = 128;         // query rows per CTA: 2 consumer warpgroups x 6
 constexpr int G_THREADS = 384;  // warpgroup 0 loads (one thread), warpgroups 1-2 compute
 
 // Head dim D is stored as 64-column panels (128-byte rows, one 128B-swizzle span each; a
-// head dim that is not a multiple of 64 is zero-filled by TMA up to the panel edge).
+// head dim that is not a multiple of 64 is zero-filled by TMA up to the panel edge: at
+// D = 80 the second panel holds 16 real columns, so p.v performs 128 / 80 of the products
+// it needs and Q, K and V take twice the shared memory of D = 64).
 template <int D>
 struct GPanels {
   static constexpr int NP = (D + 63) / 64;  // panels per row
   static constexpr int KS = (D + 15) / 16;  // 16-wide k-steps of q.k
 };
-template <int BK>
+// K/V ring depth. One panel (D = 64): 4 stages of 64-key tiles (64 KB) or 3 of 128-key
+// tiles (96 KB). Two panels (D = 80): 3 stages of 64-key tiles (96 KB): with the
+// projections of a 96x96 grid that is 231,480 B, within the 232,448 a block may use.
+template <int D, int BK>
 struct GStages {
-  static constexpr int NS = BK == 64 ? 4 : 3;  // K/V ring: 64 KB of 64-key, 96 KB of 128-key tiles
+  static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 3;
 };
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -823,8 +879,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[GPanels<D>::NP][32],
 template <int D, int BK>
 __host__ __device__ constexpr size_t global_smem_fixed() {
   return 1024 + (size_t)GPanels<D>::NP * GQ * 128 +
-         (size_t)GStages<BK>::NS * 2 * GPanels<D>::NP * BK * 128 +
-         (size_t)(1 + 2 * GStages<BK>::NS) * 8;
+         (size_t)GStages<D, BK>::NS * 2 * GPanels<D>::NP * BK * 128 +
+         (size_t)(1 + 2 * GStages<D, BK>::NS) * 8;
 }
 
 // One CTA per (128 query rows, batch*head): q/k/v/out (BH, S, D) bf16, S = gh * gw; rph
@@ -842,7 +898,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ rph,
                        const float* __restrict__ rpw, __nv_bfloat16* __restrict__ out, int S,
                        int gh, int gw, int sth, int stw, float scale_log2) {
-  constexpr int NP = GPanels<D>::NP, NS = GStages<BK>::NS;
+  constexpr int NP = GPanels<D>::NP, NS = GStages<D, BK>::NS;
   constexpr int QBYTES = NP * GQ * 128, KVBYTES = NP * BK * 128;
   constexpr bool TURNS = HAS_BIAS;
   extern __shared__ unsigned char g_smem_raw[];
@@ -1012,6 +1068,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 constexpr int ERR_TENSOR_MAP = 1000;  // + the CUresult; 1000 alone: no driver entry point
+constexpr int ERR_ARGUMENT = 2000;    // an argument the kernels do not take (_build.launch)
 
 // cuTensorMapEncodeTiled from the driver the runtime has loaded (no link against libcuda)
 EncodeTiledFn encode_tiled() {
@@ -1054,9 +1111,11 @@ int launch_global(const void* q, const void* k, const void* v, const void* rph,
                   const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
                   cudaStream_t st) {
   // geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py global_geometry: 128-key tiles
-  // on the main path (64-key tiles measured slower there); without the bias 128 measured
-  // slower, and the general bias path's per-column (ky, kx) does not fit the registers
-  constexpr int BK = HAS_BIAS && ROW_TILE ? 128 : 64;
+  // on the main path at D = 64 (64-key tiles measured slower there); without the bias 128
+  // measured slower, and the general bias path's per-column (ky, kx) does not fit the
+  // registers; at D = 80 a ring of 128-key tiles with the 64x64 projections fits only 2
+  // stages, and the second output panel leaves the registers no room for 64 scores
+  constexpr int BK = HAS_BIAS && ROW_TILE && D == 64 ? 128 : 64;
   CUtensorMap tq, tk, tv;
   int e;
   if ((e = bf16_map(&tq, q, D, S, BH, GQ)) || (e = bf16_map(&tk, k, D, S, BH, BK)) ||
@@ -1072,54 +1131,75 @@ int launch_global(const void* q, const void* k, const void* v, const void* rph,
   return (int)cudaGetLastError();
 }
 
-template <int NTW>
+template <int D, int NTW>
 int launch_window(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                   void* out, int BH, int S, int gh, int gw, float scale, cudaStream_t st) {
   // geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py window_geometry
   const int gwp = 8 * NTW, ghp = gh + ((gh * NTW) & 1), sp = (S + 15) / 16 * 16;
   const int st_h = (gh + 1) | 1;
-  const size_t smem = (size_t)(sp + 2 * ghp * gwp) * HD * 2 + (size_t)sp * (st_h + gwp) * 4;
+  const size_t smem = (size_t)(sp + 2 * ghp * gwp) * D * 2 + (size_t)sp * (st_h + gwp) * 4;
   int e;
-  if ((e = launch_prep(window_attn_kernel<NTW>, smem))) return e;
-  window_attn_kernel<NTW><<<BH, WIN_WARPS * 32, smem, st>>>(
+  if ((e = launch_prep(window_attn_kernel<D, NTW>, smem))) return e;
+  window_attn_kernel<D, NTW><<<BH, WIN_WARPS<D> * 32, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const float*)rh, (const float*)rw, (__nv_bfloat16*)out, S, gh, gw, ghp, sp, st_h,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int global_entry(const void* q, const void* k, const void* v, const void* rph, const void* rpw,
+                 void* out, int BH, int S, int gh, int gw, float scale, int has_bias,
+                 cudaStream_t st) {
+  if (!has_bias)
+    return launch_global<D, false, false>(q, k, v, nullptr, nullptr, out, BH, S, gh, gw,
+                                          scale, st);
+  if (gw == 64)
+    return launch_global<D, true, true>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+  return launch_global<D, true, false>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+}
+
+template <int D>
+int window_entry(const void* q, const void* k, const void* v, const void* rh, const void* rw,
+                 void* out, int BH, int S, int gh, int gw, float scale, cudaStream_t st) {
+  if (gw <= 8) return launch_window<D, 1>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  if (gw <= 16) return launch_window<D, 2>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  if (gw <= 32) return launch_window<D, 4>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  if (gw <= 64) return launch_window<D, 8>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  return ERR_ARGUMENT;
+}
+
 }  // namespace
 
 extern "C" {
 
-// q/k/v/out: (BH, S, 64) bf16 contiguous over a (gh, gw) token grid, S = gh * gw >= 1;
-// rph (2gh - 1, 64) and rpw (2gw - 1, 64) f32 contiguous, the compact rel-pos tables, or
-// null when has_bias == 0. Returns 0 when launched, a CUDA error code, or 1000 (+ the
-// CUresult) when a TMA descriptor cannot be made.
+// q/k/v/out: (BH, S, D) bf16 contiguous over a (gh, gw) token grid, S = gh * gw >= 1, head
+// dim D = 64 or 80; rph (2gh - 1, D) and rpw (2gw - 1, D) f32 contiguous, the compact
+// rel-pos tables, or null when has_bias == 0. Returns 0 when launched, a CUDA error code,
+// 1000 (+ the CUresult) when a TMA descriptor cannot be made, or 2000 for a head dim the
+// kernel does not take.
 int tmr_global_attn(const void* q, const void* k, const void* v, const void* rph,
-                    const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
-                    int has_bias, void* stream) {
+                    const void* rpw, void* out, int BH, int S, int gh, int gw, int D,
+                    float scale, int has_bias, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (!has_bias)
-    return launch_global<64, false, false>(q, k, v, nullptr, nullptr, out, BH, S, gh, gw,
-                                           scale, st);
-  if (gw == 64)
-    return launch_global<64, true, true>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
-  return launch_global<64, true, false>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+  if (D == 64)
+    return global_entry<64>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, has_bias, st);
+  if (D == 80)
+    return global_entry<80>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, has_bias, st);
+  return ERR_ARGUMENT;
 }
 
-// q/k/v/out: (BH, S, 64) bf16 contiguous with S = gh * gw window tokens; rh (gh, gh, 64)
-// and rw (gw, gw, 64) f32 contiguous, the get_rel_pos tables. One CTA per window-head; rows
-// of up to 64 tokens (gw <= 64). Returns the CUDA error code (0 = launched).
+// q/k/v/out: (BH, S, D) bf16 contiguous with S = gh * gw window tokens, D = 64 or 80; rh
+// (gh, gh, D) and rw (gw, gw, D) f32 contiguous, the get_rel_pos tables. One CTA per
+// window-head; rows of up to 64 tokens (gw <= 64). Returns the CUDA error code (0 =
+// launched), or 2000 for a head dim or a window row the kernel does not take.
 int tmr_window_attn(const void* q, const void* k, const void* v, const void* rh,
-                    const void* rw, void* out, int BH, int S, int gh, int gw, float scale,
-                    void* stream) {
+                    const void* rw, void* out, int BH, int S, int gh, int gw, int D,
+                    float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (gw <= 8) return launch_window<1>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
-  if (gw <= 16) return launch_window<2>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
-  if (gw <= 32) return launch_window<4>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
-  if (gw <= 64) return launch_window<8>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if (D == 64) return window_entry<64>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  if (D == 80) return window_entry<80>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+  return ERR_ARGUMENT;
 }
 
 }  // extern "C"

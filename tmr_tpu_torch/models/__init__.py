@@ -24,8 +24,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_backbone(cfg, device=None) -> SamViT:
-    """'sam'/'sam_vit_h' -> ViT-H, 'sam_vit_b' -> ViT-B (the port's slice has the
-    SAM backbones only), built on ``device`` (:func:`resolve_device`)."""
+    """'sam'/'sam_vit_h' -> ViT-H (32 blocks, 16 heads of 80), 'sam_vit_b' -> ViT-B (12
+    blocks, 12 heads of 64) (the port's slice has the SAM backbones only), built on
+    ``device`` (:func:`resolve_device`)."""
     kind = {"sam": "vit_h", "sam_vit_h": "vit_h", "sam_vit_b": "vit_b"}.get(cfg.backbone)
     if kind is None:
         raise KeyError(f"backbone {cfg.backbone!r} is not ported yet")

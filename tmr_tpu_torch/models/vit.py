@@ -7,7 +7,9 @@ non-native grids (the 1536 bucket) by ``interp_rel_pos``. Global blocks call
 ``ops.cuda_attn.global_attention`` with the compact ``(2g - 1, D)`` tables, whose
 Toeplitz expansion the kernel makes itself; windowed blocks call
 ``ops.cuda_attn.window_attention`` with the ``(g, g, D)`` tables that
-:func:`get_rel_pos` looks up. Both at every grid size. LayerNorms run in f32; the
+:func:`get_rel_pos` looks up. Both at every grid size, and at the head dims of both SAM
+encoders the port builds: ViT-B (768 over 12 heads of 64) and ViT-H (1280 over 16 heads
+of 80), each a kernel instantiation of its own on the card. LayerNorms run in f32; the
 linears and convs in the model's compute dtype.
 """
 

@@ -31,8 +31,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: exported C functions of each source, with their ctypes signatures
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attn": {
-        "tmr_global_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-        "tmr_window_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "tmr_global_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        "tmr_window_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "xcorr": {
         "tmr_xcorr": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -55,11 +55,16 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
+#: what a C entry returns for an argument its kernels do not take (``csrc/attn.cu``
+#: ``ERR_ARGUMENT``); :func:`launch` raises ``ValueError`` for it
+ERR_ARGUMENT = 2000
+
 #: launches of each kernel since the last ``reset_launches()``; each wrapper adds one
 #: where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {
     "global_attn": 0, "window_attn": 0, "xcorr": 0, "nms": 0,
     "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
+    "global_attn_d80": 0, "window_attn_d80": 0,
 }
 
 #: nvcc's output (``-Xptxas -v``: registers, shared memory and spills per kernel) of each
@@ -139,11 +144,14 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def launch(kernel: str, lib_name: str, fn: str, *args) -> None:
-    """Call one C launcher, raise on its CUDA error code, count the launch."""
+    """Call one C launcher, raise on its error code (``ValueError`` for an argument the
+    kernel does not take, else ``RuntimeError``), count the launch."""
     bound = _FNS.get(fn)
     if bound is None:
         bound = _FNS[fn] = getattr(lib(lib_name), fn)
     rc = bound(*args)
+    if rc == ERR_ARGUMENT:
+        raise ValueError(f"{fn}: an argument the kernel does not take")
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
     LAUNCHES[kernel] += 1

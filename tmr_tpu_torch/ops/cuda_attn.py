@@ -20,10 +20,12 @@ accumulators are f32; p is rounded to the input dtype before the p.v product, as
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (``csrc/attn.cu``, whose header says what bounds it on the card and how the
-design answers) or raises. What the kernels take: bf16, head dim 64, contiguous; the
+design answers) or raises. What the kernels take: bf16, contiguous, head dim 64 (SAM
+ViT-B) or 80 (ViT-H; any other raises, with no fallback to the plain version); the
 global kernel takes any token count whose projections fit in shared memory
-(:func:`global_geometry`: gh + gw up to ~290); the windowed kernel takes rows of up to 64
-tokens and a window whose staging fits in 227 KB (:func:`window_geometry`).
+(:func:`global_geometry`: gh + gw up to ~290 at head dim 64, ~195 at 80); the windowed
+kernel takes rows of up to 64 tokens and a window whose staging fits in 227 KB
+(:func:`window_geometry`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from tmr_tpu_torch.ops import _build
 
 #: dynamic shared memory a block may use on Hopper
 _SMEM_LIMIT = 227 * 1024
+#: head dims the kernels are instantiated for (SAM ViT-B, ViT-H)
+HEAD_DIMS = (64, 80)
 
 
 def interp_rel_pos(rel_pos: torch.Tensor, target_len: int) -> torch.Tensor:
@@ -103,20 +107,31 @@ def _check(q, k, v, what: str) -> None:
             raise ValueError(f"{what}: {name} must be contiguous bf16, got {t.dtype}")
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
-    if q.shape[-1] != 64:
-        raise ValueError(f"{what}: the kernel takes head dim 64, got {q.shape[-1]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes head dim 64 or 80, got {q.shape[-1]}")
 
 
-def global_geometry(gh: int, gw: int, has_bias: bool = True) -> int:
-    """Shared bytes of the global kernel for a (gh, gw) grid, as ``csrc/attn.cu``
-    ``launch_global`` sets them up: alignment slack, the 128-row Q tile, a ring of K/V
-    stages (3 of 128 keys with the bias on 64-token grid rows, else 4 of 64), their
-    mbarriers and, with the bias, the (128, gh | 1) and (128, gw | 1) f32 projections.
-    Raises ``ValueError`` over 227 KB."""
+def _counter(kernel: str, d: int) -> str:
+    """The launch count of a kernel's head dim 64 or 80 instantiation."""
+    return kernel if d == 64 else f"{kernel}_d{d}"
+
+
+def global_geometry(gh: int, gw: int, has_bias: bool = True, d: int = 64) -> int:
+    """Shared bytes of the global kernel for a (gh, gw) grid at head dim ``d``, as
+    ``csrc/attn.cu`` ``launch_global`` sets them up: alignment slack, the 128-row Q tile
+    in ceil(d / 64) panels of 64 columns, a ring of K/V stages (d = 64: 3 of 128 keys with
+    the bias on 64-token grid rows, else 4 of 64; d = 80: 3 of 64), their mbarriers and,
+    with the bias, the (128, gh | 1) and (128, gw | 1) f32 projections. Raises
+    ``ValueError`` over 227 KB."""
     if gh < 1 or gw < 1:
         raise ValueError(f"global_attention: empty {gh}x{gw} grid")
-    stages, keys = (3, 128) if has_bias and gw == 64 else (4, 64)
-    smem = 1024 + 128 * 128 + stages * 2 * keys * 128 + (1 + 2 * stages) * 8
+    panels = -(-d // 64)
+    if panels == 1:
+        stages, keys = (3, 128) if has_bias and gw == 64 else (4, 64)
+    else:
+        stages, keys = 3, 64
+    smem = (1024 + panels * 128 * 128 + stages * 2 * panels * keys * 128
+            + (1 + 2 * stages) * 8)
     if has_bias:
         smem += 128 * ((gh | 1) + (gw | 1)) * 4
     if smem > _SMEM_LIMIT:
@@ -151,7 +166,7 @@ def global_attention(
     bh, s, d = q.shape
     if s != gh * gw:
         raise ValueError(f"global_attention: S={s} is not the {gh}x{gw} grid's")
-    global_geometry(gh, gw, has_bias)
+    global_geometry(gh, gw, has_bias, d)
     if has_bias:
         rel_pos_h, rel_pos_w = (t.to(q.device, torch.float32).contiguous()
                                 for t in (rel_pos_h, rel_pos_w))
@@ -161,22 +176,23 @@ def global_attention(
                              f"{gh}x{gw} grid")
     out = torch.empty_like(q)
     _build.launch(
-        "global_attn", "attn", "tmr_global_attn",
+        _counter("global_attn", d), "attn", "tmr_global_attn",
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         rel_pos_h.data_ptr() if has_bias else None,
         rel_pos_w.data_ptr() if has_bias else None,
-        out.data_ptr(), bh, s, gh, gw, float(scale), int(has_bias),
+        out.data_ptr(), bh, s, gh, gw, d, float(scale), int(has_bias),
         _build.stream_of(q),
     )
     return out
 
 
-def window_geometry(gh: int, gw: int) -> Tuple[int, int, int]:
-    """The windowed kernel's staging for a (gh, gw) window, as ``csrc/attn.cu``
-    ``launch_window`` sets it up: key slots in grid rows of ``gwp`` (8, 16, 32 or 64 >= gw),
-    ``ghp`` key rows (gh, or gh + 1 to make the 8-slot tiles even), query rows padded to
-    ``sp`` (a multiple of 16). Returns (gwp, ghp, shared bytes); raises ``ValueError`` for a
-    window the kernel does not take (rows over 64 tokens, or staging over 227 KB)."""
+def window_geometry(gh: int, gw: int, d: int = 64) -> Tuple[int, int, int]:
+    """The windowed kernel's staging for a (gh, gw) window at head dim ``d``, as
+    ``csrc/attn.cu`` ``launch_window`` sets it up: key slots in grid rows of ``gwp`` (8,
+    16, 32 or 64 >= gw), ``ghp`` key rows (gh, or gh + 1 to make the 8-slot tiles even),
+    query rows padded to ``sp`` (a multiple of 16), bf16 rows of 2d bytes. Returns (gwp,
+    ghp, shared bytes); raises ``ValueError`` for a window the kernel does not take (rows
+    over 64 tokens, or staging over 227 KB)."""
     if not 1 <= gw <= 64 or gh < 1:
         raise ValueError(f"window_attention: the kernel takes window rows of 1..64 tokens, "
                          f"got a {gh}x{gw} window")
@@ -184,7 +200,7 @@ def window_geometry(gh: int, gw: int) -> Tuple[int, int, int]:
     ghp = gh + (gh * gwp // 8) % 2
     sp = -(-gh * gw // 16) * 16
     st_h = (gh + 1) | 1
-    smem = (sp + 2 * ghp * gwp) * 64 * 2 + sp * (st_h + gwp) * 4
+    smem = (sp + 2 * ghp * gwp) * d * 2 + sp * (st_h + gwp) * 4
     if smem > _SMEM_LIMIT:
         raise ValueError(f"window_attention: a {gh}x{gw} window needs {smem} B of shared "
                          f"memory, over the {_SMEM_LIMIT} B a block may use")
@@ -206,19 +222,19 @@ def window_attention(
         return attention_plain(q, k, v, *bias_projections(q, rh, rw, grid_hw), grid_hw,
                                scale)
     _check(q, k, v, "window_attention")
-    bh, s, _ = q.shape
+    bh, s, d = q.shape
     gh, gw = grid_hw
     if s != gh * gw:
         raise ValueError(f"window_attention: S={s} is not the {gh}x{gw} window's")
-    window_geometry(gh, gw)
+    window_geometry(gh, gw, d)
     rh, rw = (t.to(q.device, torch.float32).contiguous() for t in (rh, rw))
-    if rh.shape != (gh, gh, 64) or rw.shape != (gw, gw, 64):
+    if rh.shape != (gh, gh, d) or rw.shape != (gw, gw, d):
         raise ValueError(f"window_attention: tables {tuple(rh.shape)} / {tuple(rw.shape)} "
                          f"do not fit a {gh}x{gw} window")
     out = torch.empty_like(q)
     _build.launch(
-        "window_attn", "attn", "tmr_window_attn",
+        _counter("window_attn", d), "attn", "tmr_window_attn",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-        out.data_ptr(), bh, s, gh, gw, float(scale), _build.stream_of(q),
+        out.data_ptr(), bh, s, gh, gw, d, float(scale), _build.stream_of(q),
     )
     return out

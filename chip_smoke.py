@@ -23,21 +23,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    both attention kernels again at head dim 80 (SAM ViT-H: the global kernel at 64x64
    with BH 64, with and without the bias, beside the bound of the products it performs,
    and at 24x40, 5x7 and 7x64; the windowed kernel at 14x14 with BH 1600, 7x7 and 16x16),
-   with ``-Xptxas -v`` of every attention instantiation; the
-   f32 correlation at T = 1 to 65 on the matcher's map with its 3xTF32 tensor bound and
-   its f32 bound, and on 96^2 and 64^2 maps, a ragged map, a bf16-valued feature and a
-   feature with non-finite values planted; the int8 correlation at T = 1 to 65 on the
-   matcher's map, timed in turns with the CUDA-core kernel it replaced, beside the
-   function's bound and the band's, and on two ragged maps and a map of -128/-127/127
-   only (0 mismatches everywhere); greedy NMS (an IoU bitmask and a block scan, two
-   launches a call) on 4 x 2000 boxes with planted ties at IoU 0.5 and 0.15 (keep masks
-   equal to the plain version's on the card and on the CPU), timed in turns with the
-   sequential kernel it replaced, its launches split by the profiler, beside the
-   function's bound and the design's, with both kernels' ``-Xptxas -v``, and on a ragged
-   2 x 2001, 1 x 63, 1 x 65, 1 x 12000 (past the old 9000-box cap), an all-invalid batch,
-   2000 identical boxes and a chain of 2000 (0 mismatches); the fused int8 3x3 layer at
-   the int8 tail's shape and a ragged one, timed in turns with the per-tap composition it replaces,
-   beside the bare ``torch._int_mm`` of the im2col'd product and its ``-Xptxas -v``;
+   with ``-Xptxas -v`` of every attention instantiation; the f32 correlation at T = 1 to 65
+   on the matcher's map with its 3xTF32 tensor bound and its f32 bound, and on 96^2 and 64^2
+   maps, a ragged map, a bf16-valued feature, the multi path's 12 rows and a feature with
+   non-finite values planted; the int8 correlation at T = 1 to 65 on the matcher's map,
+   timed in turns with the CUDA-core kernel it replaced, beside the function's bound and the
+   band's, and on two ragged maps, a map of -128/-127/127 only and the multi path's 12 rows
+   (0 mismatches everywhere); the int8 matmul at the heads' shape for 4 and 12 rows, a tap's
+   and a ragged one; greedy NMS (an IoU bitmask and a block scan, two launches a call) on 4
+   x 2000 boxes with planted ties at IoU 0.5 and 0.15 (keep masks equal to the plain
+   version's on the card and on the CPU), timed in turns with the sequential kernel it
+   replaced, its launches split by the profiler, beside the function's bound and the
+   design's, with both kernels' ``-Xptxas -v``, and on a ragged 2 x 2001, 1 x 63, 1 x 65, 1
+   x 12000 (past the old 9000-box cap), an all-invalid batch, 2000 identical boxes and a
+   chain of 2000 (0 mismatches), and on the unions of the multi-exemplar path, 4 x 6000 (k
+   3) and 1 x 16000 (k bucket 8), each timed beside its bound (0 mismatches); the fused int8
+   3x3 layer at the int8 tail's shape, a ragged one and the multi path's 12 rows, timed in
+   turns with the per-tap composition it replaces, beside the bare ``torch._int_mm`` of the
+   im2col'd product and its ``-Xptxas -v``;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
@@ -67,6 +70,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    map from the bf16 network with its attention through ``attention_plain`` on the card
    (a yardstick of this script, never a path of the port), which separates bf16 drift
    over 32 blocks from kernel error;
+4d. the multi-exemplar path (run after 4b, on phase 4's and 4b's predictors): the same
+   images, each carrying 3 exemplars (phase 4's first, then two more squares of its
+   size; k bucket 3, real rows (3, 3, 2, 1), padded with the last real row), through
+   ``predict_multi_batch``: its launches over the 3 batches must be exactly global 12,
+   window 24, xcorr 3, nms 3 and 0 else (the encoder once per image); each batch's union
+   keep mask must equal the plain version's on the same merged detections; row
+   (image b, exemplar 0)'s objectness must lie within 1e-2 x the max of phase 4's map
+   for image b, and every real row within 1e-2 x max of ``predict_multi_exemplar`` on
+   image b alone; ``_get_heads_fn(cap, 1024)(_get_backbone_fn()(images), exemplars)``
+   must equal ``pred(images, exemplars)`` bit for bit (backbone and heads timed apart);
+   ``decode_tail="device"`` must give the host tail's per-image lists; and one batch on
+   the int8 path must launch exactly int8_conv 1, int8_mm 1, xcorr_int8 1, global 4,
+   window 8 and nms 1, with its union keep mask equal to the plain version's. Its ms
+   per batch of 4 images x 3 exemplars is printed beside phase 4's;
 5. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -109,12 +126,14 @@ XCORR_REL_TOL = 2e-5
 #: 9, 17 and 33, the direct path every odd T up to 65
 XCORR_TS = (1, 3, 9, 17, 33, 65)
 #: other maps, (B, C, H, W, templates, feature rounded to bf16): the 768 and 512 inputs'
-#: 96^2 and 64^2 maps, a ragged map with 7 planes, and the main path's bf16 feature
-#: (``fp.float()`` of a bf16 map, exact in tf32)
+#: 96^2 and 64^2 maps, a ragged map with 7 planes, the main path's bf16 feature
+#: (``fp.float()`` of a bf16 map, exact in tf32), and the multi-exemplar path's 12 rows
+#: (4 images x 3 exemplars)
 XCORR_MAPS = ((4, 512, 96, 96, (9, 17, 33, 65), False),
               (4, 512, 64, 64, (9, 17, 33, 65), False),
               (1, 7, 100, 76, XCORR_TS, False),
-              (4, 512, 128, 128, (9, 33, 65), True))
+              (4, 512, 128, 128, (9, 33, 65), True),
+              (12, 512, 128, 128, (33,), True))
 OBJ_REL_TOL = 5e-2  # bf16 network vs f32 CPU network, relative to the map's max
 #: tmr_tpu/ops/quant.py OUTPUT_TIER_REL: the int8 tail vs the exact tail on the JAX
 #: package's own tier inputs (quant_int8dot_ok), and the stored-weight (dequant) path's
@@ -138,10 +157,26 @@ QUANT_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 0, "nms": 3,
 VIT_H_LAUNCHES = {"global_attn": 0, "window_attn": 0, "xcorr": 3, "nms": 3,
                   "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
                   "global_attn_d80": 12, "window_attn_d80": 84}
+#: the multi-exemplar path (phase 4d): real exemplar rows of the 4 images of a batch, in
+#: k bucket 3; its launches over the 3 batches (the encoder once per image, the heads,
+#: correlation and NMS once per batch); the int8 path's over one batch; the bound on each
+#: row's objectness against the same row run another way (phase 4's batch of 4, or
+#: ``predict_multi_exemplar`` alone), relative to that map's max: the heads run at 12
+#: rows against 4 or k, so cuDNN and cuBLAS may pick other algorithms under bf16 rounding
+MULTI_K_REAL = (3, 3, 2, 1)
+MULTI_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 3, "nms": 3,
+                  "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
+                  "global_attn_d80": 0, "window_attn_d80": 0}
+MULTI_INT8_LAUNCHES = {name: n // 3 for name, n in QUANT_LAUNCHES.items()}
+MULTI_ROW_TOL = 1e-2
+#: the NMS kernel at the multi-exemplar path's unions (images, slots): k 3 at batch 4,
+#: and one image at k bucket 8
+NMS_UNIONS = ((4, 6000), (1, 16000))
 #: the fused int8 3x3 layer's shapes (B, H, W, C_in, N): the int8 tail's (4 x 128^2,
-#: 1024 -> 2048 [objectness | bbox]) and a ragged one (W past no tile edge, N not a
-#: multiple of 8, C_in not of 128)
-INT8_CONV_SHAPES = ((4, 128, 128, 1024, 2048), (1, 37, 53, 48, 20))
+#: 1024 -> 2048 [objectness | bbox]), a ragged one (W past no tile edge, N not a
+#: multiple of 8, C_in not of 128), and the multi-exemplar path's 12 rows
+INT8_CONV_SHAPES = ((4, 128, 128, 1024, 2048), (1, 37, 53, 48, 20),
+                    (12, 128, 128, 1024, 2048))
 BUCKET_SIDES_PX = {9: 56, 17: 120, 33: 240}  # exemplar sides that land in each bucket
 SEED = 0  # weights, images and kernel inputs are all drawn from it
 
@@ -445,6 +480,8 @@ def check_xcorr_int8(torch, F, cuda_xcorr, _build, t: int, seed: int,
 #: other maps of the int8 correlation, (B, C, H, W, extreme values): ragged maps whose
 #: rows are not 16-byte aligned (staged bytewise), and a map of -128/-127/127 only
 XCORR_INT8_MAPS = ((1, 7, 100, 76, False), (1, 3, 37, 53, False), (2, 4, 64, 64, True))
+#: the int8 correlation at the multi-exemplar path's 12 rows (4 images x 3 exemplars)
+XCORR_INT8_MULTI = (12, 512, 128, 128)
 
 
 def int8_mm_inputs(torch, kind: str, seed: int):
@@ -464,9 +501,10 @@ def int8_mm_inputs(torch, kind: str, seed: int):
         x = i8(4, 130, 130, 1024)[:, 1:129, 2:130, :]
         sx = scales(4)[:, None, None].expand(4, 128, 128).contiguous()
         w, sw = i8(2048, 1024), scales(2048)
-    elif kind == "head":  # M = 4 * 128^2, K = 2048, N = 5
-        x = i8(4, 128, 128, 2048)
-        sx = scales(4)[:, None, None].expand(4, 128, 128).contiguous()
+    elif kind in ("head", "head12"):  # M = B * 128^2, K = 2048, N = 5
+        b = 4 if kind == "head" else 12  # 12: the multi path's rows
+        x = i8(b, 128, 128, 2048)
+        sx = scales(b)[:, None, None].expand(b, 128, 128).contiguous()
         w, sw = i8(5, 2048), scales(5)
     else:  # ragged M, N and a K that is not a multiple of 16
         x, sx, w, sw = i8(1000, 1000), scales(1000), i8(200, 1000), scales(200)
@@ -720,30 +758,66 @@ def check_nms_cases(torch, cuda_nms, thr: float, seed: int) -> None:
             fail(f"nms {name} keep masks differ from the plain version in {mism} slots")
 
 
-def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024):
-    """Dark noisy images with bright squares of ``side_px``; exemplar = the first."""
+def check_nms_unions(torch, cuda_nms, thr: float, seed: int) -> None:
+    """The NMS kernel vs its plain version on the card at :data:`NMS_UNIONS`, the
+    multi-exemplar path's slot counts: 0 mismatches; timed beside the plain version and
+    both bounds."""
+    for b, n in NMS_UNIONS:
+        boxes, scores, valid = nms_inputs(torch, seed, b, n)
+        _, sb, sv = (t.cuda() for t in nms_sorted(torch, boxes, scores, valid))
+        got = cuda_nms.greedy_keep_sorted(sb, sv, thr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = cuda_nms.greedy_keep_sorted_plain(sb, sv, thr)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        mism = int((got != want).sum().item())
+        ms = cuda_ms(lambda: cuda_nms.greedy_keep_sorted(sb, sv, thr))
+        (bms, bby), (dms, dby) = nms_bounds(b, n, want)
+        print(f"kernel nms union {b}x{n} IoU {thr}: keep mismatches {mism} (must be 0), "
+              f"kept {int(want.sum())} of {int(sv.sum())} valid, kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.1f} bound_ms {bms:.6f} ({bby}, the pairs this data "
+              f"needs) design_bound_ms {dms:.6f} ({dby}, every pair and the bitmask), "
+              f"workspace {b * n * cuda_nms.mask_words(n) * 8} bytes", flush=True)
+        if mism:
+            fail(f"nms union {b}x{n} keep masks differ from the plain version in {mism} "
+                 f"slots")
+
+
+def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024, k: int = 1):
+    """Dark noisy images with bright squares of ``side_px``; exemplars = the first k
+    squares (the draws do not depend on k)."""
     imgs = rng.normal(-1.0, 0.1, (b, size, size, 3)).astype(np.float32)
-    exemplars = np.zeros((b, 1, 4), np.float32)
+    exemplars = np.zeros((b, k, 4), np.float32)
     cells = (size - side_px) // 8
     for i in range(b):
         for j in range(6):
             y, x = (rng.integers(0, cells, 2) * 8).tolist()
             imgs[i, y:y + side_px, x:x + side_px] = 2.0
-            if j == 0:
-                exemplars[i, 0] = [x / size, y / size, (x + side_px) / size,
+            if j < k:
+                exemplars[i, j] = [x / size, y / size, (x + side_px) / size,
                                    (y + side_px) / size]
     return imgs, exemplars
 
 
-def profile_batch(torch, pred, imgs, ex, path: str) -> None:
-    """torch.profiler over one batch: device time by kernel name (the top 25 and the NMS
-    kernels) and the device's busy share of the batch's wall time."""
+def pad_exemplar_rows(ex, k_real):
+    """(B, k, 4) exemplars with rows past each image's k_real set to its last real row,
+    as ``predict_multi_exemplar`` pads them."""
+    out = ex.copy()
+    for i, k in enumerate(k_real):
+        out[i, k:] = ex[i, k - 1]
+    return out
+
+
+def profile_batch(torch, run, path: str, what: str = "one batch of 4, bucket 33") -> None:
+    """torch.profiler over one batch, ``run()``: device time by kernel name (the top 25 and
+    the NMS kernels) and the device's busy share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(imgs, ex)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -752,7 +826,7 @@ def profile_batch(torch, pred, imgs, ex, path: str) -> None:
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    print(f"profile {path} (one batch of 4, bucket 33): wall {wall_ms:.1f} ms, device kernel "
+    print(f"profile {path} ({what}): wall {wall_ms:.1f} ms, device kernel "
           f"time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the top 25, and the NMS kernels wherever they rank
@@ -853,6 +927,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
             entries["nms"] = dict(max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
                                   bound_ms=bms, bound_by=bby, library_ms=None)
     check_nms_cases(torch, cuda_nms, thr, SEED)
+    check_nms_unions(torch, cuda_nms, thr, SEED)
     for kb in (1, 2, 3):
         for k16 in (0, 1):
             info = ptxas_info(_build.LOGS.get("xcorr"), f"xcorr_int8_kernelILi{kb}ELb{k16}E")
@@ -895,7 +970,13 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                   f"{r['err']:.3e} kernel_ms {r['ms']:.4f}", flush=True)
             if r["mism"]:
                 fail(f"{what} differs from its plain version in {r['mism']} outputs")
-    for kind in ("tap", "head", "ragged"):
+    r = check_xcorr_int8(torch, F, cuda_xcorr, _build, 33, SEED, XCORR_INT8_MULTI,
+                         yardsticks=False)
+    shape = "x".join(map(str, XCORR_INT8_MULTI))
+    print(f"kernel xcorr_int8 {shape} (the multi path's rows) T=33: mismatches {r['mism']} (must be 0), kernel_ms {r['ms']:.4f}", flush=True)
+    if r["mism"]:
+        fail(f"xcorr_int8 at the multi path's rows differs in {r['mism']} outputs")
+    for kind in ("tap", "head", "head12", "ragged"):
         (m, n, k), mism, err, ms, plain_ms, lib_ms, bare_ms, (bms, bby) = check_int8_mm(
             torch, cuda_int8, kind, SEED)
         lib, bare = ("null" if v is None else f"{v:.4f}" for v in (lib_ms, bare_ms))
@@ -1017,25 +1098,26 @@ def run_probe(torch, probe, _build) -> dict:
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms)
 
 
-def check_main_path_nms(torch, pred, imgs, ex, cuda_nms, name: str = "main path") -> None:
-    """Batch 0 once more through the main path, its detections caught on their way into
-    ``batched_nms``: the keep mask the kernel gave must equal the plain version's on the
-    card on the same detections."""
+def check_main_path_nms(torch, run, cuda_nms, name: str = "main path batch 0") -> dict:
+    """A batch once more through a path, ``run()``, its detections caught on their way
+    into ``batched_nms``: the keep mask the kernel gave must equal the plain version's on
+    the card on the same detections. Returns the path's output."""
     from tmr_tpu_torch import inference
 
     with call_count(inference, "batched_nms") as calls:
-        out = pred(imgs, ex)
+        out = run()
     (dets, thr), _ = calls[0]
     order, sb, sv = nms_sorted(torch, dets["boxes"].float(), dets["scores"], dets["valid"])
     keep = torch.zeros_like(sv).scatter(
         1, order, cuda_nms.greedy_keep_sorted_plain(sb, sv, thr))
     want = dets["valid"] & keep
     mism = int((out["valid"] != want).sum().item())
-    print(f"{name} batch 0 NMS, {tuple(sv.shape)} slots at IoU {thr}: valid "
+    print(f"{name} NMS, {tuple(sv.shape)} slots at IoU {thr}: valid "
           f"{sv.sum(1).tolist()}, kept {want.sum(1).tolist()}, keep mismatches vs the "
           f"plain version {mism} (must be 0)", flush=True)
     if mism:
         fail(f"the {name}'s NMS differs from the plain version in {mism} slots")
+    return out
 
 
 def run_batches(torch, pred, batches, detections_to_numpy, _build):
@@ -1202,6 +1284,139 @@ def check_quant_path(torch, np, pred, batches, caps, obj, reg, card, modules) ->
     return launches, qpred
 
 
+def max_rel(torch, got, want) -> float:
+    """max |got - want| over want's max |.|, both moved to the CPU as f32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def lists_equal(np, a, b) -> bool:
+    """Per-image detection lists equal bit for bit."""
+    return len(a) == len(b) and all(
+        np.array_equal(x[name], y[name]) for x, y in zip(a, b)
+        for name in ("boxes", "scores", "refs"))
+
+
+def check_multi_path(torch, np, pred, qpred, multi_batches, caps, phase4_ms, card,
+                     modules) -> None:
+    """Phase 4d: ``predict_multi_batch`` on phase 4's weights over the same images with 3
+    exemplars each (k bucket 3, real rows :data:`MULTI_K_REAL`); its launches, union
+    keep masks, rows against phase 4 and ``predict_multi_exemplar``, the split programs,
+    the device tail, and one batch on phase 4b's int8 predictor."""
+    import dataclasses
+
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_nms = modules
+    k_real = np.array(MULTI_K_REAL, np.int32)
+    size = multi_batches[0][0].shape[1]
+    mcaps = [pred.pick_capacity(ex, size) for _, ex in multi_batches]
+    if mcaps != caps:
+        fail(f"multi path: exemplars picked buckets {mcaps}, expected {caps}")
+    pred.predict_multi_batch(*multi_batches[0], k_real)  # warm-up: cuDNN plans at 12 rows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times, outs = [], []
+    for imgs, ex in multi_batches:
+        t0 = time.perf_counter()
+        dets = pred.predict_multi_batch(imgs, ex, k_real)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(detections_to_numpy(dets))
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, per_img in enumerate(outs):
+        counts = [len(d["boxes"]) for d in per_img]
+        print(f"multi path batch {i} (bucket {caps[i]}, k_real {MULTI_K_REAL}): detections "
+              f"per image {counts}, {times[i]:.1f} ms [{card}]", flush=True)
+        for d in per_img:
+            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
+                fail("multi path: non-finite detections")
+    mean = sum(times) / len(times)
+    print(f"multi path: {mean:.1f} ms per batch of 4 images x 3 exemplars (mean of 3; "
+          f"steady, batches 1-2, {sum(times[1:]) / 2:.1f}) beside phase 4's "
+          f"{phase4_ms:.1f} ms per batch of 4 ({mean / phase4_ms:.2f}x); peak device memory {peak_gb:.2f} "
+          f"GB [{card}]", flush=True)
+    print(f"multi path launches over the 3 batches: {json.dumps(launches)}", flush=True)
+    if launches != MULTI_LAUNCHES:
+        fail(f"multi path launches {launches}, expected {MULTI_LAUNCHES}")
+
+    # union keep masks, row 0 against phase 4, every real row against
+    # predict_multi_exemplar on its image alone
+    worst0 = worst1 = 0.0
+    for i, (imgs, ex) in enumerate(multi_batches):
+        with call_count(Predictor, "_decode") as dec:
+            out = check_main_path_nms(
+                torch, lambda: pred.predict_multi_batch(imgs, ex, k_real), cuda_nms,
+                f"multi path batch {i}")
+        obj = dec[0][0][1]["objectness"]
+        obj = obj.reshape(4, 3, *obj.shape[1:])
+        ref = pred.forward(imgs, ex[:, :1])["objectness"]
+        row0 = [max_rel(torch, obj[b, 0], ref[b]) for b in range(4)]
+        alone, counts = [], []
+        for b in range(4):
+            with call_count(Predictor, "_decode") as dec1:
+                one = pred.predict_multi_exemplar(imgs[b:b + 1], ex[b], k_real=k_real[b])
+            one_obj = dec1[0][0][1]["objectness"]
+            alone.append(max(max_rel(torch, obj[b, j], one_obj[j])
+                             for j in range(k_real[b])))
+            counts.append((int(one["valid"].sum()), int(out["valid"][b].sum())))
+        worst0, worst1 = max(worst0, *row0), max(worst1, *alone)
+        print(f"multi path batch {i}: row (b, exemplar 0) objectness vs phase 4's map for "
+              f"image b, max_abs_diff / max: {' '.join(f'{v:.2e}' for v in row0)}; real "
+              f"rows vs predict_multi_exemplar on image b alone: "
+              f"{' '.join(f'{v:.2e}' for v in alone)} (tol {MULTI_ROW_TOL}); valid "
+              f"detections alone / in the batch: {counts}", flush=True)
+    if not worst0 <= MULTI_ROW_TOL or not worst1 <= MULTI_ROW_TOL:
+        fail(f"multi path rows disagree: vs phase 4 {worst0:.3e}, vs "
+             f"predict_multi_exemplar {worst1:.3e}, tol {MULTI_ROW_TOL}")
+
+    # the split programs on batch 0, phase 4's exemplars
+    imgs, ex = multi_batches[0]
+    ex1 = ex[:, :1].copy()
+    cap = pred.pick_capacity(ex1, size)
+    backbone, heads = pred._get_backbone_fn(), pred._get_heads_fn(cap, size)
+    feats = backbone(imgs)
+    split, fused = heads(feats, ex1), pred(imgs, ex1)
+    torch.cuda.synchronize()
+    diff = [name for name in ("boxes", "scores", "refs", "valid")
+            if not torch.equal(split[name], fused[name])]
+    img_dev = torch.as_tensor(imgs, device="cuda")
+    backbone_ms = cuda_ms(lambda: backbone(img_dev))
+    heads_ms = cuda_ms(lambda: heads(feats, ex1))
+    fused_ms = cuda_ms(lambda: pred(img_dev, ex1))
+    print(f"split programs, batch 0 (features {tuple(feats.shape)} {feats.dtype}): heads "
+          f"on the backbone's features vs the fused call, fields that differ bit for bit: "
+          f"{diff or 'none'} (must be none); backbone {backbone_ms:.2f} ms, heads (a "
+          f"feature-cache hit) {heads_ms:.2f} ms, fused {fused_ms:.2f} ms per batch of 4, "
+          f"images on the card [{card}]", flush=True)
+    if diff:
+        fail(f"the split programs differ from the fused call in {diff}")
+
+    # the device tail on the same model
+    dpred = Predictor(dataclasses.replace(pred.cfg, decode_tail="device"), device="cuda",
+                      model=pred.model)
+    for name, run in (("__call__", lambda p: p(imgs, ex1)),
+                      ("predict_multi_batch",
+                       lambda p: p.predict_multi_batch(imgs, ex, k_real))):
+        host, dev = run(pred), run(dpred)
+        same = lists_equal(np, detections_to_numpy(host), detections_to_numpy(dev))
+        print(f"device tail, {name} batch 0: count {dev['count'].tolist()}, per-image "
+              f"lists equal to the host tail's: {same}", flush=True)
+        if not same:
+            fail(f"the device tail's lists differ from the host tail's ({name})")
+
+    # one batch on the int8 path: 12 rows through the int8 kernels
+    _build.reset_launches()
+    check_main_path_nms(torch, lambda: qpred.predict_multi_batch(imgs, ex, k_real),
+                        cuda_nms, "int8 multi path batch 0")
+    qlaunches = dict(_build.LAUNCHES)
+    print(f"int8 multi path launches over one batch: {json.dumps(qlaunches)}", flush=True)
+    if qlaunches != MULTI_INT8_LAUNCHES:
+        fail(f"int8 multi path launches {qlaunches}, expected {MULTI_INT8_LAUNCHES}")
+
+
 @contextlib.contextmanager
 def plain_attention(cuda_attn):
     """While the block runs, the ViT's attention blocks call ``attention_plain`` on the
@@ -1254,7 +1469,7 @@ def check_vit_h_path(torch, np, batches, caps, card, modules):
         fail(f"bias_projections ran {len(proj_calls)} times on the ViT-H path, expected 0")
     if launches != VIT_H_LAUNCHES:
         fail(f"ViT-H path launches {launches}, expected {VIT_H_LAUNCHES}")
-    check_main_path_nms(torch, hpred, *batches[0], cuda_nms, "ViT-H path")
+    check_main_path_nms(torch, lambda: hpred(*batches[0]), cuda_nms, "ViT-H path batch 0")
 
     imgs, ex = batches[0]
     obj = hpred.forward(imgs, ex)["objectness"][0].float().cpu()
@@ -1337,7 +1552,11 @@ def main(argv=None) -> int:
     pred = Predictor(cfg, device="cuda")
     pred.init_params(SEED)
     rng = np.random.default_rng(SEED)
-    batches = [synthetic_batch(np, rng, BUCKET_SIDES_PX[b]) for b in (9, 17, 33)]
+    # 3 exemplars an image for phase 4d; phase 4 takes the first
+    multi_batches = [synthetic_batch(np, rng, BUCKET_SIDES_PX[b], k=3) for b in (9, 17, 33)]
+    batches = [(imgs, ex[:, :1].copy()) for imgs, ex in multi_batches]
+    multi_batches = [(imgs, pad_exemplar_rows(ex, MULTI_K_REAL))
+                     for imgs, ex in multi_batches]
     caps = [pred.pick_capacity(ex, 1024) for _, ex in batches]
     if caps != [9, 17, 33]:
         fail(f"exemplars picked buckets {caps}, expected [9, 17, 33]")
@@ -1361,7 +1580,7 @@ def main(argv=None) -> int:
                          "window_attn_d80") if launches[k]]
     if stray:
         fail(f"int8, probe or head dim 80 kernels launched on the ViT-B bf16 path: {stray}")
-    check_main_path_nms(torch, pred, *batches[0], cuda_nms)
+    check_main_path_nms(torch, lambda: pred(*batches[0]), cuda_nms)
 
     imgs, ex = batches[0]
     out = pred.forward(imgs, ex)
@@ -1385,9 +1604,15 @@ def main(argv=None) -> int:
     # 4b. the int8-storage path on the same weights
     qlaunches, qpred = check_quant_path(torch, np, pred, batches, caps, obj, reg, card,
                                         (_build, cuda_int8, fused_heads))
+    # 4d. the multi-exemplar path on the same weights
+    check_multi_path(torch, np, pred, qpred, multi_batches, caps,
+                     sum(times) / len(times), card, (_build, cuda_nms))
     if args.profile:
-        profile_batch(torch, pred, *batches[2], "main path")
-        profile_batch(torch, qpred, *batches[2], "int8 path")
+        profile_batch(torch, lambda: pred(*batches[2]), "main path")
+        profile_batch(torch, lambda: qpred(*batches[2]), "int8 path")
+        profile_batch(torch, lambda: pred.predict_multi_batch(
+            *multi_batches[2], np.array(MULTI_K_REAL, np.int32)), "multi path",
+            "one batch of 4 images x 3 exemplars, bucket 33")
     del pred, qpred
     torch.cuda.empty_cache()
 
@@ -1395,7 +1620,7 @@ def main(argv=None) -> int:
     hlaunches, hpred = check_vit_h_path(torch, np, batches, caps, card,
                                         (_build, cuda_attn, cuda_nms))
     if args.profile:
-        profile_batch(torch, hpred, *batches[2], "ViT-H path")
+        profile_batch(torch, lambda: hpred(*batches[2]), "ViT-H path")
     del hpred
 
     # 5. the kernels line

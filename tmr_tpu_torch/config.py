@@ -100,9 +100,17 @@ class Config:
     quant_storage: str = "off"
     quant_kernel: str = "dequant"
 
+    # the detections' tail, mirroring TMR_DECODE_TAIL: "host" leaves NMS's survivors in
+    # their slots for the host to filter by ``valid``; "device" compacts them to the
+    # leading slots with a ``count`` per image (ops/postprocess.compact_detections).
+    # The JAX package admits "device" through a self-check and falls back to "host";
+    # the port has no gate and no fallback: "device" always compacts.
+    decode_tail: str = "host"
+
     def __post_init__(self):
         for name, legal in (("quant", ("off", "int8")), ("quant_storage", ("off", "int8")),
-                            ("quant_kernel", ("dequant", "int8"))):
+                            ("quant_kernel", ("dequant", "int8")),
+                            ("decode_tail", ("host", "device"))):
             if getattr(self, name) not in legal:
                 raise ValueError(f"{name}={getattr(self, name)!r}: expected "
                                  + " | ".join(legal))

@@ -16,6 +16,7 @@ same two fields.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -118,11 +119,20 @@ class MatchingNet(nn.Module):
             [entry(*pn) for pn in group] for group in self._tail_convs())
         return dec_o, dec_b, head_o, head_b
 
-    def match(self, image: torch.Tensor, exemplars: torch.Tensor,
-              capacity: int) -> torch.Tensor:
+    def backbone_features(self, image: torch.Tensor) -> torch.Tensor:
+        """The encoder alone: image (B, S, S, 3) -> its pre-upsample output (B, h, w, C)
+        NHWC, the layout the JAX package's backbone program returns and a feature cache
+        keeps."""
+        return self.backbone(image).permute(0, 2, 3, 1).contiguous()
+
+    def match(self, image: Optional[torch.Tensor], exemplars: torch.Tensor,
+              capacity: int, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder, projection, matcher and fusion: ``f_cat`` (B, C, H, W), the tail's
-        input."""
-        f = self.backbone(image)
+        input. With ``features`` (B, h, w, C), the output of :meth:`backbone_features`,
+        the encoder is skipped and ``image`` is not read."""
+        f = self.backbone(image) if features is None else features.permute(0, 3, 1, 2)
+        # one layout either way, so the split programs run the fused one's ops bit for bit
+        f = f.contiguous()
         if self.feature_upsample:
             f = F.interpolate(f, scale_factor=2, mode="bilinear", align_corners=False)
         fp = self.input_proj_0(f)
@@ -148,11 +158,11 @@ class MatchingNet(nn.Module):
         out["objectness"] = o[:, 0].float()
         return out
 
-    def forward(self, image: torch.Tensor, exemplars: torch.Tensor,
-                capacity: int) -> dict:
+    def forward(self, image: Optional[torch.Tensor], exemplars: torch.Tensor,
+                capacity: int, features: Optional[torch.Tensor] = None) -> dict:
         """image (B, S, S, 3) NHWC; exemplars (B, K, 4) (the matcher uses exemplar 0);
-        ``capacity`` is the odd template bucket."""
-        return self.heads(self.match(image, exemplars, capacity))
+        ``capacity`` is the odd template bucket; ``features`` as in :meth:`match`."""
+        return self.heads(self.match(image, exemplars, capacity, features))
 
 
 def select_capacity_bucket(exemplar, feat_h: int, feat_w: int, buckets) -> int:

@@ -68,7 +68,8 @@ class Attention(nn.Module):
         heads = self.num_heads
         hd = dim // heads
         qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.reshape(b * heads, h * w, hd) for t in qkv)
+        # at b = 1 the reshape is a strided view, not a copy: the kernels take dense rows
+        q, k, v = (t.reshape(b * heads, h * w, hd).contiguous() for t in qkv)
         if self.windowed:
             o = window_attention(q, k, v, get_rel_pos(h, h, self.rel_pos_h),
                                  get_rel_pos(w, w, self.rel_pos_w), (h, w), hd ** -0.5)

@@ -104,7 +104,8 @@ def attention_plain(
 def _check(q, k, v, what: str) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous bf16, got {t.dtype}")
+            raise ValueError(f"{what}: {name} must be contiguous bf16, got {t.dtype}"
+                             + ("" if t.is_contiguous() else ", not contiguous"))
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
     if q.shape[-1] not in HEAD_DIMS:

@@ -40,7 +40,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    3) and 1 x 16000 (k bucket 8), each timed beside its bound (0 mismatches); the fused int8
    3x3 layer at the int8 tail's shape, a ragged one and the multi path's 12 rows, timed in
    turns with the per-tap composition it replaces, beside the bare ``torch._int_mm`` of the
-   im2col'd product and its ``-Xptxas -v``;
+   im2col'd product and its ``-Xptxas -v``; and the 1536 bucket's shapes: the global
+   kernel on 96^2 tokens at batch 4 (BH 48, the plain version in chunks), the windowed
+   kernel on 4 x 49 windows, the f32 correlation on 4 x 512 x 192^2 at T = 9, 17, 33 and
+   on the multi path's 3 x 512 x 192^2 at T = 9, each beside its bound and library call;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
@@ -84,7 +87,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the int8 path must launch exactly int8_conv 1, int8_mm 1, xcorr_int8 1, global 4,
    window 8 and nms 1, with its union keep mask equal to the plain version's. Its ms
    per batch of 4 images x 3 exemplars is printed beside phase 4's;
-5. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
+5. eval (run after 4d, on phase 4's weights, before 4c):
+   ``tmr_tpu_torch.train.loop.Trainer.test(params=...)`` over a synthetic FSCD-147-layout
+   test split of 12 images of 384 x 512 (annotation files written to a temporary
+   directory, the images kept in memory and handed over by the reader's decode step):
+   8 with objects of 30-46 px (the 1024 bucket) and 4 with objects of 12-16 px, which
+   the small-object rule sends to the 1536 bucket (96^2 tokens, 7 x 7 windows after
+   padding to 98, 192^2 matcher maps); at ``num_exemplars=1``, ``eval_batch_size=4``
+   and at ``num_exemplars=3`` (one image a batch), each twice (cold, then warm). Printed:
+   the loader's host ms per image in each bucket, the metrics, and per bucket the
+   images, the program's ms per batch and images/s beside phase 4's. Checks: every
+   batch launches exactly global 4, window 8, xcorr 1, nms 1 and nothing else; its
+   detections equal ``Predictor.__call__`` (or ``predict_multi_exemplar``) on the same
+   tensors bit for bit; its losses equal ``compute_losses`` on the same model outputs
+   and are finite; MAE and RMSE equal those of the detection counts; the 1536 batch
+   takes the template bucket phase 3 checks on 192^2 maps; and image 0 of the 1536
+   batch has its objectness within 5e-2 x max of an f32 CPU run;
+6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or ``tmr_tpu``. Exits non-zero without a result when there is
@@ -242,14 +261,16 @@ VIT_HEADS = {64: 12, 80: 16}
 
 
 def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: int,
-                    grid=(64, 64), bh=None, d: int = 64):
+                    grid=(64, 64), bh=None, d: int = 64, chunk=None):
     """One attention kernel vs its plain version at head dim ``d``, by default at the
     batch of the ViT with that head dim (4 images of 12 heads for ViT-B, 16 for ViT-H;
     windowed: 25 windows each). The global kernel takes compact (2g - 1, d) tables, the
     windowed kernel expanded (g, g, d) ones; the plain version and the yardstick use the
     expanded tables. Times, on the same inputs: the kernel (one launch, projections
     inside), ``bias_projections`` alone, the bf16 mask built from the projections, and
-    SDPA with that mask precomputed."""
+    SDPA with that mask precomputed. With ``chunk``, the plain version runs over that
+    many rows of BH at a time (its dense f32 scores of a 96^2 grid at BH 48 would take
+    16 GB), its time the sum of the chunks'."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     gh, gw = grid
     bh = bh or (4 * VIT_HEADS[d] * (25 if windowed else 1))
@@ -270,7 +291,15 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     fn = cuda_attn.window_attention if windowed else cuda_attn.global_attention
     rel = cuda_attn.bias_projections(q, rh, rw, (gh, gw)) if has_bias else (None, None)
     got = fn(q, k, v, *tab, (gh, gw), scale)
-    want = cuda_attn.attention_plain(q, k, v, *rel, (gh, gw), scale)
+    chunk = chunk or bh
+    parts = [slice(i, i + chunk) for i in range(0, bh, chunk)]
+
+    def plain(part):
+        return cuda_attn.attention_plain(q[part], k[part], v[part],
+                                         *(None if r is None else r[part] for r in rel),
+                                         (gh, gw), scale)
+
+    want = torch.cat([plain(part) for part in parts])
     torch.cuda.synchronize()
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
     limit = ATTN_REL_TOL * ref + ATTN_ABS_TOL * ref.max()
@@ -280,8 +309,9 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     acc["ok"] = (acc["worst_err_over_limit"] <= 1.0
                  and acc["mean_abs_err"] <= ATTN_MEAN_TOL * acc["mean_abs_want"])
     t = dict(ms=cuda_ms(lambda: fn(q, k, v, *tab, (gh, gw), scale)))
-    t["plain_ms"] = cuda_ms(lambda: cuda_attn.attention_plain(q, k, v, *rel, (gh, gw),
-                                                              scale), reps=3, warmup=1)
+    del want, diff, ref, limit
+    t["plain_ms"] = sum(cuda_ms(lambda: plain(part), reps=3 if len(parts) == 1 else 1,
+                                warmup=1 if len(parts) == 1 else 0) for part in parts)
     mask = None
     if has_bias:
         t["proj_ms"] = cuda_ms(lambda: cuda_attn.bias_projections(q, rh, rw, (gh, gw)))
@@ -400,6 +430,43 @@ def check_xcorr_maps(torch, F, cuda_xcorr) -> None:
           f"{tol:.3e}", flush=True)
     if lost or not err <= tol:
         fail("xcorr loses a non-finite output or disagrees beside one")
+
+
+#: the 1536 bucket (phase 5's test images with objects under 25 px): the global kernel
+#: on 96^2 tokens at batch 4 (BH 48; the plain version in chunks of BH 12), the windowed
+#: kernel on 4 x 49 windows (96 tokens padded to 98) of 12 heads, and the correlation on
+#: 192^2 maps, at 4 images and at the multi path's 3 rows of one image, for the bucket
+#: phase 5's 1536 images take (:data:`EVAL_1536_BUCKETS`) and, for the band maths at
+#: W = 192, the larger ones of the direct path
+ATTN_1536 = (("global_attn", False, (96, 96), 48, 12),
+             ("window_attn", True, (14, 14), 4 * 12 * 49, None))
+XCORR_1536 = (((4, 512, 192, 192), (9, 17, 33)), ((3, 512, 192, 192), (9,)))
+
+
+def check_1536(torch, F, cuda_attn, cuda_xcorr) -> None:
+    """Kernels 1, 4 and 5 at the 1536 bucket's shapes against their plain versions, each
+    beside its bound and the library call."""
+    for name, windowed, grid, bh, chunk in ATTN_1536:
+        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, True, SEED,
+                                             grid, bh, chunk=chunk)
+        what = (f"{name} 1536 bucket, {grid[0]}x{grid[1]} "
+                f"{'windows' if windowed else 'grid'}, BH={bh}")
+        print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
+              f"({bby})", flush=True)
+        if not acc["ok"]:
+            fail(f"{what} disagrees with its plain version: {acc}")
+        torch.cuda.empty_cache()
+    for shape, ts in XCORR_1536:
+        for t in ts:
+            r = check_xcorr(torch, F, cuda_xcorr, t, SEED, shape)
+            (bms, bby), (f32ms, f32by) = r["tensor_bound"], r["f32_bound"]
+            what = f"xcorr 1536 bucket {'x'.join(map(str, shape))} T={t}"
+            print(f"kernel {what}: max_err {r['err']:.3e} tol {r['tol']:.3e} kernel_ms "
+                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+                  f"{r['lib_ms']:.4f} (grouped F.conv2d) bound_ms {bms:.4f} ({bby}, "
+                  f"3xTF32 at the TF32 peak) f32_bound_ms {f32ms:.4f} ({f32by})", flush=True)
+            if not r["err"] <= r["tol"]:
+                fail(f"{what} disagrees with its plain version: {r['err']} > {r['tol']}")
 
 
 def int8_xcorr_inputs(torch, shape, t: int, seed: int, extreme: bool = False):
@@ -902,6 +969,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                     plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
                                     library_ms=r["lib_ms"])
     check_xcorr_maps(torch, F, cuda_xcorr)
+    check_1536(torch, F, cuda_attn, cuda_xcorr)
     print(f"ptxas nms_mask_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_mask_kernel')}",
           flush=True)
     print(f"ptxas nms_scan_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_scan_kernel')}",
@@ -1417,6 +1485,284 @@ def check_multi_path(torch, np, pred, qpred, multi_batches, caps, phase4_ms, car
         fail(f"int8 multi path launches {qlaunches}, expected {MULTI_INT8_LAUNCHES}")
 
 
+#: phase 5's synthetic FSCD-147-layout test split: images of FSC-147's 384-px height,
+#: EVAL_OBJECTS squares each, on a 64-px cell grid so none overlap; object sides of the
+#: images that stay at 1024 (>= 25 px; template bucket 17 or 9 on the 128^2 map) and of
+#: those the small-object rule sends to 1536 (< 25 px in both sides; bucket 9 on the
+#: 192^2 map), interleaved so the loader fills a batch of 4 in each bucket
+EVAL_HW = (384, 512)
+EVAL_OBJECTS = 8
+EVAL_SIDES = (30, 38, 12, 46, 34, 14, 42, 30, 16, 38, 46, 16)
+EVAL_1536_BUCKETS = (9,)  # checked in phase 3 on 192^2 maps (XCORR_1536)
+#: launches of one eval batch (4 images at eval_batch_size 4, or one image with its 3
+#: exemplars at num_exemplars 3): the encoder's 4 global and 8 windowed blocks, one
+#: correlation, one NMS
+EVAL_LAUNCHES = {"global_attn": 4, "window_attn": 8, "xcorr": 1, "nms": 1,
+                 "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
+                 "global_attn_d80": 0, "window_attn_d80": 0}
+
+
+def eval_split(np, root: str) -> dict:
+    """Write phase 5's annotation files (FSCD-147 layout: the exemplar json, the split
+    json and COCO instances for every split) under ``root``; returns the images, by
+    name, as (H, W, 3) uint8 arrays kept in memory."""
+    import os
+
+    rng = np.random.default_rng(SEED + 5)
+    h, w = EVAL_HW
+    cells = [(y, x) for y in range(0, h, 64) for x in range(0, w, 64)]
+    images, annos, instances = {}, {}, []
+    for i, side in enumerate(EVAL_SIDES):
+        name = f"eval{i:02d}.jpg"
+        arr = rng.uniform(0, 40, (h, w, 3)).astype(np.uint8)
+        boxes = []
+        for c in rng.choice(len(cells), EVAL_OBJECTS, replace=False):
+            y, x = (v + int(o) for v, o in zip(cells[c], rng.integers(0, 64 - side, 2)))
+            arr[y:y + side, x:x + side] = 220
+            boxes.append([x, y, side, side])
+        images[name] = arr
+        annos[name] = {"box_examples_coordinates": [
+            [[x, y], [x, y + bh], [x + bw, y + bh], [x + bw, y]]
+            for x, y, bw, bh in boxes[:3]]}
+        instances += [{"id": len(instances) + 1, "image_id": i, "bbox": b} for b in boxes]
+    os.makedirs(os.path.join(root, "annotations"))
+    names = sorted(images)
+
+    def dump(name, obj):
+        with open(os.path.join(root, "annotations", name), "w") as f:
+            json.dump(obj, f)
+
+    dump("annotation_FSC147_384.json", annos)
+    dump("Train_Test_Val_FSC_147.json", {"train": names, "val": names, "test": names})
+    for split in ("train", "val", "test"):
+        dump(f"instances_{split}.json", {
+            "images": [{"id": i, "file_name": n} for i, n in enumerate(names)],
+            "annotations": instances})
+    return images
+
+
+@contextlib.contextmanager
+def in_memory_images(images: dict):
+    """While the block runs, the port's registry builds its FSCD-147 reader as a
+    subclass whose decode step returns the image kept in memory (no image library on
+    the card's machine); the annotation JSON, ``_item``, the resize, the size bucket and
+    the loader are the port's own code."""
+    import os
+
+    from tmr_tpu_torch.data import datasets
+
+    base = datasets.FSCD147Dataset
+
+    class InMemoryFSCD147(base):
+        def decode(self, img_url):
+            return images[os.path.basename(img_url)]
+
+    datasets.FSCD147Dataset = InMemoryFSCD147
+    try:
+        yield
+    finally:
+        datasets.FSCD147Dataset = base
+
+
+def run_eval(torch, cfg, model, state_dict, _build, device):
+    """``Trainer.test(params=state_dict)`` with each eval batch recorded: the batch, its
+    losses and detections, its launches and its time (synchronized around the batch's
+    program). Returns (metrics, records, (wall seconds of the whole eval, of its end:
+    the COCO files merged and the metrics computed), the trainer)."""
+    from tmr_tpu_torch.train.loop import Trainer
+
+    records, finish_s = [], []
+
+    class RecordingTrainer(Trainer):
+        def _eval_batch(self, batch):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            losses, dets = super()._eval_batch(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+            records.append(dict(batch=batch, losses=losses, dets=dets, ms=ms,
+                                launches=launches))
+            return losses, dets
+
+        def _finish_eval(self, stage, sums, n):
+            t0 = time.perf_counter()
+            out = super()._finish_eval(stage, sums, n)
+            finish_s.append(time.perf_counter() - t0)
+            return out
+
+    tr = RecordingTrainer(cfg, device=device, model=model)
+    t0 = time.perf_counter()
+    metrics = tr.test(params=state_dict)
+    return metrics, records, (time.perf_counter() - t0, finish_s[0]), tr
+
+
+def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) -> None:
+    """Phase 5: ``Trainer.test(params=...)`` on phase 4's weights over a synthetic
+    FSCD-147-layout test split of 12 images, 8 at 1024 and 4 escalated to 1536, at
+    num_exemplars 1 (eval_batch_size 4) and 3 (forced to 1), each twice: the first run
+    pays the first calls at the eval's shapes (cold), the second is timed warm. With
+    ``profile``, a torch.profiler breakdown of the 1536 batch's program."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.data import datasets
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+    from tmr_tpu_torch.train.loop import Trainer
+    from tmr_tpu_torch.train.state import compute_losses
+
+    _build, = modules
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"))
+        base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), eval=True,
+                      num_workers=4)
+        state_dict = pred.model.state_dict()
+        with in_memory_images(images):
+            # the loader's host cost per image, decode excluded (the images are in memory)
+            ds = datasets.build_dataset(base, "test")
+            host = {}
+            for i in range(len(ds)):
+                t0 = time.perf_counter()
+                item = ds[i]
+                host.setdefault(item["image"].shape[0], []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            print("eval loader host ms per image (384x512 source, decode excluded: the "
+                  "images are in memory): " + ", ".join(
+                      f"-> {s}: {sum(v) / len(v):.1f} ms (mean of {len(v)})"
+                      for s, v in sorted(host.items())), flush=True)
+            if sorted(host) != [1024, 1536] or len(host[1536]) != 4:
+                fail(f"eval split: images per bucket {({k: len(v) for k, v in host.items()})}"
+                     ", expected 8 at 1024 and 4 at 1536")
+            for k, run in ((1, "cold"), (1, "warm"), (3, "cold"), (3, "warm")):
+                cfg = dataclasses.replace(base, logpath=os.path.join(tmp, f"log{k}{run}"),
+                                          num_exemplars=k, eval_batch_size=4)
+                torch.cuda.reset_peak_memory_stats()
+                metrics, records, wall, tr = run_eval(torch, cfg, pred.model,
+                                                      state_dict, _build, pred.device)
+                name = f"eval num_exemplars={k} ({run})"
+                print(f"{name}: peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]",
+                      flush=True)
+                check_eval_run(torch, np, pred, tr, name, metrics, records, wall,
+                               phase4_ms, card, compute_losses, detections_to_numpy)
+                if k == 1:  # the 1536 batch of 4, for the objectness check below
+                    big = next(r["batch"] for r in records
+                               if r["batch"]["image"].shape[1] == 1536)
+                    if profile and run == "warm":
+                        profile_batch(torch, lambda: Trainer._eval_batch(tr, big),
+                                      "eval 1536 bucket", "one batch of 4 with its losses, "
+                                      "bucket 9")
+                del records, tr
+    # the 1536 bucket's objectness against an f32 CPU run (phase 4's measure)
+    check_1536_objectness(torch, pred, Predictor, big["image"], big["exemplars"])
+
+
+def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms, card,
+                   compute_losses, detections_to_numpy) -> None:
+    """The checks of one eval run: launches per batch, detections equal to the port
+    Predictor's on the same tensors, losses equal to ``compute_losses`` on the same
+    model outputs and finite, MAE/RMSE equal to those of the detection counts."""
+    cfg = tr.cfg
+    k = cfg.num_exemplars
+    print(f"{name}: metrics {json.dumps(metrics)}", flush=True)
+    n_img = sum(r["batch"]["image"].shape[0] for r in records)
+    wall, finish = wall
+    prog = sum(r["ms"] for r in records) / 1e3
+    print(f"{name}: {n_img} images in {wall:.2f} s end to end, {n_img / wall:.2f} img/s: "
+          f"the programs {prog:.2f} s, the end (COCO files merged, AP and MAE/RMSE) "
+          f"{finish:.2f} s, the rest (loader waits, per-image JSONs) "
+          f"{wall - prog - finish:.2f} s [{card}]", flush=True)
+    by_size = {}
+    for r in records:
+        by_size.setdefault(r["batch"]["image"].shape[1], []).append(r)
+    for size, rs in sorted(by_size.items()):
+        imgs = sum(r["batch"]["image"].shape[0] for r in rs)
+        ms = [r["ms"] for r in rs]
+        print(f"{name} bucket {size}: {imgs} images in {len(rs)} batches of "
+              f"{rs[0]['batch']['image'].shape[0]}, program ms per batch "
+              f"{' '.join(f'{v:.1f}' for v in ms)} (losses and detections, synchronized), "
+              f"{imgs * 1e3 / sum(ms):.2f} img/s; phase 4's {phase4_ms:.1f} ms per batch "
+              f"of 4 at 1024 [{card}]", flush=True)
+    if sorted(by_size) != [1024, 1536]:
+        fail(f"{name}: buckets {sorted(by_size)}, expected [1024, 1536]")
+    counts = []
+    for i, r in enumerate(records):
+        batch, b = r["batch"], r["batch"]["image"].shape[0]
+        if r["launches"] != EVAL_LAUNCHES:
+            fail(f"{name} batch {i} ({b} x {batch['image'].shape[1]}^2): launches "
+                 f"{r['launches']}, expected {EVAL_LAUNCHES}")
+        extra = (batch["gt_boxes"], batch["gt_valid"])
+        thr = (cfg.positive_threshold, cfg.negative_threshold)
+        if k == 1:
+            cap = pred.pick_capacity(batch["exemplars"], batch["image"].shape[1])
+            if batch["image"].shape[1] == 1536 and cap not in EVAL_1536_BUCKETS:
+                fail(f"{name}: a 1536 batch took bucket {cap}, phase 3 checks "
+                     f"{EVAL_1536_BUCKETS}")
+            want = pred(batch["image"], batch["exemplars"])
+            out = pred.forward(batch["image"], batch["exemplars"])
+            loss = compute_losses(out, {"exemplars": batch["exemplars"],
+                                        "gt_boxes": extra[0], "gt_valid": extra[1]}, *thr)
+        else:
+            meta = batch["meta"][0]
+            ex = meta["orig_exemplars"] / np.array(meta["img_size"].tolist() * 2, np.float32)
+            want = pred.predict_multi_exemplar(batch["image"], ex)
+            cap = pred.pick_capacity(ex, batch["image"].shape[1])
+            if batch["image"].shape[1] == 1536 and cap not in EVAL_1536_BUCKETS:
+                fail(f"{name}: a 1536 image took bucket {cap}, phase 3 checks "
+                     f"{EVAL_1536_BUCKETS}")
+            _, out, rows = pred._multi(batch["image"], ex[None], [len(ex)], cap)
+            per_row = [compute_losses({n: v[j:j + 1] for n, v in out.items()},
+                                      {"exemplars": rows[j:j + 1, None],
+                                       "gt_boxes": extra[0], "gt_valid": extra[1]}, *thr)
+                       for j in range(len(ex))]
+            loss = {n: torch.stack([p[n] for p in per_row]).sum() for n in per_row[0]}
+        diff = [f for f in ("boxes", "scores", "refs", "valid")
+                if not torch.equal(r["dets"][f], want[f])]
+        bad_loss = [n for n in loss if not (torch.equal(loss[n], r["losses"][n])
+                                            and torch.isfinite(loss[n]))]
+        if diff or bad_loss:
+            fail(f"{name} batch {i}: detections differ from the Predictor's in {diff}, "
+                 f"losses differ from compute_losses (or are not finite) in {bad_loss}")
+        for meta, d in zip(batch["meta"], detections_to_numpy(r["dets"])):
+            counts.append((len(meta["orig_boxes"]), max(len(d["boxes"]), 1)))
+    err = np.array([g - p for g, p in counts], np.float64)
+    mae, rmse = float(np.abs(err).mean()), float(np.sqrt((err ** 2).mean()))
+    print(f"{name}: {len(records)} batches, launches each {json.dumps(EVAL_LAUNCHES)}, "
+          f"detections equal to the Predictor's bit for bit, losses equal to "
+          f"compute_losses; (GT, detections) per image {counts}; MAE {mae:.4f} RMSE "
+          f"{rmse:.4f} from the counts vs {metrics['test/MAE']:.4f} "
+          f"{metrics['test/RMSE']:.4f} from the COCO files", flush=True)
+    if abs(mae - metrics["test/MAE"]) > 1e-9 or abs(rmse - metrics["test/RMSE"]) > 1e-9:
+        fail(f"{name}: MAE/RMSE of the COCO files differ from the detection counts'")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"{name}: non-finite metrics {metrics}")
+
+
+def check_1536_objectness(torch, pred, Predictor, imgs, ex) -> None:
+    """Image 0 of a 1536 batch of 4: its objectness on the card against an f32 CPU run of
+    the same port and weights, within OBJ_REL_TOL of the map's max."""
+    from tmr_tpu_torch.config import preset
+
+    obj = pred.forward(imgs, ex)["objectness"][0].float().cpu()
+    ref = Predictor(preset("TMR_FSCD147", compute_dtype="float32"), device="cpu")
+    ref.model.load_state_dict({k: v.cpu() for k, v in pred.model.state_dict().items()})
+    t0 = time.perf_counter()
+    ref_obj = ref.forward(imgs[:1], ex[:1])["objectness"][0]
+    cpu_s = time.perf_counter() - t0
+    diff = (obj - ref_obj).abs().max().item()
+    scale = ref_obj.abs().max().item()
+    print(f"eval 1536 bucket objectness image 0 vs f32 CPU run: shape "
+          f"{tuple(obj.shape)}, max_abs_diff {diff:.4e}, map max {scale:.4e}, "
+          f"{diff / scale:.4f} of the max, tol {OBJ_REL_TOL} ({cpu_s:.1f} s on the CPU)",
+          flush=True)
+    if not (torch.isfinite(obj).all() and obj.shape == (192, 192)
+            and diff <= OBJ_REL_TOL * scale):
+        fail("the 1536 bucket's objectness map disagrees with the f32 CPU reference")
+
+
 @contextlib.contextmanager
 def plain_attention(cuda_attn):
     """While the block runs, the ViT's attention blocks call ``attention_plain`` on the
@@ -1613,7 +1959,13 @@ def main(argv=None) -> int:
         profile_batch(torch, lambda: pred.predict_multi_batch(
             *multi_batches[2], np.array(MULTI_K_REAL, np.int32)), "multi path",
             "one batch of 4 images x 3 exemplars, bucket 33")
-    del pred, qpred
+    del qpred
+    torch.cuda.empty_cache()
+
+    # 5. eval through Trainer.test on the same weights, both size buckets
+    check_eval_path(torch, np, pred, card, sum(times) / len(times), (_build,),
+                    args.profile)
+    del pred
     torch.cuda.empty_cache()
 
     # 4c. SAM ViT-H (head dim 80) on the same batches
@@ -1623,7 +1975,7 @@ def main(argv=None) -> int:
         profile_batch(torch, lambda: hpred(*batches[2]), "ViT-H path")
     del hpred
 
-    # 5. the kernels line
+    # 6. the kernels line
     meta = {
         "global_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
         "window_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),

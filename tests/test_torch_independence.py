@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no JAX, flax or tmr_tpu import anywhere in
-``tmr_tpu_torch/`` or ``chip_smoke.py``, every module imports on a machine without a
-GPU, and the entry points refuse to carry on on the CPU unless asked to."""
+"""The PyTorch port stands alone: no JAX, flax, tmr_tpu or cv2 import anywhere in
+``tmr_tpu_torch/`` or ``chip_smoke.py`` (PIL only inside the dataset readers' decode
+step), every module imports on a machine without a GPU, and the entry points refuse to
+carry on on the CPU unless asked to."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "tmr_tpu_torch"
-FORBIDDEN = ("jax", "flax", "tmr_tpu")
+FORBIDDEN = ("jax", "flax", "tmr_tpu", "cv2")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -57,6 +58,39 @@ def test_forbidden_rule_is_exact():
     assert not _forbidden("tmr_tpu_torch.ops")
     assert _forbidden("tmr_tpu") and _forbidden("tmr_tpu.ops.xcorr")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("cv2") and not _forbidden("cv2x")
+
+
+def test_scan_covers_the_eval_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in ("data/transforms.py", "data/datasets.py", "data/loader.py",
+                "data/coco_index.py", "data/synthetic.py", "utils/metrics.py",
+                "utils/coco_eval.py", "utils/convert.py", "utils/checkpoint.py",
+                "train/targets.py", "train/criterion.py", "train/state.py",
+                "train/loop.py", "main.py"):
+        assert f"tmr_tpu_torch/{mod}" in names, mod
+
+
+def _pil_imports(node, where="<module>"):
+    """The enclosing function's name (or ``<module>``) of each import of PIL under
+    ``node``."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield from _pil_imports(child, child.name)
+            continue
+        names = ([a.name for a in child.names] if isinstance(child, ast.Import)
+                 else [child.module or ""] if isinstance(child, ast.ImportFrom) else [])
+        if any(n.split(".")[0] == "PIL" for n in names):
+            yield where
+        yield from _pil_imports(child, where)
+
+
+def test_pil_is_imported_only_in_the_decode_step():
+    """PIL may be missing where the port runs: only ``_Base.decode`` imports it, inside
+    the function, so every module imports without it."""
+    where = [(str(p.relative_to(REPO)), fn) for p in _port_files()
+             for fn in _pil_imports(ast.parse(p.read_text(), filename=str(p)))]
+    assert where == [("tmr_tpu_torch/data/datasets.py", "decode")]
 
 
 def test_every_port_module_imports_without_jax():
@@ -69,7 +103,7 @@ def test_every_port_module_imports_without_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tmr_tpu',"
-        " 'triton')]\n"
+        " 'triton', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )

@@ -82,6 +82,8 @@ class Config:
     template_buckets: Tuple[int, ...] = (9, 17, 33, 65, 127, 191)
     # fixed detection capacity per image
     max_detections: int = 2000
+    # padding capacity for GT boxes per image (the eval loader's collate)
+    max_gt_boxes: int = 800
     # compute dtype for the encoder and heads ("bfloat16" or "float32")
     compute_dtype: str = "bfloat16"
 

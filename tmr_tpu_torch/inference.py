@@ -3,11 +3,13 @@
 The JAX ``Predictor``'s inference programs, run eagerly, with the template capacity
 bucket picked on the host from the exemplar geometry:
 
-- ``__call__``: the single-exemplar program (``_single_pipeline``): forward ->
-  ``decode_detections`` -> ``batched_nms``;
+- ``__call__``: the single-exemplar program (:meth:`Predictor._get_fn`, the JAX
+  ``_single_pipeline``): forward -> ``decode_detections`` -> ``batched_nms``; with a
+  ``loss_fn`` it also returns the losses of the same forward (the eval step);
 - :meth:`Predictor.predict_multi_exemplar` / :meth:`Predictor.predict_multi_batch`: the
   few-shot contract (reference ``trainer.py:75-121``): the encoder once per image, the
-  heads and the decode once per exemplar row, one NMS over each image's union of rows;
+  heads and the decode once per exemplar row, one NMS over each image's union of rows
+  (with a ``loss_fn``, the losses of the real rows summed);
 - :meth:`Predictor._get_backbone_fn` / :meth:`Predictor._get_heads_fn`: the split
   programs behind a feature cache (the encoder alone; the rest on its features).
 
@@ -166,31 +168,67 @@ class Predictor:
         """Model outputs (objectness (B, H, W), regressions (B, H, W, 4), f32)."""
         return self.model(*self._inputs(image, exemplars))
 
-    @torch.inference_mode()
     def __call__(self, image, exemplars) -> dict:
         """image (B, S, S, 3) f32 normalized, NHWC; exemplars (B, K, 4) normalized xyxy.
         Returns boxes (B, K', 4), scores, refs (B, K', 2), valid (B, K') on the device
         (and count (B,) under ``decode_tail="device"``)."""
         image, exemplars, cap = self._inputs(image, exemplars)
-        out = self.model(image, exemplars, cap)
-        return self._refine_nms(self._decode(out, exemplars[:, 0, :]))
+        return self._get_fn(cap)(image, exemplars)
 
-    def predict_multi_exemplar(self, image, exemplars, k_real=None) -> dict:
+    def _get_fn(self, capacity: int, loss_fn: Optional[Callable] = None) -> Callable:
+        """The single-exemplar program for one template-capacity bucket: (image,
+        exemplars) -> detections, forward -> decode -> NMS. With ``loss_fn(model_out,
+        exemplars, *extra) -> losses`` the program also returns the losses of the same
+        forward, as ``(losses, detections)``, and takes the extra loss inputs after the
+        exemplars (the eval step's ``gt_boxes``, ``gt_valid``): one forward per eval
+        image, as the reference's each_step (trainer.py:123-153)."""
+        capacity = int(capacity)
+
+        @torch.inference_mode()
+        def run(image, exemplars, *extra):
+            image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+            ex = torch.as_tensor(exemplars, dtype=torch.float32, device=self.device)
+            out = self.model(image, ex, capacity)
+            dets = self._refine_nms(self._decode(out, ex[:, 0, :]))
+            if loss_fn is None:
+                return dets
+            extra = [torch.as_tensor(e, device=self.device) for e in extra]
+            return loss_fn(out, ex, *extra), dets
+
+        return run
+
+    def predict_multi_exemplar(self, image, exemplars, loss_fn: Optional[Callable] = None,
+                               loss_args=(), k_real=None):
         """The reference's multi-exemplar eval (``trainer.py:75-121``): a decode per
         exemplar, one NMS over their union. image (1, S, S, 3); exemplars (K, 4), of
         which the first ``k_real`` (default K) are real: a caller may hand over rows
         padded already. The real rows pad up to their k bucket with the last real row,
         masked out after the decode; the capacity comes from the real rows. Returns
         fixed-slot detections with leading dim 1 and k_bucket x ``max_detections``
-        slots, exemplar-major."""
+        slots, exemplar-major. With ``loss_fn(out_k, exemplar_k (1, 1, 4), *loss_args)``
+        (``_get_fn``'s, on one exemplar row's B = 1 slice of the heads' output) it
+        returns ``(losses, detections)``, the losses summed over the real rows (the
+        reference sums per-exemplar losses, trainer.py:102-104,121)."""
         exemplars = _host(exemplars).reshape(-1, 4)
         k = int(k_real) if k_real is not None else len(exemplars)
         if not 1 <= k <= len(exemplars):
             raise ValueError(f"k_real={k} out of range for {len(exemplars)} exemplar rows")
         exemplars = exemplars[:k]
         pad = np.tile(exemplars[-1:], (k_bucket(k) - k, 1))  # masked after the decode
-        return self._multi(image, np.concatenate([exemplars, pad])[None], [k],
-                           self.pick_capacity(exemplars, int(image.shape[1])))
+        cap = self.pick_capacity(exemplars, int(image.shape[1]))
+        dets, out, rows = self._multi(image, np.concatenate([exemplars, pad])[None], [k],
+                                      cap)
+        if loss_fn is None:
+            return dets
+        with torch.inference_mode():
+            extra = [torch.as_tensor(e, device=self.device) for e in loss_args]
+            per_row = []
+            for j in range(k):
+                out_j = {name: None if v is None else v[j:j + 1] for name, v in out.items()}
+                per_row.append(loss_fn(out_j, rows[j:j + 1, None, :], *extra))
+            losses = {name: torch.stack([r[name] for r in per_row]).sum()
+                      for name in per_row[0]}
+        return losses, dets
 
     def predict_multi_batch(self, images, exemplars, k_real) -> dict:
         """The batched form of :meth:`predict_multi_exemplar`: images (B, S, S, 3),
@@ -199,14 +237,15 @@ class Predictor:
         padded rows and gets its own union NMS. (The JAX program's ``donate`` is an XLA
         buffer-donation flag with no eager counterpart, so there is none here.)"""
         return self._multi(images, exemplars, k_real,
-                           self.pick_capacity(_host(exemplars), int(images.shape[1])))
+                           self.pick_capacity(_host(exemplars), int(images.shape[1])))[0]
 
     @torch.inference_mode()
-    def _multi(self, images, exemplars, k_real, cap: int) -> dict:
+    def _multi(self, images, exemplars, k_real, cap: int):
         """Encoder once per image, its feature repeated image-major to the B x k_bucket
         exemplar rows, heads and decode over those rows, padded rows masked, then the
         rows of each image merged into one union for the tail (``_multi_batched_pipeline``
-        of the JAX package)."""
+        of the JAX package). Returns (detections, the heads' output over the rows, the
+        rows (B * k_bucket, 4) on the device)."""
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         ex = torch.as_tensor(exemplars, dtype=torch.float32, device=self.device)
         k_real = torch.as_tensor(k_real, device=self.device)
@@ -217,8 +256,9 @@ class Predictor:
         dets = self._decode(out, rows)
         row_ok = torch.arange(kb, device=self.device)[None, :] < k_real[:, None]
         dets["valid"] = dets["valid"] & row_ok.reshape(-1)[:, None]
-        return self._refine_nms({name: dets[name].reshape((b, -1) + dets[name].shape[2:])
+        dets = self._refine_nms({name: dets[name].reshape((b, -1) + dets[name].shape[2:])
                                  for name in ("boxes", "scores", "refs", "valid")})
+        return dets, out, rows
 
     def _get_backbone_fn(self) -> Callable:
         """The encoder-only program: image (B, S, S, 3) -> pre-upsample features

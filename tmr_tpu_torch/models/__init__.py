@@ -13,14 +13,13 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU: raise when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
-                "the plain CPU versions explicitly")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the GPU; a CUDA device raises when there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
+            "the plain CPU versions explicitly")
+    return device
 
 
 def build_backbone(cfg, device=None) -> SamViT:

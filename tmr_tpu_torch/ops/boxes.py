@@ -1,5 +1,6 @@
-"""Box decoding (counterpart of ``tmr_tpu/ops/boxes.py``: the parts the inference path
-uses; the NMS IoU lives with the NMS kernel in ``ops/cuda_nms.py``)."""
+"""Box codecs and the gIoU loss (counterpart of ``tmr_tpu/ops/boxes.py``: the parts the
+inference and eval paths use; the NMS IoU lives with the NMS kernel in
+``ops/cuda_nms.py``)."""
 
 from __future__ import annotations
 
@@ -34,3 +35,28 @@ def decode_regression(
     pred_xy = centers + regressions[..., :2] * xy_scale
     pred_wh = torch.exp(regressions[..., 2:]) * exy
     return torch.cat([pred_xy, pred_wh], dim=-1)
+
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [cx, cy, w, h] -> [x1, y1, x2, y2]."""
+    cxy, wh = boxes[..., :2], boxes[..., 2:]
+    return torch.cat([cxy - wh / 2.0, cxy + wh / 2.0], dim=-1)
+
+
+def generalized_box_iou_loss(pred: torch.Tensor, target: torch.Tensor,
+                             eps: float = 1e-13) -> torch.Tensor:
+    """Elementwise gIoU loss between aligned (..., 4) xyxy boxes, the semantics of
+    ``torchvision.ops.generalized_box_iou_loss`` that the reference's loss calls with
+    eps 1e-13 (criterions_TM.py:7-13): 1 - iou + (area_c - union) / (area_c + eps), iou
+    = inter / (union + eps)."""
+    x1, y1, x2, y2 = pred.unbind(-1)
+    x1g, y1g, x2g, y2g = target.unbind(-1)
+    xkis1, ykis1 = torch.maximum(x1, x1g), torch.maximum(y1, y1g)
+    xkis2, ykis2 = torch.minimum(x2, x2g), torch.minimum(y2, y2g)
+    intsct = torch.where((ykis2 > ykis1) & (xkis2 > xkis1),
+                         (xkis2 - xkis1) * (ykis2 - ykis1), torch.zeros_like(x1))
+    union = (x2 - x1) * (y2 - y1) + (x2g - x1g) * (y2g - y1g) - intsct
+    iou = intsct / (union + eps)
+    area_c = ((torch.maximum(x2, x2g) - torch.minimum(x1, x1g))
+              * (torch.maximum(y2, y2g) - torch.minimum(y1, y1g)))
+    return 1.0 - (iou - (area_c - union) / (area_c + eps))

@@ -103,6 +103,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and are finite; MAE and RMSE equal those of the detection counts; the 1536 batch
    takes the template bucket phase 3 checks on 192^2 maps; and image 0 of the 1536
    batch has its objectness within 5e-2 x max of an f32 CPU run;
+5b. training (run after 5, on phase 4's weights): first each attention Function's
+   backward (PyTorch, recomputing the scores in query bands) at main-path shapes, the
+   global one at BH 48 on 64x64 tokens with and without the bias and the windowed one at
+   BH 1200 on 14x14, both again at head dim 80 (BH 64 and 1600): dq, dk, dv and the
+   compact tables' gradients against ``torch.autograd.grad`` of ``attention_plain`` in
+   f32 on the card, each within 2^-7 (the tables' 1e-4) of its largest element, the
+   backward's ms printed
+   beside the kernel forward's and its bound (2.5x the forward's operations); then
+   ``Trainer.fit`` of ``preset("TMR_FSCD147")`` (SAM ViT-B at 1024, batch 4, bf16, frozen
+   backbone) from phase 4's weights on a synthetic FSCD-147-layout split of 8 train and
+   4 val images, 3 epochs in one run and 2 then a resumed 1 in another. Checks: every
+   train step launches exactly global 4 and window 8 and no correlation (its template
+   capacity is 191, the FFT route), NMS or int8 kernel; each validation batch phase 5's
+   launches; the loss is finite and no step skipped; the backbone is phase 4's bit for
+   bit while the head moves; the resumed run's head within 1e-2 of what the run moved it
+   from the uninterrupted run's; the gradient's global norm within 2e-2 of the same step
+   through ``attention_plain`` on the card (a yardstick of this script, never a path of
+   the port); 8 steps on one batch lower its loss; a non-finite gradient is discarded;
+   ``xcorr`` on a tensor that requires grad raises. Printed: ms per step warm, images/s,
+   peak device memory, and a ``{"train": ..., "backward": [...]}`` JSON line;
 6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1502,17 +1522,19 @@ EVAL_LAUNCHES = {"global_attn": 4, "window_attn": 8, "xcorr": 1, "nms": 1,
                  "global_attn_d80": 0, "window_attn_d80": 0}
 
 
-def eval_split(np, root: str) -> dict:
+def eval_split(np, root: str, sides=EVAL_SIDES, n_train: int = 0) -> dict:
     """Write phase 5's annotation files (FSCD-147 layout: the exemplar json, the split
-    json and COCO instances for every split) under ``root``; returns the images, by
-    name, as (H, W, 3) uint8 arrays kept in memory."""
+    json and COCO instances for every split) under ``root``, an image for each object
+    side in ``sides``; returns the images, by name, as (H, W, 3) uint8 arrays kept in
+    memory. Every split holds every image, or with ``n_train`` the first ``n_train``
+    images are the train split and the rest the val and test splits (phase 5b)."""
     import os
 
     rng = np.random.default_rng(SEED + 5)
     h, w = EVAL_HW
     cells = [(y, x) for y in range(0, h, 64) for x in range(0, w, 64)]
     images, annos, instances = {}, {}, []
-    for i, side in enumerate(EVAL_SIDES):
+    for i, side in enumerate(sides):
         name = f"eval{i:02d}.jpg"
         arr = rng.uniform(0, 40, (h, w, 3)).astype(np.uint8)
         boxes = []
@@ -1533,7 +1555,9 @@ def eval_split(np, root: str) -> dict:
             json.dump(obj, f)
 
     dump("annotation_FSC147_384.json", annos)
-    dump("Train_Test_Val_FSC_147.json", {"train": names, "val": names, "test": names})
+    held_out = names[n_train:] if n_train else names
+    dump("Train_Test_Val_FSC_147.json", {"train": names[:n_train] if n_train else names,
+                                         "val": held_out, "test": held_out})
     for split in ("train", "val", "test"):
         dump(f"instances_{split}.json", {
             "images": [{"id": i, "file_name": n} for i, n in enumerate(names)],
@@ -1739,6 +1763,368 @@ def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms,
         fail(f"{name}: MAE/RMSE of the COCO files differ from the detection counts'")
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"{name}: non-finite metrics {metrics}")
+
+
+#: phase 5b's attention backward against ``torch.autograd.grad`` of ``attention_plain``
+#: in f32 on the same card, per element of each gradient relative to that gradient's
+#: largest element: dq, dk and dv within one bf16 ulp (the port rounds them to bf16, up
+#: to 2^-8 of an element, and its dv takes the forward's bf16-rounded p, where the f32
+#: reference rounds nothing); the tables' gradients, f32 on both sides, within 1e-4 (f32
+#: sums over BH x S in another order)
+BWD_TOL = 2.0 ** -7
+BWD_TABLE_TOL = 1e-4
+#: the backward checks at main-path shapes: (windowed, bias, head dim, grid, BH): the 4
+#: global blocks and the 8 windowed blocks of a batch of 4 at 1024 (ViT-B 12 heads of 64,
+#: ViT-H 16 of 80; 25 windows of 14x14 an image), the global kernel also without its bias
+BWD_CASES = ((False, True, 64, (64, 64), 48), (False, False, 64, (64, 64), 48),
+             (True, True, 64, (14, 14), 1200), (False, True, 80, (64, 64), 64),
+             (False, False, 80, (64, 64), 64), (True, True, 80, (14, 14), 1600))
+#: phase 5b's synthetic train split: 8 train images, then 4 val images, objects of 30-46
+#: px on FSC-147's 384 x 512 (all at 1024: training takes no small-object bucket)
+TRAIN_SIDES = (30, 38, 46, 34, 42, 30, 38, 46, 32, 40, 44, 36)
+TRAIN_IMAGES = 8
+#: launches of one train step of 4 images: the encoder's 4 global and 8 windowed blocks
+#: forward (the backward is PyTorch), and no correlation (the train forward's template
+#: capacity is 191, the FFT route), NMS or int8 kernel
+TRAIN_STEP_LAUNCHES = {"global_attn": 4, "window_attn": 8, "xcorr": 0, "nms": 0,
+                       "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
+                       "global_attn_d80": 0, "window_attn_d80": 0}
+#: the gradient's global norm through the kernels against the same step with the
+#: attention through ``attention_plain`` on the card, relative: both are bf16 networks
+#: (12 blocks of bf16 activations; the two attentions round p at other points)
+GRAD_NORM_TOL = 2e-2
+#: a resumed run (2 epochs, then 1) against 3 uninterrupted epochs: ||p_R - p_U|| over
+#: the head's parameters relative to ||p_U - p_0||, what the run moved them. The card's
+#: atomics (the gathers' and the interpolations' backward, cuDNN's weight gradients) sum
+#: in a varying order, and Adam's first updates are +-lr for any gradient above eps, so
+#: a gradient near 0 can flip an element's step; the bulk must agree
+RESUME_TOL = 1e-2
+
+
+def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d: int,
+                             grid, bh: int, seed: int) -> dict:
+    """One attention Function's backward (``attention_backward``, PyTorch on the card)
+    at a main-path shape against ``torch.autograd.grad`` of ``attention_plain`` in f32 on
+    the same inputs: dq, dk, dv and the gradients of the compact (2g - 1, d) tables
+    (through ``get_rel_pos``, as the ViT passes them), each within BWD_TOL of its
+    largest element. Times the kernel forward, the backward and the f32 reference's
+    backward; the bound is the backward's operations, 2.5x the forward's (the scores
+    recomputed, dp, dv, dq and dk: five products of the forward's two), at the bf16
+    peak, and the same at the f32 peak of the f32 products it performs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gh, gw = grid
+    s = gh * gw
+    scale = d ** -0.5
+    q, k, v, g = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+                  for _ in range(4))
+    tabs = [torch.randn(2 * n - 1, d, generator=gen, device="cuda") * 0.1
+            for n in grid] if has_bias else []
+    leaves = [t.requires_grad_() for t in (q, k, v, *tabs)]
+    f32 = [t.detach().float().requires_grad_() for t in leaves]
+
+    def run(qkv, tables, plain=False):
+        rel = [cuda_attn.get_rel_pos(n, n, t) for n, t in zip(grid, tables)]
+        if plain:
+            proj = cuda_attn.bias_projections(qkv[0], *rel, grid) if rel else (None, None)
+            return cuda_attn.attention_plain(*qkv, *proj, grid, scale)
+        if windowed:
+            return cuda_attn.window_attention(*qkv, *rel, grid, scale)
+        return cuda_attn.global_attention(*qkv, *(tables or (None, None)), grid, scale)
+
+    out = run(leaves[:3], leaves[3:])
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    want_out = run(f32[:3], f32[3:], plain=True)
+    want = torch.autograd.grad(want_out, f32, g.float(), retain_graph=True)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "d_rel_pos_h", "d_rel_pos_w")
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        errs[name] = ((a.float() - b).abs().max() / b.abs().max()).item()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: run(leaves[:3], leaves[3:]), reps=5, warmup=1)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                     reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(want_out, f32, g.float(),
+                                                   retain_graph=True), reps=3, warmup=1)
+    del out, want_out, got, want
+    torch.cuda.empty_cache()
+    flops = 2.5 * 4.0 * bh * s * s * d
+    nbytes = 7 * bh * s * d * 2 + sum(t.numel() for t in tabs) * 4 * 2
+    ok = all(e <= (BWD_TOL if n in names[:3] else BWD_TABLE_TOL) for n, e in errs.items())
+    return dict(errs=errs, ok=ok, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, plain_bwd_ms=plain_ms,
+                bound=bound(flops, nbytes, PEAK_BF16_FLOPS),
+                bound_f32=bound(flops, nbytes, PEAK_F32_FLOPS))
+
+
+def check_backward_kernels(torch, cuda_attn, card) -> list:
+    """Phase 5b, first part: every BWD_CASES backward; returns their records."""
+    records = []
+    for i, (windowed, has_bias, d, grid, bh) in enumerate(BWD_CASES):
+        r = check_attention_backward(torch, cuda_attn, windowed, has_bias, d, grid, bh,
+                                     SEED + 50 + i)
+        name = (f"{'window' if windowed else 'global'}_attn"
+                f"{'' if has_bias else '_nobias'}{'' if d == 64 else f'_d{d}'}")
+        (b_ms, by), (f32_ms, _) = r["bound"], r["bound_f32"]
+        print(f"backward {name} BH {bh}, {grid[0]}x{grid[1]}, D {d}: backward "
+              f"{r['bwd_ms']:.4f} ms beside the kernel forward {r['fwd_ms']:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({by}, bf16 peak; {f32_ms:.4f} ms at the f32 peak of its f32 "
+              f"products); f32 autograd of attention_plain {r['plain_bwd_ms']:.4f} ms; "
+              "error / max: " + ", ".join(f"{k} {v:.3e}" for k, v in r["errs"].items())
+              + f" (tol {BWD_TOL:.3e}; tables {BWD_TABLE_TOL:.0e}) [{card}]", flush=True)
+        if not r["ok"]:
+            fail(f"the {name} backward disagrees with the f32 autograd of attention_plain")
+        records.append(dict(name=name, route="pytorch", source="tmr_tpu_torch/ops/cuda_attn.py",
+                            bh=bh, grid=list(grid), d=d, bwd_ms=r["bwd_ms"],
+                            fwd_ms=r["fwd_ms"], plain_bwd_ms=r["plain_bwd_ms"],
+                            bound_ms=b_ms, bound_by=by, bound_f32_ms=f32_ms,
+                            max_rel_err=max(r["errs"].values())))
+    return records
+
+
+def head_diff(torch, a: dict, b: dict, names) -> float:
+    """||a - b|| over ``names``."""
+    return math.sqrt(sum((a[n].float() - b[n].float()).pow(2).sum().item() for n in names))
+
+
+def grad_norm(torch, model, batch, cfg, capacity: int) -> float:
+    """The global norm of the loss's gradient over every parameter, frozen included."""
+    from tmr_tpu_torch.train.state import compute_losses
+
+    model.zero_grad(set_to_none=True)
+    dev = next(model.parameters()).device
+    ex = torch.as_tensor(batch["exemplars"], device=dev)
+    out = model(torch.as_tensor(batch["image"], device=dev), ex, capacity)
+    loss = compute_losses(out, {"exemplars": ex, "gt_boxes": batch["gt_boxes"],
+                                "gt_valid": batch["gt_valid"]},
+                          cfg.positive_threshold, cfg.negative_threshold)["loss"]
+    loss.backward()
+    norm = math.sqrt(sum(p.grad.float().pow(2).sum().item() for p in model.parameters()
+                         if p.grad is not None))
+    model.zero_grad(set_to_none=True)
+    return norm
+
+
+def step_parts(torch, ts, model, cfg, batch, capacity: int, reps: int = 3) -> dict:
+    """One train step cut in three, each synchronized: the forward with the losses, the
+    backward, the optimizer (``apply_gradients``: the finite check, the clip, AdamW);
+    mean ms over ``reps`` steps on ``batch``."""
+    from tmr_tpu_torch.train.state import compute_losses
+
+    dev = next(model.parameters()).device
+    img = torch.as_tensor(batch["image"], device=dev)
+    ex = torch.as_tensor(batch["exemplars"], device=dev)
+    t = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(reps):
+        for p in ts.params.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(img, ex, capacity)
+        loss = compute_losses(out, {"exemplars": ex, "gt_boxes": batch["gt_boxes"],
+                                    "gt_valid": batch["gt_valid"]},
+                              cfg.positive_threshold, cfg.negative_threshold)["loss"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ts.apply_gradients({n: torch.zeros_like(p) if p.grad is None else p.grad
+                            for n, p in ts.params.items()}, loss)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2)):
+            t[key] += dt * 1e3 / reps
+    for p in ts.params.values():
+        p.grad = None
+    return t
+
+
+def check_train_path(torch, np, pred, card, modules, backward=(), profile=False) -> dict:
+    """Phase 5b, second part: ``Trainer.fit`` of ``preset("TMR_FSCD147")`` (SAM ViT-B at
+    1024, batch 4, bf16, frozen backbone) from phase 4's weights on a synthetic
+    FSCD-147-layout train split of 8 images (2 steps an epoch) with 4 val images: 3
+    epochs in one run, and 2 epochs then a resumed run to 3. Every step must launch
+    exactly TRAIN_STEP_LAUNCHES and every validation batch EVAL_LAUNCHES; the backbone
+    must stay bit for bit phase 4's while the head moves; the resumed run must reach the
+    uninterrupted one's parameters within RESUME_TOL; the gradient's norm must agree
+    with the same step through ``attention_plain``; 8 steps on one batch must lower its
+    loss; ``xcorr`` on a tensor that requires grad must raise, and a non-finite gradient
+    must be discarded. Returns the numbers PERF.md keeps."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.train import loop
+    from tmr_tpu_torch.train.state import TrainState
+
+    _build, cuda_attn, cuda_xcorr = modules
+    p4 = {k: v.detach().clone() for k, v in pred.model.state_dict().items()}
+    steps, evals = [], []
+    make_step = loop.make_train_step
+
+    def recording_make_step(model, cfg):
+        step = make_step(model, cfg)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            losses = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches={k: v - before[k] for k, v in _build.LAUNCHES.items()},
+                              loss=float(losses["loss"]),
+                              skipped=float(losses["skipped_nonfinite"])))
+            return losses
+
+        return run
+
+    class RecordingTrainer(loop.Trainer):
+        def _eval_batch(self, batch):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            out = super()._eval_batch(batch)
+            torch.cuda.synchronize()
+            evals.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+            return out
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"), TRAIN_SIDES, TRAIN_IMAGES)
+        base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), num_workers=4,
+                      seed=SEED, eval_batch_size=4, nowandb=True)
+
+        def fit(tag, epochs, resume=False):
+            cfg = dataclasses.replace(base, logpath=os.path.join(tmp, tag),
+                                      max_epochs=epochs, resume=resume)
+            tr = RecordingTrainer(cfg, device="cuda")
+            n0 = len(steps)
+            t0 = time.perf_counter()
+            tr.fit(params=p4)
+            return tr, steps[n0:], time.perf_counter() - t0
+
+        loop.make_train_step = recording_make_step
+        try:
+            with in_memory_images(images):
+                torch.cuda.reset_peak_memory_stats()
+                _build.reset_launches()
+                whole, w_steps, w_s = fit("whole", 3)
+                launches = dict(_build.LAUNCHES)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                part, p_steps, _ = fit("part", 2)
+                del part
+                resumed, r_steps, _ = fit("part", 3, resume=True)
+                it = iter(whole._loaders()[0])
+                batch = next(it)
+                it.close()
+        finally:
+            loop.make_train_step = make_step
+    all_steps = w_steps + p_steps + r_steps
+    print(f"train path launches over the uninterrupted run ({len(w_steps)} steps, one "
+          f"validation batch): {json.dumps(launches)}", flush=True)
+    bad = [i for i, r in enumerate(all_steps) if r["launches"] != TRAIN_STEP_LAUNCHES]
+    if bad or len(all_steps) != 12:
+        fail(f"train steps {bad} of {len(all_steps)} launched other than "
+             f"{TRAIN_STEP_LAUNCHES}: {[all_steps[i]['launches'] for i in bad]}")
+    if len(evals) != 2 or any(e != EVAL_LAUNCHES for e in evals):
+        fail(f"validation batches launched {evals}, expected 2 x {EVAL_LAUNCHES}")
+    losses = [r["loss"] for r in all_steps]
+    if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in all_steps):
+        fail(f"train losses {losses}, skipped {[r['skipped'] for r in all_steps]}")
+    warm = [r["ms"] for r in w_steps[1:]]
+    ms = sum(warm) / len(warm)
+    out.update(step_ms=ms, first_step_ms=w_steps[0]["ms"], images_per_s=4e3 / ms,
+               peak_gb=peak_gb, fit_s=w_s, losses=losses)
+    print(f"train path: ms per step of 4 images at 1024 (warm, the uninterrupted run's "
+          f"steps 1-5): {ms:.1f} (steps {', '.join(f'{x:.1f}' for x in warm)}; first "
+          f"{w_steps[0]['ms']:.1f}) = {4e3 / ms:.2f} images/s; peak device memory "
+          f"{peak_gb:.2f} GB; 3 epochs with validation at epoch 0 {w_s:.1f} s; losses "
+          f"{', '.join(f'{x:.3f}' for x in losses[:6])} [{card}]", flush=True)
+
+    # the frozen backbone bit for bit, the head moved
+    got = {k: v.detach() for k, v in whole.model.state_dict().items()}
+    head = [n for n, lab in whole.state.labels.items() if lab == "head"]
+    frozen = [n for n, lab in whole.state.labels.items() if lab == "frozen"]
+    moved_bb = [n for n in frozen if not torch.equal(got[n], p4[n])]
+    moved = [n for n in head if not torch.equal(got[n], p4[n])]
+    print(f"train path: {len(frozen)} backbone tensors, {len(moved_bb)} moved; {len(head)} "
+          f"head tensors, {len(moved)} moved; {whole.state.count} updates", flush=True)
+    if moved_bb or len(moved) < len(head) // 2 or not frozen:
+        fail(f"frozen backbone moved ({moved_bb[:3]}) or head did not ({len(moved)})")
+
+    # resume against the uninterrupted run
+    res = {k: v.detach() for k, v in resumed.model.state_dict().items()}
+    span = head_diff(torch, got, p4, head)
+    diff = head_diff(torch, res, got, head)
+    worst = max((res[n].float() - got[n].float()).abs().max().item() for n in head)
+    lr = whole.cfg.lr
+    print(f"train path resume: ||resumed - whole|| over the head {diff:.4e} = "
+          f"{diff / span:.4e} of ||whole - phase 4|| ({span:.4e}), tol {RESUME_TOL}; largest "
+          f"element {worst:.3e} ({worst / lr:.3f} lr)", flush=True)
+    if diff > RESUME_TOL * span or any(not torch.equal(res[n], p4[n]) for n in frozen):
+        fail("the resumed run does not reach the uninterrupted run's parameters")
+    out.update(resume_rel=diff / span)
+    del resumed
+
+    # the gradient through the kernels against attention_plain on the card
+    model = whole.model
+    model.load_state_dict(p4)
+    cap = max(whole.cfg.template_buckets)
+    norm = grad_norm(torch, model, batch, whole.cfg, cap)
+    with plain_attention(cuda_attn):
+        plain_norm = grad_norm(torch, model, batch, whole.cfg, cap)
+    torch.cuda.empty_cache()
+    print(f"train path gradient global norm (phase 4's weights, one batch of 4): kernels "
+          f"{norm:.6e}, attention_plain on the card {plain_norm:.6e}, relative "
+          f"{abs(norm - plain_norm) / plain_norm:.3e} (tol {GRAD_NORM_TOL})", flush=True)
+    if not (math.isfinite(norm) and abs(norm - plain_norm) <= GRAD_NORM_TOL * plain_norm):
+        fail("the train step's gradient norm disagrees with attention_plain's")
+    out.update(grad_norm=norm, plain_grad_norm=plain_norm)
+
+    # 8 steps on one batch lower its loss; a non-finite gradient moves nothing
+    ts = TrainState(model, whole.cfg, steps_per_epoch=100)
+    step = make_step(model, whole.cfg)
+    fixed = [float(step(ts, batch)["loss"]) for _ in range(8)]
+    print(f"train path, 8 steps on one batch: losses {', '.join(f'{x:.4f}' for x in fixed)}",
+          flush=True)
+    if not (all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0]):
+        fail("8 steps on one batch did not lower its loss")
+    before = {n: p.detach().clone() for n, p in ts.params.items() if ts.labels[n] == "head"}
+    nan = {n: torch.full_like(p, float("nan")) if i == 0 else torch.zeros_like(p)
+           for i, (n, p) in enumerate(ts.params.items())}
+    if ts.apply_gradients(nan) or ts.count != 8 or any(
+            not torch.equal(ts.params[n], p) for n, p in before.items()):
+        fail("a non-finite gradient was not discarded")
+
+    # where a step's time goes: forward, backward (the attention's share from the
+    # backward checks at the same shapes), optimizer
+    parts = step_parts(torch, ts, model, whole.cfg, batch, cap)
+    per_call = {r["name"]: r["bwd_ms"] for r in backward}
+    attn_bwd = 4 * per_call.get("global_attn", 0.0) + 8 * per_call.get("window_attn", 0.0)
+    total = sum(parts.values())
+    print(f"train path step parts (one batch of 4, synchronized, mean of 3): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in parts.items())
+          + f"; backward share {parts['backward'] / total:.3f}; the attention backward "
+          f"(4 global + 8 windowed calls at phase 5b's per-call times) {attn_bwd:.1f} ms = "
+          f"{attn_bwd / parts['backward']:.3f} of the backward [{card}]", flush=True)
+    out.update(parts_ms=parts, attn_bwd_ms=attn_bwd)
+    if profile:
+        profile_batch(torch, lambda: step(ts, batch), "train path",
+                      "one train step of 4 images at 1024, bucket 191 (FFT)")
+
+    # a kernel without a backward refuses an input that requires grad
+    f = torch.randn(1, 2, 16, 16, device="cuda", requires_grad=True)
+    try:
+        cuda_xcorr.xcorr(f, torch.randn(1, 2, 3, 3, device="cuda"))
+    except RuntimeError as e:
+        print(f"train path: xcorr on a tensor that requires grad raises: {e}", flush=True)
+    else:
+        fail("xcorr took a tensor that requires grad and cut the graph")
+    del whole, model, ts
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_1536_objectness(torch, pred, Predictor, imgs, ex) -> None:
@@ -1965,6 +2351,12 @@ def main(argv=None) -> int:
     # 5. eval through Trainer.test on the same weights, both size buckets
     check_eval_path(torch, np, pred, card, sum(times) / len(times), (_build,),
                     args.profile)
+    # 5b. training: the attention backward at main-path shapes, then Trainer.fit from the
+    # same weights
+    backward = check_backward_kernels(torch, cuda_attn, card)
+    train = check_train_path(torch, np, pred, card, (_build, cuda_attn, cuda_xcorr),
+                             backward, args.profile)
+    print(json.dumps({"train": train, "backward": backward}), flush=True)
     del pred
     torch.cuda.empty_cache()
 

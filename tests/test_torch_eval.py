@@ -334,8 +334,16 @@ def test_main_refuses_the_cpu_unless_asked(eval_pair):
                  *common])
     assert res.returncode != 0 and "FileNotFoundError" in res.stderr
     assert "best_model" in res.stderr and "no CUDA device" not in res.stderr
-    res = _main(["--device", "cpu", *common])
-    assert res.returncode != 0 and "ROADMAP A8" in res.stderr
+    # without --eval it trains: on the GPU by default (refused here), and on the CPU when
+    # asked, where it reaches the trainer (a logpath with checkpoints is refused)
+    res = _main(["--logpath", str(root / "cli_train_gpu"), *common])
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
+    ckdir = root / "cli_train_cpu" / "checkpoints"
+    ckdir.mkdir(parents=True)
+    (ckdir / "ckpt_meta.json").write_text("{}")
+    res = _main(["--device", "cpu", "--logpath", str(root / "cli_train_cpu"), *common])
+    assert res.returncode != 0 and "FileExistsError" in res.stderr
+    assert "resume" in res.stderr and "no CUDA device" not in res.stderr
 
 
 def test_main_parser_keeps_main_py_names_and_defaults():

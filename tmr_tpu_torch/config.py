@@ -86,6 +86,10 @@ class Config:
     max_gt_boxes: int = 800
     # compute dtype for the encoder and heads ("bfloat16" or "float32")
     compute_dtype: str = "bfloat16"
+    # a torch.profiler trace of the first trained epoch goes here (None: no trace)
+    profile_dir: Optional[str] = None
+    # recompute each ViT block on the backward pass (torch.utils.checkpoint)
+    remat_backbone: bool = False
 
     # int8 quantization of the decoder tail and the matcher (inference only).
     # ``quant`` mirrors TMR_QUANT: "int8" runs the decoder stacks and heads as the

@@ -25,12 +25,13 @@ def resolve_device(device=None) -> torch.device:
 def build_backbone(cfg, device=None) -> SamViT:
     """'sam'/'sam_vit_h' -> ViT-H (32 blocks, 16 heads of 80), 'sam_vit_b' -> ViT-B (12
     blocks, 12 heads of 64) (the port's slice has the SAM backbones only), built on
-    ``device`` (:func:`resolve_device`)."""
+    ``device`` (:func:`resolve_device`), its blocks recomputed on the backward pass under
+    ``cfg.remat_backbone``."""
     kind = {"sam": "vit_h", "sam_vit_h": "vit_h", "sam_vit_b": "vit_b"}.get(cfg.backbone)
     if kind is None:
         raise KeyError(f"backbone {cfg.backbone!r} is not ported yet")
     with resolve_device(device):
-        return build_sam_vit(kind, dtype=compute_dtype(cfg))
+        return build_sam_vit(kind, dtype=compute_dtype(cfg), remat=cfg.remat_backbone)
 
 
 def build_model(cfg, backbone=None, device=None) -> MatchingNet:

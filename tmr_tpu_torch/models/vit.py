@@ -10,7 +10,10 @@ Toeplitz expansion the kernel makes itself; windowed blocks call
 :func:`get_rel_pos` looks up. Both at every grid size, and at the head dims of both SAM
 encoders the port builds: ViT-B (768 over 12 heads of 64) and ViT-H (1280 over 16 heads
 of 80), each a kernel instantiation of its own on the card. LayerNorms run in f32; the
-linears and convs in the model's compute dtype.
+linears and convs in the model's compute dtype. Both attention calls carry gradients
+(``ops.cuda_attn``'s autograd Functions). With ``remat`` each block is recomputed on the
+backward pass (``torch.utils.checkpoint``, the counterpart of ``nn.remat(Block)``):
+activation memory for one more forward per block.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tmr_tpu_torch.models.common import Conv2d, LayerNorm2d, Linear, MLPBlock
 from tmr_tpu_torch.ops.cuda_attn import (get_rel_pos, global_attention, interp_rel_pos,
@@ -114,9 +118,10 @@ class SamViT(nn.Module):
                  global_attn_indexes: Sequence[int] = (2, 5, 8, 11),
                  patch_size: int = 16, window_size: int = 14, out_chans: int = 256,
                  mlp_ratio: float = 4.0, pretrain_img_size: int = 1024,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         grid = pretrain_img_size // patch_size
+        self.remat = remat
         self.grid = grid
         self.patch_size = patch_size
         self.out_chans = out_chans
@@ -145,7 +150,10 @@ class SamViT(nn.Module):
                                 align_corners=False).permute(0, 2, 3, 1)
         x = x + pos.to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         x = self.neck_1(self.neck_0(x.permute(0, 3, 1, 2)))
         return self.neck_3(self.neck_2(x))
 
@@ -159,5 +167,5 @@ VIT_CONFIGS = {
 
 
 def build_sam_vit(model_type: str = "vit_h", dtype: torch.dtype = torch.float32,
-                  **overrides) -> SamViT:
-    return SamViT(dtype=dtype, **{**VIT_CONFIGS[model_type], **overrides})
+                  remat: bool = False, **overrides) -> SamViT:
+    return SamViT(dtype=dtype, remat=remat, **{**VIT_CONFIGS[model_type], **overrides})

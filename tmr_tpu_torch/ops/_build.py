@@ -157,6 +157,19 @@ def launch(kernel: str, lib_name: str, fn: str, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would cut the autograd graph: its output,
+    written through a pointer, has no ``grad_fn``, so a loss behind it would train
+    nothing before it. Called by such wrappers on a CUDA input while grad mode is on."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and an input requires grad; run it "
+            "under torch.no_grad() / inference_mode(), or see ROADMAP A8 for the "
+            "gradients that are not ported")
+
+
 def stream_of(t) -> int:
     import torch
 

@@ -20,9 +20,17 @@ accumulators are f32; p is rounded to the input dtype before the p.v product, as
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor launches the
 kernel (``csrc/attn.cu``, whose header says what bounds it on the card and how the
-design answers) or raises. What the kernels take: bf16, contiguous, head dim 64 (SAM
-ViT-B) or 80 (ViT-H; any other raises, with no fallback to the plain version); the
-global kernel takes any token count whose projections fit in shared memory
+design answers) or raises. Both wrappers are differentiable: each is a
+``torch.autograd.Function`` (the counterpart of ``_pallas_attn_vjp`` /
+``_pallas_win_vjp`` and their ``jax.custom_vjp`` rules) whose backward,
+:func:`attention_backward`, recomputes the scores and the softmax from the saved q, k, v
+and tables in query bands, as the JAX backward does through
+``blockwise_decomposed_attention``. The backward is PyTorch on both devices (the JAX
+package's is XLA, not Pallas); it launches no kernel.
+
+What the kernels take: bf16, contiguous, head dim 64 (SAM ViT-B) or 80 (ViT-H; any
+other raises, with no fallback to the plain version); the global kernel takes any token
+count whose projections fit in shared memory
 (:func:`global_geometry`: gh + gw up to ~290 at head dim 64, ~195 at 80); the windowed
 kernel takes rows of up to 64 tokens and a window whose staging fits in 227 KB
 (:func:`window_geometry`).
@@ -65,6 +73,11 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     return rel[rel_coords.long()]
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The type sums are taken in: f32, or f64 for f64 inputs (``gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def bias_projections(
     q: torch.Tensor, rh: torch.Tensor, rw: torch.Tensor, grid_hw: Tuple[int, int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,9 +85,10 @@ def bias_projections(
     projections rel_h_q (BH, S, gh) and rel_w_q (BH, S, gw)."""
     bh, s, d = q.shape
     gh, gw = grid_hw
-    qf = q.float().reshape(bh, gh, gw, d)
-    rel_h = torch.einsum("nywd,ykd->nywk", qf, rh.float()).reshape(bh, s, gh)
-    rel_w = torch.einsum("nywd,wkd->nywk", qf, rw.float()).reshape(bh, s, gw)
+    acc = _acc(q.dtype)
+    qf = q.to(acc).reshape(bh, gh, gw, d)
+    rel_h = torch.einsum("nywd,ykd->nywk", qf, rh.to(acc)).reshape(bh, s, gh)
+    rel_w = torch.einsum("nywd,wkd->nywk", qf, rw.to(acc)).reshape(bh, s, gw)
     return rel_h.contiguous(), rel_w.contiguous()
 
 
@@ -92,13 +106,97 @@ def attention_plain(
     ``blockwise_decomposed_attention``)."""
     bh, s, _ = q.shape
     gh, gw = grid_hw
-    scores = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    acc = _acc(q.dtype)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(1, 2)) * scale
     if rel_h_q is not None:
         scores = scores.view(bh, s, gh, gw)
         scores = scores + rel_h_q[..., :, None] + rel_w_q[..., None, :]
         scores = scores.view(bh, s, s)
     p = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(p.to(acc), v.to(acc)).to(q.dtype)
+
+
+#: f32 bytes one (BH, band, S) score tile of :func:`attention_backward` may take; the
+#: query bands are whole grid rows cut to fit (at S = 4096, BH 48: 8 rows of 64 tokens,
+#: 402 MB a tile, where one dense score tensor would take 3.2 GB)
+BACKWARD_TILE_BYTES = 512 * 2 ** 20
+
+
+def band_rows(bh: int, gh: int, gw: int) -> int:
+    """Grid rows per query band of the backward: the largest divisor of ``gh`` whose
+    (BH, rows * gw, S) f32 tile fits :data:`BACKWARD_TILE_BYTES` (at least 1)."""
+    per_row = bh * gw * gh * gw * 4
+    return max([r for r in range(1, gh + 1)
+                if gh % r == 0 and r * per_row <= BACKWARD_TILE_BYTES] or [1])
+
+
+def attention_backward(q, k, v, rh, rw, grid_hw, scale, g):
+    """The gradients of both kernels' function (the backward of
+    ``blockwise_decomposed_attention``, which the JAX kernels' VJPs take).
+
+    q/k/v/g (BH, S, D); rh (gh, gh, D) / rw (gw, gw, D) the expanded tables, or None for
+    no bias. Query bands of :func:`band_rows` grid rows each recompute their scores and
+    bias projections (f32) and the softmax over the whole key axis, so no (S, S) tensor
+    is held. The forward rounds p to q's dtype before p.v, so dv takes that rounded p;
+    the softmax backward takes the f32 p. Sums are f32 (f64 for f64 inputs). Returns
+    dq, dk, dv in q's dtype and, with the bias, drh, drw in the tables' dtype."""
+    bh, s, d = q.shape
+    gh, gw = grid_hw
+    acc = _acc(q.dtype)
+    qf, kf, vf, gf = (t.to(acc) for t in (q, k, v, g))
+    # the scale rides on k, not on the (BH, band, S) tiles
+    ks = kf * scale
+    kt, vt = ks.transpose(1, 2), vf.transpose(1, 2)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    has_bias = rh is not None
+    if has_bias:
+        rhf, rwf = rh.to(acc), rw.to(acc)
+        drh, drw = torch.zeros_like(rhf), torch.zeros_like(rwf)
+    rows = band_rows(bh, gh, gw)
+    n = rows * gw
+    for r0 in range(0, gh, rows):
+        band = slice(r0 * gw, r0 * gw + n)
+        qc, gc = qf[:, band], gf[:, band]
+        scores = torch.matmul(qc, kt)
+        if has_bias:
+            q4 = qc.reshape(bh, rows, gw, d)
+            rel_h = torch.einsum("nywd,ykd->nywk", q4, rhf[r0:r0 + rows])
+            rel_w = torch.einsum("nywd,wkd->nywk", q4, rwf)
+            s5 = scores.view(bh, rows, gw, gh, gw)
+            s5.add_(rel_h[..., :, None]).add_(rel_w[..., None, :])
+        p = torch.softmax(scores, dim=-1)
+        del scores
+        dv.baddbmm_(p.to(q.dtype).to(acc).transpose(1, 2), gc)
+        ds = torch.ops.aten._softmax_backward_data(torch.matmul(gc, vt), p, -1, acc)
+        del p
+        dqc = torch.matmul(ds, ks)
+        dk.baddbmm_(ds.transpose(1, 2), qc, alpha=scale)
+        if has_bias:
+            ds5 = ds.view(bh, rows, gw, gh, gw)
+            dsh, dsw = ds5.sum(-1), ds5.sum(-2)
+            dqc.view(bh, rows, gw, d).add_(
+                torch.einsum("nywk,ykd->nywd", dsh, rhf[r0:r0 + rows])).add_(
+                torch.einsum("nywk,wkd->nywd", dsw, rwf))
+            drh[r0:r0 + rows] += torch.einsum("nywk,nywd->ykd", dsh, q4)
+            drw += torch.einsum("nywk,nywd->wkd", dsw, q4)
+        dq[:, band] = dqc
+        del ds, dqc
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if has_bias:
+        grads += (drh.to(rh.dtype), drw.to(rw.dtype))
+    return grads
+
+
+def compact_table_grad(d_expanded: torch.Tensor, g: int) -> torch.Tensor:
+    """The gradient of a compact ``(2g - 1, D)`` table from that of its ``get_rel_pos(g,
+    g, .)`` expansion (g, g, D): entry [y, ky] reads row y - ky + g - 1, so each row sums
+    its diagonal."""
+    idx = (torch.arange(g, device=d_expanded.device)[:, None]
+           - torch.arange(g, device=d_expanded.device)[None, :] + (g - 1)).reshape(-1)
+    out = d_expanded.new_zeros((2 * g - 1, d_expanded.shape[-1]))
+    return out.index_add_(0, idx, d_expanded.reshape(g * g, -1))
 
 
 def _check(q, k, v, what: str) -> None:
@@ -153,11 +251,42 @@ def global_attention(
     """Global attention over the whole (gh, gw) grid with the decomposed rel-pos bias:
     ``rel_pos_h (2gh - 1, D)`` / ``rel_pos_w (2gw - 1, D)`` are the compact tables
     (``interp_rel_pos`` of the parameters; None: no bias). On the card one kernel
-    computes the bias projections too, from the compact tables."""
+    computes the bias projections too, from the compact tables. Differentiable in q, k,
+    v and both tables (:class:`GlobalAttention`)."""
+    if (rel_pos_h is None) != (rel_pos_w is None):
+        raise ValueError("global_attention: give both rel-pos tables or neither")
+    return GlobalAttention.apply(q, k, v, rel_pos_h, rel_pos_w, tuple(grid_hw),
+                                 float(scale))
+
+
+class GlobalAttention(torch.autograd.Function):
+    """:func:`global_attention` with its gradient: the forward is the kernel (the plain
+    version on the CPU); the backward is :func:`attention_backward` on the tables'
+    expansion, folded back onto the compact tables (:func:`compact_table_grad`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
+        ctx.save_for_backward(q, k, v, rel_pos_h, rel_pos_w)
+        ctx.grid_hw, ctx.scale = grid_hw, scale
+        return _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, ch, cw = ctx.saved_tensors
+        gh, gw = ctx.grid_hw
+        if ch is None:
+            return (*attention_backward(q, k, v, None, None, ctx.grid_hw, ctx.scale, g),
+                    None, None, None, None)
+        dq, dk, dv, drh, drw = attention_backward(
+            q, k, v, get_rel_pos(gh, gh, ch), get_rel_pos(gw, gw, cw), ctx.grid_hw,
+            ctx.scale, g)
+        return (dq, dk, dv, compact_table_grad(drh, gh), compact_table_grad(drw, gw),
+                None, None)
+
+
+def _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
     gh, gw = grid_hw
     has_bias = rel_pos_h is not None
-    if has_bias != (rel_pos_w is not None):
-        raise ValueError("global_attention: give both rel-pos tables or neither")
     if q.device.type == "cpu":
         rel = (bias_projections(q, get_rel_pos(gh, gh, rel_pos_h),
                                 get_rel_pos(gw, gw, rel_pos_w), grid_hw)
@@ -218,7 +347,28 @@ def window_attention(
     scale: float,
 ) -> torch.Tensor:
     """Whole-window attention with the rel-pos bias: q/k/v (windows*heads, gh*gw, D). On
-    the card one kernel computes the bias projections too, from the tables."""
+    the card one kernel computes the bias projections too, from the tables.
+    Differentiable in q, k, v and both tables (:class:`WindowAttention`)."""
+    return WindowAttention.apply(q, k, v, rh, rw, tuple(grid_hw), float(scale))
+
+
+class WindowAttention(torch.autograd.Function):
+    """:func:`window_attention` with its gradient: the forward is the kernel (the plain
+    version on the CPU), the backward :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rh, rw, grid_hw, scale):
+        ctx.save_for_backward(q, k, v, rh, rw)
+        ctx.grid_hw, ctx.scale = grid_hw, scale
+        return _window_forward(q, k, v, rh, rw, grid_hw, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_backward(*ctx.saved_tensors, ctx.grid_hw, ctx.scale, g),
+                None, None)
+
+
+def _window_forward(q, k, v, rh, rw, grid_hw, scale):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, *bias_projections(q, rh, rw, grid_hw), grid_hw,
                                scale)

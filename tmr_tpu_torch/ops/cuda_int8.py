@@ -17,7 +17,9 @@ bias and ``leaky_relu``, bit for bit what the per-tap composition computes. It t
 unpadded activation: the kernel reads zeros outside the image.
 
 The wrappers run the plain versions only for CPU tensors; a CUDA tensor launches
-``csrc/int8_mm.cu`` (its header says what bounds each kernel on the card) or raises.
+``csrc/int8_mm.cu`` (its header says what bounds each kernel on the card) or raises. The
+kernels have no backward (training runs without quantization): on the card an input that
+requires grad raises while grad mode is on (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def int8_mm(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
             f"{tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
     if x_q.device.type == "cpu":
         return int8_mm_plain(x_q, w_q, x_scale, w_scale)
+    _build.refuse_grad("int8_mm", x_q, w_q, x_scale, w_scale)
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError("int8_mm: the kernel takes int8 operands")
     if x_q.stride(-1) != 1:
@@ -121,6 +124,7 @@ def int8_conv3x3(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch
     b, h, w, c, n = _check_conv3x3(xq, sx, wq, sw, bias)
     if xq.device.type == "cpu":
         return int8_conv3x3_plain(xq, sx, wq, sw, bias, negative_slope)
+    _build.refuse_grad("int8_conv3x3", xq, sx, wq, sw, bias)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise ValueError("int8_conv3x3: the kernel takes int8 operands")
     if c % 16:

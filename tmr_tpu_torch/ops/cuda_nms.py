@@ -11,7 +11,8 @@ made in parallel into a workspace of :func:`mask_words` 64-bit words per box, th
 short scan over those words per image that decides the keeps (two kernel launches per
 call, counted as one). The IoU is explicitly rounded, so keep decisions equal the plain
 version's bit for bit. Any N is taken whose workspace fits in device memory; past that
-the workspace's allocation raises.
+the workspace's allocation raises. Boxes that require grad raise on the card while grad
+mode is on (``_build.refuse_grad``): a keep mask has no gradient to pass.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"nms: boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
     if boxes.device.type == "cpu":
         return greedy_keep_sorted_plain(boxes, valid, iou_threshold)
+    _build.refuse_grad("nms", boxes)
     if boxes.dtype != torch.float32:
         raise ValueError("nms: the kernel takes f32 boxes")
     boxes = boxes.contiguous()

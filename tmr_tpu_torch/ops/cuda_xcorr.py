@@ -19,7 +19,9 @@ sum (:func:`int8_geometry` mirrors its launch geometry).
 
 The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
 only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
-header says what bounds it on the card and how each kernel is laid out) or raises.
+header says what bounds it on the card and how each kernel is laid out) or raises. The
+kernels have no backward: on the card an input that requires grad raises while grad mode
+is on (``_build.refuse_grad``); the train forward correlates through the FFT path.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ def xcorr(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
             f"xcorr: template {tuple(template.shape)} must be (B, C, T, T), T odd")
     if feature.device.type == "cpu":
         return xcorr_plain(feature, template)
+    _build.refuse_grad("xcorr", feature, template)
     if feature.dtype != torch.float32 or template.dtype != torch.float32:
         raise ValueError("xcorr: the kernel takes f32 feature and template")
     if t > MAX_T:
@@ -124,6 +127,7 @@ def xcorr_int8(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Ten
             f"{tuple(t_scale.shape)} must be (B, C, 1, 1)")
     if feature.device.type == "cpu":
         return xcorr_int8_plain(feature, template, f_scale, t_scale)
+    _build.refuse_grad("xcorr_int8", feature, template, f_scale, t_scale)
     if feature.dtype != torch.int8 or template.dtype != torch.int8:
         raise ValueError("xcorr_int8: the kernel takes int8 feature and template")
     int8_geometry(t)

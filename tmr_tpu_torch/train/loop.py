@@ -1,5 +1,14 @@
-"""The eval loop (counterpart of the eval half of ``tmr_tpu/train/loop.py``; reference
-trainer.py Matching_Trainer's test path and main.py's ``--eval``).
+"""The train and eval loops (counterpart of ``tmr_tpu/train/loop.py``; reference
+trainer.py Matching_Trainer and main.py's run).
+
+``Trainer.fit`` trains from a seeded init (or given weights): per epoch the train
+loader's batches through ``train/state.make_train_step``, the mean losses and the phase
+times in one row of ``metrics.csv`` (the JAX row keys), validation at epoch 0 and every
+``AP_term``-th epoch (trainer.py:68-73), then ``last.ckpt`` and, on an improvement, a new
+``best_model*.ckpt`` (``utils/checkpoint.CheckpointManager``). ``resume`` restores the
+last train state and goes on at the next epoch; ``profile_dir`` takes a torch.profiler
+trace of the first epoch it trains. wandb mirrors the rows when it is installed and
+``nowandb`` is off.
 
 ``Trainer.test`` runs the reference's eval chain over the test split: one forward per
 batch gives both the losses and the detections (forward -> loss -> decode -> NMS,
@@ -10,27 +19,32 @@ with its losses summed over the real exemplars. ``eval_batch_size`` > 1 batches 
 of one size bucket (forced to 1 when ``num_exemplars`` > 1); a ragged tail is split to
 B = 1, and each batch's losses weigh by its image count. The criterion normalizes by the
 batch's total positive count, so batched losses differ from B = 1 ones, as in the JAX
-package. Training (``fit``, checkpoint saving, the CSV and wandb loggers) is not ported
-yet (ROADMAP A8).
+package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
+import dataclasses
+import os
 import sys
-from typing import Dict, Mapping, Optional
+import time
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
 from tmr_tpu_torch.data import DataLoader, build_dataset
 from tmr_tpu_torch.inference import Predictor, detections_to_numpy
-from tmr_tpu_torch.train.state import compute_losses
-from tmr_tpu_torch.utils.checkpoint import best_checkpoint
+from tmr_tpu_torch.train.state import TrainState, compute_losses, make_train_step
+from tmr_tpu_torch.utils.checkpoint import CheckpointManager, best_checkpoint
 from tmr_tpu_torch.utils.convert import load_matching_net
 from tmr_tpu_torch.utils.metrics import (coco_style_annotation_generator,
                                          del_img_log_path, get_ap_scores, get_mae_rmse,
                                          image_info_collector)
-from tmr_tpu_torch.utils.weights import params_from_jax
+from tmr_tpu_torch.utils.wandb_logger import WandbLogger
+from tmr_tpu_torch.utils.weights import init_params, params_from_jax
 
 
 def log_info(msg: str) -> None:
@@ -38,10 +52,70 @@ def log_info(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+class CSVLogger:
+    """Epoch metrics CSV (``logpath/metrics.csv``). Rows have varying key sets (val
+    metrics only on AP_term epochs), so the file is rewritten with the union of keys,
+    never truncating earlier epochs; an existing file's rows are kept (resume)."""
+
+    def __init__(self, logpath: str):
+        os.makedirs(logpath, exist_ok=True)
+        self.path = os.path.join(logpath, "metrics.csv")
+        self._rows: list = []
+        if os.path.exists(self.path):
+            with open(self.path, newline="") as f:
+                self._rows = list(csv.DictReader(f))
+
+    def log(self, row: Dict[str, float]) -> None:
+        self._rows.append({k: str(v) for k, v in row.items()})
+        keys = sorted({k for r in self._rows for k in r})
+        with open(self.path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=keys)
+            w.writeheader()
+            for r in self._rows:
+                w.writerow(r)
+
+
+class PhaseTimer:
+    """Host seconds by phase name over one epoch (the JAX ``PhaseTimer``'s totals)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
+
+    def as_dict(self, prefix: str = "time/") -> Dict[str, float]:
+        """Totals keyed for the metrics CSV (``time/<phase>`` seconds)."""
+        return {f"{prefix}{k}": v for k, v in self.totals.items()}
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    """A torch.profiler trace of the block (host and, with a card, device activity) into
+    ``logdir/trace.json``; nothing when ``logdir`` is None."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
 class Trainer:
-    """The eval loop over one ``Config``, on ``device`` (``None``: the GPU, raising
-    without one; ``"cpu"`` runs the plain versions). ``model`` overrides the registry's
-    detector (the tests pass a narrow one)."""
+    """The train and eval loops over one ``Config``, on ``device`` (``None``: the GPU,
+    raising without one; ``"cpu"`` runs the plain versions). ``model`` overrides the
+    registry's detector (the tests pass a narrow one)."""
 
     def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None):
         if cfg.refine_box:
@@ -54,6 +128,19 @@ class Trainer:
         self.predictor = Predictor(cfg, device=device, model=model)
         self.model = self.predictor.model
         self._shared_loss_fn = None
+        self.logger = CSVLogger(cfg.logpath)
+        self.wandb = None
+        if not cfg.nowandb and not cfg.eval:
+            self.wandb = WandbLogger(cfg.project_name, name=os.path.basename(cfg.logpath),
+                                     config=dataclasses.asdict(cfg))
+        self.ckpt = CheckpointManager(
+            os.path.join(cfg.logpath, "checkpoints"),
+            monitor="val/MAE" if cfg.best_model_count else "val/AP",
+            mode="min" if cfg.best_model_count else "max", every_n_epochs=cfg.AP_term,
+            # reference callbacks.py:12-13: a fresh training run refuses to clobber a
+            # logpath that holds checkpoints
+            fresh_guard=not cfg.resume and not cfg.eval)
+        self.state: Optional[TrainState] = None
 
     # ------------------------------------------------------------ plumbing
     def _loaders(self):
@@ -102,6 +189,69 @@ class Trainer:
         if any(isinstance(v, Mapping) for v in params.values()):
             params = params_from_jax(params)
         self.predictor.load_state_dict(params)
+
+    # ---------------------------------------------------------------- train
+    def fit(self, max_steps_per_epoch: Optional[int] = None, params=None) -> None:
+        """Train ``max_epochs`` epochs (from ``last_epoch + 1`` under ``resume``) from
+        ``params`` (see :meth:`_set_params`; None: the seeded init of ``cfg.seed``)."""
+        cfg = self.cfg
+        if cfg.quant != "off" or cfg.quant_storage != "off":
+            raise ValueError("fit: training runs the exact weights; quant and "
+                             "quant_storage are inference-only (main scrubs them)")
+        train, val, _ = self._loaders()
+        steps = len(train) if max_steps_per_epoch is None else min(
+            len(train), max_steps_per_epoch)
+        if params is None:
+            init_params(self.model, cfg.seed)
+        else:
+            self._set_params(params)
+        self.state = TrainState(self.model, cfg, steps)
+        start_epoch = 0
+        if cfg.resume and self.ckpt.last_path():
+            self.ckpt.restore(self.ckpt.last_path(), self.state)
+            start_epoch = self.ckpt.meta["last_epoch"] + 1
+            log_info(f"resumed from epoch {start_epoch}")
+        step_fn = make_train_step(self.model, cfg)
+        for epoch in range(start_epoch, cfg.max_epochs):
+            train.set_epoch(epoch)
+            t0 = time.time()
+            sums: Optional[dict] = None
+            n = 0
+            timers = PhaseTimer()
+            with trace(cfg.profile_dir if epoch == start_epoch else None):
+                it = iter(train)
+                try:
+                    with timers.phase("data"):
+                        nxt = next(it, None)
+                    for i in range(steps):
+                        if nxt is None:
+                            break
+                        batch = nxt
+                        with timers.phase("step"):
+                            losses = step_fn(self.state, batch)
+                        with timers.phase("data"):
+                            nxt = next(it, None) if i + 1 < steps else None
+                        with timers.phase("metrics"):
+                            sums = losses if sums is None else {
+                                k: sums[k] + losses[k] for k in sums}
+                        n += 1
+                finally:
+                    it.close()
+            sums_host = {} if sums is None else {k: float(v) for k, v in sums.items()}
+            row = {f"train/{k}": v / max(n, 1) for k, v in sums_host.items()}
+            row["epoch"] = epoch
+            row["train/sec"] = time.time() - t0
+            row.update(timers.as_dict())
+            if epoch == 0 or epoch % cfg.AP_term == cfg.AP_term - 1:
+                row.update(self.eval_epoch(val, "val"))
+            self.logger.log(row)
+            if self.wandb is not None:
+                self.wandb.log(row, step=epoch)
+            log_info(f"Epoch {epoch}: | " + " | ".join(
+                f"{k}: {v:.4f}" for k, v in sorted(row.items()) if k != "epoch"))
+            self.ckpt.save_epoch(self.state, epoch, row)
+        if self.wandb is not None:
+            self.wandb.finish()
 
     # ----------------------------------------------------------------- eval
     @staticmethod
@@ -180,7 +330,8 @@ class Trainer:
     def test(self, params=None) -> Dict[str, float]:
         """The eval entry (reference main.py:122-130): with no ``params``, the
         highest-version Lightning ``best_model*.ckpt`` under ``cfg.logpath`` (or its
-        ``checkpoints/``) is loaded; none raises ``FileNotFoundError``."""
+        ``checkpoints/``, where ``fit`` writes them) is loaded; none raises
+        ``FileNotFoundError``."""
         _, _, test = self._loaders()
         if params is None:
             best = best_checkpoint(self.cfg.logpath)

@@ -122,7 +122,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through ``attention_plain`` on the card (a yardstick of this script, never a path of
    the port); 8 steps on one batch lower its loss; a non-finite gradient is discarded;
    ``xcorr`` on a tensor that requires grad raises. Printed: ms per step warm, images/s,
-   peak device memory, and a ``{"train": ..., "backward": [...]}`` JSON line;
+   peak device memory, and a ``{"train": ..., "backward": [...]}`` JSON line; beside each
+   backward, the autograd of SDPA with its mask built from the tables in the graph (the
+   library yardstick) and whether the memory-efficient backend alone returns the mask's
+   gradient;
+5c. the map phase (run after 5b, on phase 4's encoder): kernels 1 and 4 against their
+   plain versions at batch 8's shapes (BH 96 and 2400); 3 synthetic tar shards of 10
+   PNGs of 480 x 640 (``Easy_0``, ``Normal_0``, ``Hard_0``: a batch of 8 and a padded
+   tail of 2 each) and a tar cut inside its first member, written with ``zlib`` and
+   ``struct``; the encoder saved as a SAM checkpoint; ``python -m
+   tmr_tpu_torch.parallel.mapreduce map ... | tee ... | ... reduce`` in subprocesses with
+   the native and the ``tarfile`` loader, with a transient ``tar.open`` fault on shard 1
+   (``TMR_FAULTS``), and cut at shard 2 then ``--resume``d; in this process the same map
+   through ``run_stream_native`` with CUDA events around each batch, then through
+   ``run_stream`` with the attention through ``attention_plain``; and ``extract_feature``
+   at batch 1 on a 720 x 1280 image. Where PIL is missing, the PNGs are decoded by this
+   script's reader (it says which). Checks: each batch of 8 launches exactly global 4,
+   window 8 and nothing else, ``extract_feature`` the same; stdout of ``map`` is records
+   only and ``reduce``'s table is theirs; the corrupt tar is quarantined on its first
+   attempt; the two loaders', the fault run's and the resumed run's records are equal
+   byte for byte; one (64, 64, 256) float32 feature file per counted image; features and
+   table within 5e-2 of the ``attention_plain`` run (the table's sums relative to its std
+   sums); the ``(1, 64, 64, 256)`` dump and its statistics likewise. Printed: the
+   loader's host ms per image (decode, resize), images/s, the encoder's device ms per
+   batch of 8, the device's busy share (events around each batch over the wall) and
+   ``extract_feature``'s ms, with the card, and a ``{"map": ...}`` JSON line;
 6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1848,13 +1872,60 @@ def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d
                                                    retain_graph=True), reps=3, warmup=1)
     del out, want_out, got, want
     torch.cuda.empty_cache()
+    lib = sdpa_backward(torch, cuda_attn, [t.detach() for t in leaves], g, grid, scale)
     flops = 2.5 * 4.0 * bh * s * s * d
     nbytes = 7 * bh * s * d * 2 + sum(t.numel() for t in tabs) * 4 * 2
     ok = all(e <= (BWD_TOL if n in names[:3] else BWD_TABLE_TOL) for n, e in errs.items())
     return dict(errs=errs, ok=ok, fwd_ms=fwd_ms,
-                bwd_ms=bwd_ms, plain_bwd_ms=plain_ms,
+                bwd_ms=bwd_ms, plain_bwd_ms=plain_ms, **lib,
                 bound=bound(flops, nbytes, PEAK_BF16_FLOPS),
                 bound_f32=bound(flops, nbytes, PEAK_F32_FLOPS))
+
+
+def sdpa_backward(torch, cuda_attn, tensors, g, grid, scale) -> dict:
+    """The library yardstick of an attention backward: ``torch.autograd.grad`` of SDPA
+    with its bf16 mask built inside the graph from the compact tables (the tables'
+    lookup, q's projections, the broadcast add), on the same q, k, v, tables and output
+    gradient. Returns the backward's ms under PyTorch's own choice of SDPA backend
+    (``library_bwd_ms``, None if it raised, with the error), and whether the
+    memory-efficient backend alone returns the mask's gradient (``efficient``: "ok" or
+    its error)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q = tensors[0]
+    bh, s, _ = q.shape
+    leaves = [t.clone().requires_grad_() for t in tensors]
+
+    def forward():
+        mask = None
+        if len(leaves) > 3:
+            rel = [cuda_attn.get_rel_pos(n, n, t) for n, t in zip(grid, leaves[3:])]
+            rh, rw = cuda_attn.bias_projections(leaves[0], *rel, grid)
+            mask = (rh[..., :, None] + rw[..., None, :]).reshape(bh, s, s).to(q.dtype)[None]
+        return F.scaled_dot_product_attention(*(t[None] for t in leaves[:3]),
+                                              attn_mask=mask, scale=scale)[0]
+
+    def error(e) -> str:
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
+
+    out = dict(library_bwd_ms=None, library_error=None, efficient="ok")
+    try:
+        y = forward()
+        out["library_bwd_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), reps=5, warmup=1)
+        del y
+    except RuntimeError as e:  # an out-of-memory error too
+        out["library_error"] = error(e)
+    torch.cuda.empty_cache()
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            torch.autograd.grad(forward(), leaves, g)
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # an out-of-memory error too
+        out["efficient"] = error(e)
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_backward_kernels(torch, cuda_attn, card) -> list:
@@ -1866,10 +1937,14 @@ def check_backward_kernels(torch, cuda_attn, card) -> list:
         name = (f"{'window' if windowed else 'global'}_attn"
                 f"{'' if has_bias else '_nobias'}{'' if d == 64 else f'_d{d}'}")
         (b_ms, by), (f32_ms, _) = r["bound"], r["bound_f32"]
+        lib = (f"{r['library_bwd_ms']:.4f} ms" if r["library_bwd_ms"] is not None
+               else f"raised {r['library_error']}")
         print(f"backward {name} BH {bh}, {grid[0]}x{grid[1]}, D {d}: backward "
               f"{r['bwd_ms']:.4f} ms beside the kernel forward {r['fwd_ms']:.4f} ms; bound "
               f"{b_ms:.4f} ms ({by}, bf16 peak; {f32_ms:.4f} ms at the f32 peak of its f32 "
               f"products); f32 autograd of attention_plain {r['plain_bwd_ms']:.4f} ms; "
+              f"library (autograd of SDPA, mask built from the tables in the graph) {lib}; "
+              f"memory-efficient SDPA alone: {r['efficient']}; "
               "error / max: " + ", ".join(f"{k} {v:.3e}" for k, v in r["errs"].items())
               + f" (tol {BWD_TOL:.3e}; tables {BWD_TABLE_TOL:.0e}) [{card}]", flush=True)
         if not r["ok"]:
@@ -1877,6 +1952,8 @@ def check_backward_kernels(torch, cuda_attn, card) -> list:
         records.append(dict(name=name, route="pytorch", source="tmr_tpu_torch/ops/cuda_attn.py",
                             bh=bh, grid=list(grid), d=d, bwd_ms=r["bwd_ms"],
                             fwd_ms=r["fwd_ms"], plain_bwd_ms=r["plain_bwd_ms"],
+                            library_bwd_ms=r["library_bwd_ms"],
+                            library_error=r["library_error"], efficient=r["efficient"],
                             bound_ms=b_ms, bound_by=by, bound_f32_ms=f32_ms,
                             max_rel_err=max(r["errs"].values())))
     return records
@@ -2232,6 +2309,432 @@ def check_vit_h_path(torch, np, batches, caps, card, modules):
     return launches, hpred
 
 
+#: phase 5c's synthetic shards: 10 PNGs of 480 x 640 in each category (one batch of 8
+#: and a tail of 2, padded), then a tar cut short inside its first member's payload
+MAP_SHARDS = ("Easy_0", "Normal_0", "Hard_0")
+MAP_IMAGES = 10
+MAP_HW = (480, 640)
+MAP_SIZE = 1024
+MAP_BATCH = 8
+#: launches of one batch of 8 through the encoder: its 4 global and 8 windowed blocks
+MAP_BATCH_LAUNCHES = dict({k: 0 for k in TRAIN_STEP_LAUNCHES}, global_attn=4,
+                          window_attn=8)
+#: the map phase against the same run with the attention through ``attention_plain`` on
+#: the card, both bf16 networks (the two attentions round p at other points; phase 4c's
+#: bf16 tier): each feature file within 5e-2 x its largest |value|, each of the table's
+#: four sums within 5e-2 x its category's std sum (the features' scale: their mean is
+#: ~0 after the neck's LayerNorm, so a relative bound on it would mean nothing)
+MAP_REL_TOL = 5e-2
+#: the transient fault and the cut of phase 5c's CLI runs (shard indices of the list)
+MAP_FAULT = "tar.open:shard=1:attempts=1:raise=OSError"
+MAP_CUT = "tar.open:shard=2:raise=KeyboardInterrupt"
+EXTRACT_HW = (720, 1280)
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def write_png(np, path, img) -> None:
+    """An 8-bit RGB PNG (every row filter 0) made with ``zlib`` and ``struct`` alone."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def read_png(data: bytes):
+    """The reader of :func:`write_png`'s files (8-bit RGB, filter 0), for a machine
+    without PIL: swapped in for ``transforms.decode_image``; anything else raises, as an
+    undecodable image does."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG")
+    pos, idat, head = 8, [], None
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if head is None or head[2:] != (8, 2):
+        raise ValueError("only 8-bit RGB PNGs are read")
+    w, h = head[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError("only filter 0 is read")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def use_png_reader() -> None:
+    """Swap the map phase's decode for :func:`read_png` (a machine without PIL)."""
+    from tmr_tpu_torch.data import transforms
+
+    transforms.decode_image = read_png
+
+
+def has_pil() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("PIL") is not None
+
+
+def map_shards(np, root: Path, rng) -> list:
+    """Phase 5c's shards under ``root``: smooth colour fields with noise, as PNGs."""
+    import io
+    import tarfile
+
+    paths = []
+    yy, xx = np.mgrid[0:MAP_HW[0], 0:MAP_HW[1]].astype(np.float32)
+    for name in MAP_SHARDS:
+        path = root / f"{name}.tar"
+        with tarfile.open(path, "w") as tar:
+            for i in range(MAP_IMAGES):
+                f = rng.uniform(0.005, 0.05, (3, 2))
+                img = np.stack([127 + 100 * np.sin(yy * a + xx * b + i) for a, b in f], -1)
+                img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255).astype(np.uint8)
+                write_png(np, root / "img.png", img)
+                tar.add(root / "img.png", arcname=f"{name.lower()}_{i}.png")
+        paths.append(path)
+    # a tar cut inside its first member: tarfile and the native reader both fail it
+    whole = io.BytesIO()
+    with tarfile.open(fileobj=whole, mode="w") as tar:
+        tar.add(root / "img.png", arcname="cut_0.png")
+    (root / "corrupt.tar").write_bytes(whole.getvalue()[:512 + 4096])
+    paths.append(root / "corrupt.tar")
+    return paths
+
+
+def sam_checkpoint(torch, backbone, path) -> None:
+    """The encoder's weights as a SAM checkpoint (``image_encoder.*`` keys, f32), the
+    inverse of ``utils.convert.sam_vit_state_dict``'s renames."""
+    renames = (("patch_embed.", "patch_embed.proj."), ("neck_0.", "neck.0."),
+               ("neck_1.", "neck.1."), ("neck_2.", "neck.2."), ("neck_3.", "neck.3."))
+    sd = {}
+    for key, val in backbone.state_dict().items():
+        for mine, theirs in renames:
+            if key.startswith(mine):
+                key = theirs + key[len(mine):]
+        sd["image_encoder." + key] = val.detach().float().cpu()
+    torch.save(sd, path)
+
+
+def map_cli(root: Path, tmp: Path, tag: str, extra=(), env=None):
+    """``map ... | tee records | reduce`` in a subprocess, as a user runs it (with the
+    PNG reader swapped in where PIL is missing). Returns (popen, paths)."""
+    import os
+    import shlex
+
+    prog = ([sys.executable, "-m", "tmr_tpu_torch.parallel.mapreduce"] if has_pil() else
+            [sys.executable, "-c", "import runpy, sys; sys.path.insert(0, sys.argv.pop(1)); "
+             "import chip_smoke; chip_smoke.use_png_reader(); runpy.run_module("
+             "'tmr_tpu_torch.parallel.mapreduce', run_name='__main__')", str(root)])
+    out = {k: tmp / f"{tag}.{k}" for k in ("records", "table", "stderr", "report")}
+    feats = tmp / f"features_{tag}"
+    argv = prog + ["map", "--data_dir", str(tmp), "--checkpoint", str(tmp / "vit_b.pth"),
+                   "--features_out", str(feats), "--report_out", str(out["report"]),
+                   "--image_size", str(MAP_SIZE), "--backoff_base", "0.05", *extra]
+    reduce = prog + ["reduce"]
+    cmd = (f"set -o pipefail; printf '%s\\n' {' '.join(p + '.tar' for p in MAP_SHARDS)} "
+           f"corrupt.tar | {shlex.join(argv)} 2>{shlex.quote(str(out['stderr']))} "
+           f"| tee {shlex.quote(str(out['records']))} | {shlex.join(reduce)} "
+           f"> {shlex.quote(str(out['table']))}")
+    proc = subprocess.Popen(["bash", "-c", cmd], cwd=root,
+                            env=dict(os.environ, **(env or {}),
+                                     PYTHONPATH=str(root)))
+    return proc, dict(out, features=feats)
+
+
+def wait_cli(proc, out, tag: str, want_rc=0, timeout=300):
+    rc = proc.wait(timeout=timeout)
+    if (rc == 0) != (want_rc == 0):
+        tail = out["stderr"].read_text()[-3000:] if out["stderr"].exists() else ""
+        fail(f"map CLI run {tag}: exit code {rc}, expected "
+             f"{'0' if want_rc == 0 else 'non-zero'}; stderr tail:\n{tail}")
+    return rc
+
+
+def cli_result(np, out, tag: str) -> dict:
+    """The records, table and report of a finished CLI run, checked: stdout carries
+    records only, the table is ``format_stats_table`` of them, the corrupt tar was
+    quarantined on its first attempt."""
+    from tmr_tpu_torch.parallel import mapreduce as mr
+
+    records = out["records"].read_text()
+    lines = records.splitlines()
+    rec = re.compile(r"^(Easy|Normal|Hard|Unknown)\t[^,\s]+(,[^,\s]+){3},\d+$")
+    if not lines or not all(rec.match(line) for line in lines):
+        fail(f"map CLI run {tag}: stdout is not records only: {records[:500]!r}")
+    table = out["table"].read_text()
+    if table != mr.format_stats_table(mr.reduce_lines(lines)) + "\n":
+        fail(f"map CLI run {tag}: reduce's table is not the records' table")
+    report = json.loads(out["report"].read_text())
+    bad = [r for r in report["shards"] if r["shard"] == "corrupt.tar"
+           and (r["status"], r["attempts"]) != ("quarantined", 1)]
+    if report["quarantined"] != ["corrupt.tar"] or bad:
+        fail(f"map CLI run {tag}: the corrupt tar was not quarantined on its first "
+             f"attempt: {report['shards']}")
+    return dict(records=records, table=table, report=report)
+
+
+def feature_files(np, root: Path) -> dict:
+    return {str(p.relative_to(root)): np.load(p) for p in sorted(root.rglob("*.npy"))}
+
+
+def check_map_path(torch, np, pred, card, modules) -> dict:
+    """Phase 5c: the map phase (``tmr_tpu_torch.parallel.mapreduce``) and
+    ``extract_feature`` on phase 4's ViT-B weights (bf16, 1024^2, batch 8). Returns the
+    numbers PERF.md keeps."""
+    import contextlib as ctx
+    import io
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from tmr_tpu_torch import extract_feature
+    from tmr_tpu_torch.data import native_io, transforms
+    from tmr_tpu_torch.parallel import mapreduce as mr
+    from tmr_tpu_torch.parallel.journal import ShardJournal
+
+    _build, cuda_attn = modules
+    backbone = pred.model.backbone.eval()
+    decode = "PIL" if has_pil() else "the PNG reader of chip_smoke.py (no PIL here)"
+    print(f"map path: decode by {decode}; native reader "
+          f"{'built' if native_io.available() else 'UNAVAILABLE'}", flush=True)
+    if not native_io.available():
+        fail("the native tar reader did not build (g++ and native/tmr_io.cc)")
+    out = {"decode": "PIL" if has_pil() else "png_reader"}
+
+    # kernels 1 and 4 at the batch-8 shapes (BH 96 and 2400)
+    for name, windowed, grid, bh in (("global_attn", False, (64, 64), 96),
+                                     ("window_attn", True, (14, 14), 2400)):
+        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, True, SEED + 70,
+                                             grid, bh)
+        print(f"map path kernel {name} BH {bh}: {attn_accuracy(acc)} {attn_times(t)} "
+              f"bound_ms {bms:.4f} ({bby}) [{card}]", flush=True)
+        if not acc["ok"]:
+            fail(f"{name} at the map path's BH {bh} disagrees with its plain version")
+        out[f"{name}_bh{bh}"] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                     library_ms=t["lib_ms"], bound_ms=bms,
+                                     max_abs_err=acc["max_abs_err"])
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmpdir, ctx.ExitStack() as stack:
+        tmp = Path(tmpdir)
+        if not has_pil():
+            stack.enter_context(swapped(transforms, "decode_image", read_png))
+        root = Path(__file__).resolve().parent
+        shards = map_shards(np, tmp, np.random.default_rng(SEED + 71))
+        sam_checkpoint(torch, backbone, tmp / "vit_b.pth")
+
+        # the loader's host time per image, one thread, before the CLI runs start
+        datas = [m for m in _tar_payloads(shards[0])]
+        t_dec = t_res = 0.0
+        for data in datas:
+            a = time.perf_counter()
+            img = transforms.decode_image(data)
+            b = time.perf_counter()
+            transforms.resize_bicubic_u8(img, MAP_SIZE, MAP_SIZE)
+            t_res += time.perf_counter() - b
+            t_dec += b - a
+        n = len(datas)
+        out["loader_ms_per_image"] = dict(decode=t_dec * 1e3 / n, resize=t_res * 1e3 / n)
+        print(f"map path loader, host ms per image (one thread, {MAP_HW[0]}x{MAP_HW[1]} PNG "
+              f"-> {MAP_SIZE}^2 BICUBIC): decode {t_dec * 1e3 / n:.1f}, "
+              f"resize {t_res * 1e3 / n:.1f}, total {(t_dec + t_res) * 1e3 / n:.1f} "
+              f"[{card}]", flush=True)
+
+        # the CLI, in subprocesses: both loaders, the transient fault and the cut, at once
+        t0 = time.perf_counter()
+        runs = {"native": map_cli(root, tmp, "native"),
+                "tarfile": map_cli(root, tmp, "tarfile", ["--no_native"]),
+                "fault": map_cli(root, tmp, "fault", env={"TMR_FAULTS": MAP_FAULT}),
+                "cut": map_cli(root, tmp, "cut", env={"TMR_FAULTS": MAP_CUT})}
+
+        # the resume starts as soon as the cut run has died, beside the others
+        wait_cli(*runs["cut"], "cut", want_rc=1)
+        journal = ShardJournal(str(runs["cut"][1]["features"] / "_journal"))
+        if sorted(journal.load_all()) != ["Easy_0.tar", "Normal_0.tar"]:
+            fail(f"the cut run journaled {sorted(journal.load_all())}, expected shards 0-1")
+        runs["resume"] = map_cli(root, tmp, "cut", ["--resume"])
+        results = {}
+        for tag in ("native", "tarfile", "fault", "resume"):
+            wait_cli(*runs[tag], tag)
+            results[tag] = cli_result(np, runs[tag][1], tag)
+        cli_s = time.perf_counter() - t0
+        base = results["native"]
+        print(f"map path CLI (map | tee | reduce: 4 runs at once, the resume once the cut "
+              f"run has died: "
+              f"{cli_s:.1f} s):\n{base['table']}", end="", flush=True)
+        for tag, what in (("tarfile", "the tarfile loader's"), ("fault", "the fault run's"),
+                          ("resume", "the resumed run's")):
+            same = results[tag]["records"] == base["records"]
+            print(f"map path: {what} records {'equal' if same else 'DIFFER from'} the "
+                  f"native loader's uninterrupted run, byte for byte", flush=True)
+            if not same:
+                fail(f"map path: {what} records differ: {results[tag]['records']!r} vs "
+                     f"{base['records']!r}")
+        fault = results["fault"]["report"]["shards"][1]
+        if (fault["status"], fault["attempts"]) != ("ok", 2):
+            fail(f"map path: the transient fault was not retried to success: {fault}")
+        resumed = results["resume"]["report"]["resumed"]
+        if resumed != ["Easy_0.tar", "Normal_0.tar"]:
+            fail(f"map path: the resume took {resumed} from the journal")
+        files = feature_files(np, runs["native"][1]["features"])
+        counted = int(base["report"]["totals"]["images"])
+        side = MAP_SIZE // 16
+        wrong = [k for k, v in files.items() if v.shape != (side, side, 256)
+                 or v.dtype != np.float32 or not np.isfinite(v).all()]
+        if len(files) != counted or counted != 3 * MAP_IMAGES or wrong:
+            fail(f"map path: {len(files)} feature files for {counted} counted images, "
+                 f"{len(wrong)} not finite ({side}, {side}, 256) float32")
+        print(f"map path: {len(files)} feature files, ({side}, {side}, 256) float32, one per "
+              f"counted image; the corrupt tar quarantined on its first attempt in every "
+              f"run", flush=True)
+
+        # in this process: the launches per batch, the encoder's device time, the busy
+        # share and the images/s, on the native loader as the CLI runs it
+        enc = mr.make_encode_stats_fn(backbone)
+        enc(np.zeros((MAP_BATCH, MAP_SIZE, MAP_SIZE, 3), np.uint8))  # the batch-8 shapes, warm
+        torch.cuda.synchronize()
+        batches = []
+
+        def timed(images):
+            before = dict(_build.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            res = enc(images)
+            end.record()
+            batches.append((start, end, {k: v - before[k] for k, v in
+                                         _build.LAUNCHES.items()}))
+            return res
+
+        save, cleanup, sync = mr.make_feature_sinks(str(tmp / "features_timed"))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        timed_acc = mr.run_stream_native([str(p) for p in shards], timed, MAP_BATCH, MAP_SIZE,
+                                         save, 4, retry=mr.RetryPolicy(),
+                                         cleanup_features=cleanup, sync_features=sync)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        dev = [a.elapsed_time(b) for a, b, _ in batches]
+        wrong = [d for _, _, d in batches if d != MAP_BATCH_LAUNCHES]
+        print(f"map path launches over {len(batches)} batches of {MAP_BATCH}: "
+              f"{json.dumps(launches)} (per batch expected {json.dumps(MAP_BATCH_LAUNCHES)})",
+              flush=True)
+        if wrong or len(batches) != 2 * len(MAP_SHARDS):
+            fail(f"map path: batches launched {wrong or len(batches)}, expected "
+                 f"{MAP_BATCH_LAUNCHES} each over {2 * len(MAP_SHARDS)} batches")
+        images = int(timed_acc.table[:, 4].sum())
+        out.update(images=images, batches=len(batches), wall_s=wall,
+                   images_per_s=images / wall, device_ms_per_batch=sum(dev) / len(dev),
+                   device_ms_batches=dev, busy_share=sum(dev) / 1e3 / wall,
+                   launches=launches, cli_s=cli_s)
+        print(f"map path, in this process (native loader, 4 feeder threads, features "
+              f"saved): {images} images in {wall:.3f} s = {images / wall:.2f} images/s; "
+              f"encoder device ms per batch of {MAP_BATCH} (CUDA events) "
+              f"{', '.join(f'{x:.2f}' for x in dev)}, mean {sum(dev) / len(dev):.2f}; "
+              f"device busy share (events around each batch / wall) "
+              f"{sum(dev) / 1e3 / wall:.3f} [{card}]", flush=True)
+        if timed_acc.emit_lines() != base["records"].splitlines():
+            print("map path: this process's records differ from the CLI's (another "
+                  "process's encoder on the checkpoint's weights)", flush=True)
+
+        # the same run with the attention through attention_plain on the card
+        psave = mr.make_feature_sinks(str(tmp / "features_plain"))[0]
+        with plain_attention(cuda_attn):
+            plain_acc = mr.run_stream([str(p) for p in shards[:3]],
+                                      mr.make_encode_stats_fn(backbone), MAP_BATCH, MAP_SIZE,
+                                      psave, 4)
+        got, want = feature_files(np, tmp / "features_timed"), feature_files(
+            np, tmp / "features_plain")
+        if sorted(got) != sorted(want):
+            fail("map path: the attention_plain run wrote other feature files")
+        worst = max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                    for k in want)
+        scale = plain_acc.table[:3, 1:2]
+        table_err = float((np.abs(timed_acc.table[:3, :4] - plain_acc.table[:3, :4])
+                           / scale).max())
+        print(f"map path vs the same run with attention_plain on the card: features "
+              f"worst max|diff| / max|plain| {worst:.4e}, table sums worst |diff| / std sum "
+              f"{table_err:.4e} (tol {MAP_REL_TOL}); counts "
+              f"{'equal' if np.array_equal(timed_acc.table[:, 4], plain_acc.table[:, 4]) else 'DIFFER'}",
+              flush=True)
+        if (worst > MAP_REL_TOL or table_err > MAP_REL_TOL
+                or not np.array_equal(timed_acc.table[:3, 4], plain_acc.table[:3, 4])):
+            fail("map path disagrees with the attention_plain run")
+        out.update(features_vs_plain=worst, table_vs_plain=table_err)
+
+        # extract_feature at batch 1 on a 720 x 1280 image
+        rng = np.random.default_rng(SEED + 72)
+        write_png(np, tmp / "wide.png", rng.integers(0, 256, EXTRACT_HW + (3,), np.uint8))
+        times = []
+        for i in range(2):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with ctx.redirect_stdout(io.StringIO()) as printed:
+                stats = extract_feature.run_extraction_and_analyze(
+                    str(tmp / "wide.png"), str(tmp / f"extract_{i}"), model=backbone,
+                    image_size=MAP_SIZE)
+            times.append((time.perf_counter() - t0) * 1e3)
+            elaunch = dict(_build.LAUNCHES)
+            if elaunch != MAP_BATCH_LAUNCHES:
+                fail(f"extract_feature launched {elaunch}, expected {MAP_BATCH_LAUNCHES}")
+        dump = np.load(stats["save_path"])
+        if dump.shape != (1, side, side, 256) or dump.dtype != np.float32:
+            fail(f"extract_feature dumped {dump.shape} {dump.dtype}")
+        with plain_attention(cuda_attn), ctx.redirect_stdout(io.StringIO()):
+            pstats = extract_feature.run_extraction_and_analyze(
+                str(tmp / "wide.png"), str(tmp / "extract_plain"), model=backbone,
+                image_size=MAP_SIZE)
+        err = max(abs(stats[k] - pstats[k]) for k in ("mean", "std", "max", "sparsity"))
+        print(f"extract_feature (batch 1, 720x1280 -> {MAP_SIZE}^2): {times[0]:.1f} ms cold, "
+              f"{times[1]:.1f} ms warm (wall: preprocess, encoder, stats, .npy); launches "
+              f"{json.dumps(elaunch)}; dump {dump.shape} {dump.dtype}; stats "
+              f"{json.dumps({k: stats[k] for k in ('mean', 'std', 'max', 'sparsity')})}, "
+              f"worst |diff| from the attention_plain run {err:.4e} (tol {MAP_REL_TOL} x "
+              f"std {stats['std']:.4f}) [{card}]", flush=True)
+        print(printed.getvalue(), end="", flush=True)
+        if err > MAP_REL_TOL * stats["std"]:
+            fail("extract_feature disagrees with the attention_plain run")
+        out.update(extract_ms=times, extract_vs_plain=err)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _tar_payloads(path) -> list:
+    import tarfile
+
+    with tarfile.open(path) as tar:
+        return [tar.extractfile(m).read() for m in tar if m.isfile()]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2357,6 +2860,9 @@ def main(argv=None) -> int:
     train = check_train_path(torch, np, pred, card, (_build, cuda_attn, cuda_xcorr),
                              backward, args.profile)
     print(json.dumps({"train": train, "backward": backward}), flush=True)
+    # 5c. the map phase and extract_feature on phase 4's encoder
+    mapped = check_map_path(torch, np, pred, card, (_build, cuda_attn))
+    print(json.dumps({"map": mapped}), flush=True)
     del pred
     torch.cuda.empty_cache()
 

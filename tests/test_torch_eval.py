@@ -358,5 +358,6 @@ def test_main_parser_keeps_main_py_names_and_defaults():
     assert got["device"] == "cuda"
     cfg = port_main.to_config(port_main.config_parser(["--eval", "--device", "cpu"]))
     assert cfg.eval and cfg.backbone == "resnet50" and cfg.max_gt_boxes == 800
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError,
+                       match=r"--mesh_model: not ported yet \(ROADMAP A7\)"):
         port_main.main(["--eval", "--mesh_model", "2"])

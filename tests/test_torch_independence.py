@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no JAX, flax, tmr_tpu or cv2 import anywhere in
-``tmr_tpu_torch/`` or ``chip_smoke.py`` (PIL only inside the dataset readers' decode
-step), every module imports on a machine without a GPU, and the entry points refuse to
+``tmr_tpu_torch/`` or ``chip_smoke.py`` (PIL only inside the dataset readers' and the
+map phase's decode steps), every module imports on a machine without a GPU, and the entry points refuse to
 carry on on the CPU unless asked to."""
 
 import ast
@@ -71,6 +71,19 @@ def test_scan_covers_the_eval_modules():
         assert f"tmr_tpu_torch/{mod}" in names, mod
 
 
+@pytest.mark.parametrize("mod", [
+    "utils/profiling.py", "utils/atomicio.py", "utils/faults.py", "parallel/__init__.py",
+    "parallel/journal.py", "parallel/mapreduce.py", "diagnostics.py",
+    "data/native_io.py", "extract_feature.py"])
+def test_scan_covers_the_map_phase_modules(mod):
+    """The map phase's modules, including the copies of JAX-free JAX-package modules
+    (faults, journal, atomicio): each is the port's own, scanned like the rest."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n)]
+
+
 def _pil_imports(node, where="<module>"):
     """The enclosing function's name (or ``<module>``) of each import of PIL under
     ``node``."""
@@ -86,11 +99,13 @@ def _pil_imports(node, where="<module>"):
 
 
 def test_pil_is_imported_only_in_the_decode_step():
-    """PIL may be missing where the port runs: only ``_Base.decode`` imports it, inside
-    the function, so every module imports without it."""
+    """PIL may be missing where the port runs: only the decode steps import it, inside
+    the function (the datasets' ``_Base.decode`` and the map phase's
+    ``transforms.decode_image``), so every module imports without it."""
     where = [(str(p.relative_to(REPO)), fn) for p in _port_files()
              for fn in _pil_imports(ast.parse(p.read_text(), filename=str(p)))]
-    assert where == [("tmr_tpu_torch/data/datasets.py", "decode")]
+    assert sorted(where) == [("tmr_tpu_torch/data/datasets.py", "decode"),
+                             ("tmr_tpu_torch/data/transforms.py", "decode_image")]
 
 
 def test_every_port_module_imports_without_jax():

@@ -293,3 +293,29 @@ def test_wandb_sink_degrades_gracefully(monkeypatch, capsys):
     logger.finish()
     assert not logger.enabled
     assert "not installed" in capsys.readouterr().err
+
+
+def test_every_main_py_flag_is_parsed_or_refused_by_name():
+    """Each flag of the JAX ``main.py`` parses in the port; the ones the port does not
+    run raise, naming the flag and its ROADMAP item; ``--eval_multi_scale`` is a no-op
+    that reaches the config, as in the JAX package."""
+    import main as j_main
+
+    want = vars(j_main.config_parser([]))
+    got = vars(port_main.config_parser([]))
+    assert set(want) <= set(got), sorted(set(want) - set(got))
+    refused = {"--multi_gpu": ([], "A7"), "--mesh_data": (["2"], "A7"),
+               "--mesh_model": (["2"], "A7"), "--mesh_seq": (["2"], "A7"),
+               "--mesh_pipe": (["4"], "A7"), "--pp_microbatches": (["8"], "A7"),
+               "--autotune": ([], "A8")}
+    for flag, (value, item) in refused.items():
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag}: not ported yet \\(ROADMAP {item}\\)"):
+            port_main.main(["--device", "cpu", flag, *value])
+    with pytest.raises(NotImplementedError, match="--autotune.*--pp_microbatches|"
+                                                  "--pp_microbatches.*--autotune"):
+        port_main.main(["--autotune", "--pp_microbatches", "2"])
+    cfg = port_main.to_config(port_main.config_parser(["--eval_multi_scale"]))
+    assert cfg.eval_multi_scale is True
+    j_cfg = j_main.to_config(j_main.config_parser(["--eval_multi_scale"]))
+    assert j_cfg.eval_multi_scale is True

@@ -6,8 +6,11 @@ keeps NHWC float32 and does the resize itself in numpy (:func:`resize_linear_u8`
 cv2's fixed-point arithmetic for 8-bit images: half-pixel centres, 11-bit interpolation
 coefficients rounded half to even, a horizontal pass into int32 rows and a vertical pass
 ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2``. cv2 is not imported.
-``gt_based_random_crop`` and the SAM longest-side preprocessing belong to training and to
-the feature extractor and are not ported yet.
+The map phase's mapper resizes with Pillow's ``Image.resize((S, S))`` (BICUBIC for RGB);
+:func:`resize_bicubic_u8` is that resample in numpy, in Pillow's fixed-point form, and
+:func:`decode_image` is the one place of this module that imports PIL.
+:func:`sam_longest_side_preprocess` is the feature extractor's SAM preprocessing.
+``gt_based_random_crop`` belongs to training's augmentation and is not ported yet.
 """
 
 from __future__ import annotations
@@ -126,3 +129,101 @@ def pick_image_size(orig_boxes: np.ndarray, base: int = 1024, large: int = 1536,
     if w.min() < 25 and h.min() < 25:
         return large
     return base
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> uint8 (H, W, 3) RGB (PIL's ``convert("RGB")``). The one
+    function of the map phase that imports PIL: a caller without it swaps this out."""
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+#: Pillow's ``PRECISION_BITS`` for 8-bit resampling: coefficients are integers over 2^22
+_BICUBIC_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bicubic_filter`` (a = -0.5), in float64 with its operation order."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _bicubic_taps(src: int, dst: int):
+    """Pillow's ``precompute_coeffs`` for BICUBIC (support 2) and
+    ``normalize_coeffs_8bpc``: the first source index of each output coordinate (dst,),
+    and its int64 weights over 2^22 (dst, ksize), zero past each coordinate's taps."""
+    scale = float(np.float32(src)) / dst
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(dst, dtype=np.float64) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), src).astype(np.int64) - xmin
+    x = np.arange(ksize, dtype=np.int64)[None, :]
+    live = x < xmax[:, None]
+    w = _bicubic(((x + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(live, w, 0.0)
+    ww = np.cumsum(w, axis=1)[:, -1:]  # summed in tap order, as Pillow does
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    scaled = w * float(1 << _BICUBIC_BITS)
+    k = np.where(w < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled)).astype(np.int64)
+    return xmin, np.where(live, k, 0)
+
+
+def _bicubic_rows(img: np.ndarray, size: int) -> np.ndarray:
+    """One of Pillow's 8-bit passes along the first axis of a uint8 (src, ...) array:
+    per output row a rounding bias of 2^21 plus its taps' rows times their int32
+    weights, then ``clip8`` (the top bits, by arithmetic shift, clipped to 0..255).
+    Every product and partial sum stays below 2^31, as in Pillow's int32 sums."""
+    src = img.shape[0]
+    xmin, k = _bicubic_taps(src, size)
+    k = k.astype(np.int32).reshape(size, k.shape[1], *([1] * (img.ndim - 1)))
+    acc = np.full((size,) + img.shape[1:], 1 << (_BICUBIC_BITS - 1), np.int32)
+    for t in range(k.shape[1]):
+        tap = img[np.minimum(xmin + t, src - 1)].astype(np.int32)
+        tap *= k[:, t]
+        acc += tap
+    acc >>= _BICUBIC_BITS
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_u8(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Resize a uint8 (H, W, 3) RGB image to (height, width, 3), bit for bit Pillow's
+    ``Image.resize((width, height))`` (BICUBIC, the default for RGB): the horizontal pass
+    first (on the transposed image, so that both passes gather whole rows), then the
+    vertical, each skipped when its size does not change."""
+    img = _rgb(image)
+    if img.dtype != np.uint8:
+        raise TypeError(f"the resize takes uint8 images, got {img.dtype}")
+    if img.shape[1] != width:
+        cols = np.ascontiguousarray(img.transpose(1, 0, 2))
+        img = _bicubic_rows(cols, width).transpose(1, 0, 2)
+    if img.shape[0] != height:
+        img = _bicubic_rows(img, height)
+    return np.ascontiguousarray(img)
+
+
+SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+SAM_PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def sam_longest_side_preprocess(image: np.ndarray, target: int = 1024) -> np.ndarray:
+    """SAM's preprocessing (reference extract_feature.py:50-64): the longest side resized
+    to ``target`` (ResizeLongestSide: ``int(x + 0.5)`` of each scaled side, cv2's
+    ``INTER_LINEAR`` through :func:`resize_linear_u8`), normalized with the SAM pixel mean
+    and std on 0-255 values, zero-padded bottom and right: float32 (target, target, 3)."""
+    img = _rgb(image)
+    h, w = img.shape[:2]
+    scale = target / max(h, w)
+    nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+    img = resize_linear_u8(np.ascontiguousarray(img, np.uint8), nh, nw)
+    out = np.zeros((target, target, 3), np.float32)
+    out[:nh, :nw] = (img.astype(np.float32) - SAM_PIXEL_MEAN) / SAM_PIXEL_STD
+    return out

@@ -14,7 +14,9 @@ for training and what was forced is logged. ``--eval`` loads the highest-version
 Lightning ``best_model*.ckpt`` under ``--logpath`` (or its ``checkpoints/``). Either way
 the test metrics are printed as one JSON line. ``--device`` defaults to the GPU
 (``cuda``) and raises without one; ``--device cpu`` runs the plain CPU versions.
-``--refine_box``, ``--visualize`` and the mesh flags raise, each naming its ROADMAP item.
+``--refine_box``, ``--visualize``, the mesh flags, ``--pp_microbatches`` and ``--autotune``
+raise, each naming its ROADMAP item; ``--eval_multi_scale`` is accepted and unused, as in
+``main.py``.
 """
 
 from __future__ import annotations
@@ -84,6 +86,8 @@ def config_parser(argv=None):
     p.add_argument("--ablation_no_box_regression", action="store_true")
     p.add_argument("--template_type", type=str, default="roi_align")
     p.add_argument("--feature_upsample", action="store_true")
+    p.add_argument("--eval_multi_scale", action="store_true",
+                   help="accepted and unused, as in the reference and the JAX package")
     p.add_argument("--regression_scaling_imgsize", action="store_true")
     p.add_argument("--regression_scaling_WH_only", action="store_true")
     p.add_argument("--focal_loss", action="store_true")
@@ -103,18 +107,27 @@ def config_parser(argv=None):
     p.add_argument("--mesh_model", default=1, type=int)
     p.add_argument("--mesh_seq", default=1, type=int)
     p.add_argument("--mesh_pipe", default=1, type=int)
+    p.add_argument("--pp_microbatches", default=0, type=int,
+                   help="pipeline microbatches: not ported yet, raises (ROADMAP A7)")
     p.add_argument("--compute_dtype", default="bfloat16", type=str)
     p.add_argument("--max_detections", default=2000, type=int)
     p.add_argument("--profile_dir", default=None, type=str,
                    help="a torch.profiler trace of the first trained epoch goes here")
     p.add_argument("--remat_backbone", action="store_true",
                    help="recompute each ViT block on the backward pass")
+    p.add_argument("--autotune", action="store_true",
+                   help="kernel-formulation autotuning: not ported yet, raises "
+                        "(ROADMAP A8)")
     return p.parse_args(argv)
 
 
-#: mesh flags and their single-device values: any other value raises (ROADMAP A9)
-_MESH_DEFAULTS = {"multi_gpu": False, "mesh_data": -1, "mesh_model": 1, "mesh_seq": 1,
-                  "mesh_pipe": 1}
+#: flags of ``main.py`` the port refuses, their values that change nothing, and the
+#: ROADMAP item that ports them: the mesh flags (multi-device runs), the pipeline's
+#: microbatches and the autotuner
+_REFUSED_DEFAULTS = {"multi_gpu": (False, "A7"), "mesh_data": (-1, "A7"),
+                     "mesh_model": (1, "A7"), "mesh_seq": (1, "A7"),
+                     "mesh_pipe": (1, "A7"), "pp_microbatches": (0, "A7"),
+                     "autotune": (False, "A8")}
 
 
 def to_config(args):
@@ -141,10 +154,12 @@ def scrub_training_config(cfg):
 
 def main(argv=None) -> dict:
     args = config_parser(argv)
-    meshed = [k for k, v in _MESH_DEFAULTS.items() if getattr(args, k) != v]
-    if meshed:
-        raise NotImplementedError(f"--{' --'.join(meshed)}: multi-device runs are not "
-                                  "ported yet (ROADMAP A9)")
+    refused = [(k, item) for k, (v, item) in _REFUSED_DEFAULTS.items()
+               if getattr(args, k) != v]
+    if refused:
+        raise NotImplementedError(
+            "; ".join(f"--{k}: not ported yet (ROADMAP {item})" for k, item in refused)
+            + " (the multi-device runs and the pipeline are A7, the autotuner A8)")
     import torch
 
     from tmr_tpu_torch.train.loop import Trainer

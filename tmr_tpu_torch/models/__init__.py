@@ -34,6 +34,38 @@ def build_backbone(cfg, device=None) -> SamViT:
         return build_sam_vit(kind, dtype=compute_dtype(cfg), remat=cfg.remat_backbone)
 
 
+#: the SAM encoder names the entry points take (reference models/backbone/__init__.py:22:
+#: 'sam' is ViT-H)
+SAM_ALIASES = {"sam": "vit_h", "sam_vit_h": "vit_h", "sam_vit_b": "vit_b",
+               "vit_h": "vit_h", "vit_b": "vit_b"}
+
+
+def build_sam_encoder(model_type: str = "vit_b", checkpoint: str = None,
+                      dtype: torch.dtype = torch.bfloat16, device=None) -> SamViT:
+    """The standalone SAM encoder of the map phase and ``extract_feature`` (counterpart
+    of ``tmr_tpu.models.build_sam_encoder``), in eval mode on ``device``
+    (:func:`resolve_device`). With ``checkpoint`` the weights come from a SAM(-HQ)
+    ``.pth`` through ``utils.convert.sam_vit_state_dict`` (under ``image_encoder.`` when
+    any key has that prefix, else a bare encoder export); otherwise they are seeded
+    (``utils.weights.init_params`` with seed 0)."""
+    from tmr_tpu_torch.utils.convert import load_torch_state_dict, sam_vit_state_dict
+    from tmr_tpu_torch.utils.weights import init_params
+
+    kind = SAM_ALIASES.get(model_type)
+    if kind is None:
+        raise KeyError(f"unknown SAM encoder {model_type!r} (one of {sorted(SAM_ALIASES)})")
+    device = resolve_device(device)
+    with device:
+        model = build_sam_vit(kind, dtype=dtype)
+    if checkpoint:
+        sd = load_torch_state_dict(checkpoint)
+        prefix = "image_encoder." if any(k.startswith("image_encoder.") for k in sd) else ""
+        model.load_state_dict(sam_vit_state_dict(sd, prefix))
+    else:
+        init_params(model, 0)
+    return model.eval()
+
+
 def build_model(cfg, backbone=None, device=None) -> MatchingNet:
     """The detector for ``cfg`` on ``device`` (:func:`resolve_device`); ``backbone``
     overrides the registry's encoder (the tests pass a narrow SamViT)."""

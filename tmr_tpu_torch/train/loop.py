@@ -28,7 +28,6 @@ import contextlib
 import csv
 import dataclasses
 import os
-import sys
 import time
 from typing import Dict, Iterator, Mapping, Optional
 
@@ -43,13 +42,9 @@ from tmr_tpu_torch.utils.convert import load_matching_net
 from tmr_tpu_torch.utils.metrics import (coco_style_annotation_generator,
                                          del_img_log_path, get_ap_scores, get_mae_rmse,
                                          image_info_collector)
+from tmr_tpu_torch.utils.profiling import log_info
 from tmr_tpu_torch.utils.wandb_logger import WandbLogger
 from tmr_tpu_torch.utils.weights import init_params, params_from_jax
-
-
-def log_info(msg: str) -> None:
-    """Progress lines go to stderr; stdout is left to the caller's results."""
-    print(msg, file=sys.stderr, flush=True)
 
 
 class CSVLogger:

@@ -147,6 +147,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    loader's host ms per image (decode, resize), images/s, the encoder's device ms per
    batch of 8, the device's busy share (events around each batch over the wall) and
    ``extract_feature``'s ms, with the card, and a ``{"map": ...}`` JSON line;
+5d. SAM box refinement (run after 5c, on phase 4's weights and ``build_refiner`` with
+   seed 0; the refiner is f32 PyTorch and launches none of the port's kernels): batch 2
+   of phase 4 (bucket 33) through ``Predictor.__call__`` with ``refine_box`` must launch
+   exactly global 4, window 8, xcorr 1, nms 1 and nothing else, its NMS keep mask on the
+   refined boxes must equal the plain version's, and its ms are taken in turns with the
+   unrefined call (plain, refined, refined, plain); the refiner on that batch against an
+   f32 CPU run of the same refiner on image 0's first 32 valid slots: thresholded mask
+   pixels equal except where the CPU's logit lies within 1e-4 of its mask's largest
+   |logit|, boxes of slots whose masks agree within 1e-6, scores within 1e-5 of the
+   largest score, invalid slots unchanged bit for bit and refs the box centres; one
+   chunk of 50 prompts timed whole and in parts (prompt encoder and two-way transformer,
+   upscaling and masks, the full-size resize and boxes) beside its bound (its operations,
+   ``decoder_flops``, at the f32 peak); ``predict_multi_batch`` with the refiner on batch
+   0 of phase 4d (launches exactly a third of phase 4d's; the device tail's lists equal
+   the host tail's) and ``_get_heads_fn`` on the backbone's features equal to the fused
+   call bit for bit; ``Trainer.test`` with the refiner on phase 5's split at
+   num_exemplars 1 and 3 (phase 5's checks: launches per batch, detections equal to the
+   refining Predictor's bit for bit, losses, MAE/RMSE), its images/s beside phase 5's
+   warm runs; then the segment-anything surface on phase 4's encoder and the refiner's
+   decoder: ``SamPredictor.set_image`` on a 720 x 1280 image must launch exactly global 4
+   and window 8, a box and a point prompt each give a mask of the original size, and
+   ``SamAutomaticMaskGenerator.generate`` (8^2 points, quality filters open) launches
+   NMS once through the port's kernel. Printed: ms per batch with and without
+   refinement, a chunk's ms and its parts, eval images/s, ``set_image`` and ``predict``
+   ms, the mask generator's seconds per image, and a ``{"refine": ...}`` JSON line;
 6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1612,11 +1637,12 @@ def in_memory_images(images: dict):
         datasets.FSCD147Dataset = base
 
 
-def run_eval(torch, cfg, model, state_dict, _build, device):
+def run_eval(torch, cfg, model, state_dict, _build, device, refiner=None):
     """``Trainer.test(params=state_dict)`` with each eval batch recorded: the batch, its
     losses and detections, its launches and its time (synchronized around the batch's
-    program). Returns (metrics, records, (wall seconds of the whole eval, of its end:
-    the COCO files merged and the metrics computed), the trainer)."""
+    program); ``refiner`` goes to the Trainer (phase 5d). Returns (metrics, records,
+    (wall seconds of the whole eval, of its end: the COCO files merged and the metrics
+    computed), the trainer)."""
     from tmr_tpu_torch.train.loop import Trainer
 
     records, finish_s = [], []
@@ -1640,18 +1666,19 @@ def run_eval(torch, cfg, model, state_dict, _build, device):
             finish_s.append(time.perf_counter() - t0)
             return out
 
-    tr = RecordingTrainer(cfg, device=device, model=model)
+    tr = RecordingTrainer(cfg, device=device, model=model, refiner=refiner)
     t0 = time.perf_counter()
     metrics = tr.test(params=state_dict)
     return metrics, records, (time.perf_counter() - t0, finish_s[0]), tr
 
 
-def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) -> None:
+def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) -> dict:
     """Phase 5: ``Trainer.test(params=...)`` on phase 4's weights over a synthetic
     FSCD-147-layout test split of 12 images, 8 at 1024 and 4 escalated to 1536, at
     num_exemplars 1 (eval_batch_size 4) and 3 (forced to 1), each twice: the first run
     pays the first calls at the eval's shapes (cold), the second is timed warm. With
-    ``profile``, a torch.profiler breakdown of the 1536 batch's program."""
+    ``profile``, a torch.profiler breakdown of the 1536 batch's program. Returns the warm
+    runs' images/s end to end by num_exemplars."""
     import dataclasses
     import os
     import tempfile
@@ -1663,6 +1690,7 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
     from tmr_tpu_torch.train.state import compute_losses
 
     _build, = modules
+    rates = {}
     with tempfile.TemporaryDirectory() as tmp:
         images = eval_split(np, os.path.join(tmp, "fsc"))
         base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), eval=True,
@@ -1694,8 +1722,11 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
                 print(f"{name}: peak device memory "
                       f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]",
                       flush=True)
-                check_eval_run(torch, np, pred, tr, name, metrics, records, wall,
-                               phase4_ms, card, compute_losses, detections_to_numpy)
+                rate = check_eval_run(torch, np, pred, tr, name, metrics, records, wall,
+                                      phase4_ms, card, compute_losses,
+                                      detections_to_numpy)
+                if run == "warm":
+                    rates[k] = rate
                 if k == 1:  # the 1536 batch of 4, for the objectness check below
                     big = next(r["batch"] for r in records
                                if r["batch"]["image"].shape[1] == 1536)
@@ -1706,13 +1737,15 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
                 del records, tr
     # the 1536 bucket's objectness against an f32 CPU run (phase 4's measure)
     check_1536_objectness(torch, pred, Predictor, big["image"], big["exemplars"])
+    return rates
 
 
 def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms, card,
-                   compute_losses, detections_to_numpy) -> None:
+                   compute_losses, detections_to_numpy) -> float:
     """The checks of one eval run: launches per batch, detections equal to the port
     Predictor's on the same tensors, losses equal to ``compute_losses`` on the same
-    model outputs and finite, MAE/RMSE equal to those of the detection counts."""
+    model outputs and finite, MAE/RMSE equal to those of the detection counts. Returns
+    the run's images/s end to end."""
     cfg = tr.cfg
     k = cfg.num_exemplars
     print(f"{name}: metrics {json.dumps(metrics)}", flush=True)
@@ -1787,6 +1820,7 @@ def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms,
         fail(f"{name}: MAE/RMSE of the COCO files differ from the detection counts'")
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"{name}: non-finite metrics {metrics}")
+    return n_img / wall
 
 
 #: phase 5b's attention backward against ``torch.autograd.grad`` of ``attention_plain``
@@ -2718,6 +2752,351 @@ def check_map_path(torch, np, pred, card, modules) -> dict:
     return out
 
 
+#: phase 5d: the refiner launches no kernel of the port's, so a refined batch launches
+#: what one of phase 5's eval batches does; ``set_image`` the encoder's blocks alone
+REFINE_LAUNCHES = EVAL_LAUNCHES
+SAM_ENCODER_LAUNCHES = dict(EVAL_LAUNCHES, xcorr=0, nms=0)
+#: the card's refinement against an f32 CPU run of the same refiner on the first
+#: REFINE_CPU_SLOTS valid slots of image 0: a thresholded mask pixel may differ only where
+#: the CPU's logit lies within REFINE_PIXEL_REL of its mask's largest |logit| (f32 sums in
+#: another order); the boxes of slots whose masks agree within REFINE_BOX_TOL (normalized:
+#: the boxes of equal masks are equal); scores within REFINE_SCORE_REL of the largest
+REFINE_CPU_SLOTS = 32
+REFINE_PIXEL_REL = 1e-4
+REFINE_BOX_TOL = 1e-6
+REFINE_SCORE_REL = 1e-5
+SAM_IMAGE_HW = (720, 1280)
+#: the mask generator's point grid: 8 x 8 points, one decode batch of 64, quality
+#: filters open (the weights are random, so predicted IoUs say nothing)
+AMG_POINTS_PER_SIDE = 8
+
+
+def decoder_flops(h: int, w: int, d: int = 256, mlp: int = 2048, tokens: int = 7,
+                  depth: int = 2, mask_tokens: int = 4) -> float:
+    """Multiply-adds x 2 of one box prompt through the mask decoder on an h x w grid:
+    the two-way blocks (token self-attention, both cross-attentions at d / 2, the token
+    MLP), the final attention, the two transposed convs, the hypernetworks and the mask
+    product (``models/sam_decoder.py``)."""
+    n, di = h * w, d // 2
+    self_attn = 4 * 2 * tokens * d * d + 2 * 2 * tokens * tokens * d
+    t2i = 2 * tokens * d * di + 2 * 2 * n * d * di + 2 * 2 * tokens * n * di \
+        + 2 * tokens * di * d
+    i2t = 2 * n * d * di + 2 * 2 * tokens * d * di + 2 * 2 * n * tokens * di \
+        + 2 * n * di * d
+    block = self_attn + t2i + 2 * 2 * tokens * d * mlp + i2t
+    upscale = 2 * n * d * d + 2 * (4 * n) * (d // 4) * (d // 8 * 4)
+    hyper = mask_tokens * 2 * (2 * d * d + d * d // 8)
+    masks = 2 * mask_tokens * (16 * n) * (d // 8)
+    return float(depth * block + t2i + upscale + hyper + masks)
+
+
+def full_logits(torch, refiner, feature, boxes_px, size: int, step: int = 16):
+    """The full-size mask logits (M, size, size) of box prompts, ``step`` at a time."""
+    from tmr_tpu_torch.models.sam_decoder import resize_align_corners
+
+    with torch.inference_mode():
+        pe = refiner.prompt_encoder.dense_pe(feature.shape[1:3])
+        return torch.cat([resize_align_corners(
+            refiner._decode(feature, pe, boxes_px[s:s + step], (size, size))[0],
+            (size, size)) for s in range(0, boxes_px.shape[0], step)])
+
+
+def check_refine_vs_cpu(torch, refiner, dets0, feature, card, size: int) -> dict:
+    """The card's ``refine`` of a batch (``card``, from ``dets0`` and ``feature``)
+    against an f32 CPU run of the same refiner on image 0's first REFINE_CPU_SLOTS valid
+    slots; invalid slots unchanged bit for bit and refs the box centres on every image."""
+    import copy
+
+    inv = ~dets0["valid"]
+    same_inv = (torch.equal(card["boxes"][inv], dets0["boxes"][inv])
+                and torch.equal(card["scores"][inv], dets0["scores"][inv]))
+    b = card["boxes"]
+    centres = torch.equal(card["refs"], torch.stack([(b[..., 0] + b[..., 2]) / 2,
+                                                     (b[..., 1] + b[..., 3]) / 2], -1))
+    idx = torch.nonzero(dets0["valid"][0])[:REFINE_CPU_SLOTS, 0]
+    if idx.numel() < REFINE_CPU_SLOTS:
+        fail(f"refine: image 0 has {idx.numel()} valid slots, the check takes "
+             f"{REFINE_CPU_SLOTS}")
+    cpu_ref = copy.deepcopy(refiner).cpu()
+    sub = {k: dets0[k][:1].cpu().clone() for k in ("boxes", "scores", "refs", "valid")}
+    sub["valid"][:] = False
+    sub["valid"][0, idx.cpu()] = True
+    feat0 = feature[:1].float().cpu()
+    t0 = time.perf_counter()
+    cpu_out = cpu_ref.refine(feat0, sub, (size, size))
+    cpu_s = time.perf_counter() - t0
+    got_b, want_b = card["boxes"][0, idx].cpu(), cpu_out["boxes"][0, idx.cpu()]
+    got_s, want_s = card["scores"][0, idx].cpu(), cpu_out["scores"][0, idx.cpu()]
+    px = dets0["boxes"][0, idx].float() * size
+    lg_card = full_logits(torch, refiner, feature[:1].float(), px, size).cpu()
+    lg_cpu = full_logits(torch, cpu_ref, feat0, px.cpu(), size)
+    near = lg_cpu.abs() < REFINE_PIXEL_REL * lg_cpu.abs().flatten(1).amax(1)[:, None, None]
+    differ = (lg_card > 0) != (lg_cpu > 0)
+    agree = ~differ.flatten(1).any(1)
+    out = {
+        "slots": int(idx.numel()),
+        "pixels_differ": int(differ.sum()),
+        "pixels_differ_outside_band": int((differ & ~near).sum()),
+        "masks_agree": int(agree.sum()),
+        "box_max_abs_diff": float((got_b - want_b).abs()[agree].max()) if agree.any()
+        else 0.0,
+        "score_max_diff_rel": float((got_s - want_s).abs().max() / want_s.abs().max()),
+        "logit_max_abs_diff_rel": float(((lg_card - lg_cpu).abs().flatten(1).amax(1)
+                                         / lg_cpu.abs().flatten(1).amax(1)).max()),
+        "invalid_unchanged": same_inv, "refs_are_centres": centres,
+        "cpu_s": cpu_s}
+    print(f"refine vs an f32 CPU run, image 0's first {out['slots']} valid slots at "
+          f"{size}^2: mask pixels that differ {out['pixels_differ']} of "
+          f"{differ.numel()}, outside the |logit| < {REFINE_PIXEL_REL} x max band "
+          f"{out['pixels_differ_outside_band']} (must be 0); masks equal "
+          f"{out['masks_agree']}; their boxes' max_abs_diff {out['box_max_abs_diff']:.3e} "
+          f"(tol {REFINE_BOX_TOL}); scores {out['score_max_diff_rel']:.3e} of the max "
+          f"(tol {REFINE_SCORE_REL}); logits {out['logit_max_abs_diff_rel']:.3e} of each "
+          f"mask's max; invalid slots unchanged {same_inv}, refs the centres {centres} "
+          f"({cpu_s:.1f} s on the CPU)", flush=True)
+    if (out["pixels_differ_outside_band"] or out["box_max_abs_diff"] > REFINE_BOX_TOL
+            or out["score_max_diff_rel"] > REFINE_SCORE_REL or not same_inv
+            or not centres):
+        fail("the card's refinement disagrees with the f32 CPU run")
+    return out
+
+
+def refine_parts_ms(torch, refiner, feature, boxes_px, size: int) -> dict:
+    """One chunk of ``refiner.chunk`` box prompts on image 0, by CUDA events: the whole
+    ``_decode_chunk``, the prompt encoder and two-way transformer, the whole decoder,
+    beside the chunk's bound (its operations at the f32 peak)."""
+    md, pe_mod = refiner.mask_decoder, refiner.prompt_encoder
+    hw = tuple(feature.shape[1:3])
+    with torch.inference_mode():
+        pe = pe_mod.dense_pe(hw)
+        sparse, dense = pe_mod(boxes_px, (size, size), hw)
+        n = boxes_px.shape[0]
+        tokens = torch.cat([torch.cat([md.iou_token, md.mask_tokens])[None].expand(
+            n, -1, -1), sparse], 1)
+        src = feature.expand(n, -1, -1, -1) + dense
+        pos = pe[None].expand(src.shape)
+        out = {
+            "chunk_ms": cuda_ms(lambda: refiner._decode_chunk(
+                feature, pe, boxes_px, (size, size), (size, size)), reps=5),
+            "decoder_ms": cuda_ms(lambda: refiner._decode(feature, pe, boxes_px,
+                                                          (size, size)), reps=5),
+            "transformer_ms": cuda_ms(lambda: md.transformer(src, pos, tokens), reps=5),
+        }
+    out["upscale_ms"] = out["decoder_ms"] - out["transformer_ms"]
+    out["resize_boxes_ms"] = out["chunk_ms"] - out["decoder_ms"]
+    flops = decoder_flops(*hw) * n
+    out["bound_ms"], out["bound_by"] = bound(flops, feature.numel() * 4, PEAK_F32_FLOPS)
+    out["prompts"] = n
+    return out
+
+
+def check_refine_path(torch, np, pred, batches, multi_batches, card, phase4_ms,
+                      eval_rates, modules, profile=False) -> dict:
+    """Phase 5d: SAM box refinement (``build_refiner`` with seed 0) on phase 4's weights:
+    one batch of phase 4 through ``Predictor.__call__`` with ``refine_box`` (launches,
+    ms with and without refinement in turns, the NMS keep mask on refined boxes, the
+    refiner against an f32 CPU run, a chunk's parts), ``predict_multi_batch`` on a batch
+    of phase 4d (launches; the device tail's lists), ``_get_heads_fn`` against the fused
+    call, ``Trainer.test`` with the refiner on phase 5's split (num_exemplars 1 and 3),
+    and the segment-anything surface on phase 4's encoder and the refiner's decoder."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+    from tmr_tpu_torch.refine import build_refiner
+    from tmr_tpu_torch.train.state import compute_losses
+
+    _build, cuda_nms = modules
+    cfg = dataclasses.replace(pred.cfg, refine_box=True)
+    refiner = build_refiner(cfg, seed=SEED, device="cuda")
+    rpred = Predictor(cfg, device="cuda", model=pred.model, refiner=refiner)
+    imgs, ex = batches[2]
+    size = imgs.shape[1]
+    cap = rpred.pick_capacity(ex, size)
+    out = {"chunk": refiner.chunk}
+
+    # one refined batch: its launches and prompts, then ms with and without, in turns
+    rpred(imgs, ex)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with call_count(refiner, "_decode") as decodes:
+        fused = rpred(imgs, ex)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    prompts = sum(int(args[2].shape[0]) for args, _ in decodes)
+    print(f"refined batch (bucket {cap}): launches {json.dumps(launches)} (the refiner "
+          f"launches none of the port's kernels); {prompts} box prompts in "
+          f"{len(decodes)} chunks of <= {refiner.chunk}", flush=True)
+    if launches != REFINE_LAUNCHES:
+        fail(f"refined batch launches {launches}, expected {REFINE_LAUNCHES}")
+    turns = {"plain": [], "refined": []}
+    for name, p in (("plain", pred), ("refined", rpred), ("refined", rpred),
+                    ("plain", pred)):
+        t0 = time.perf_counter()
+        p(imgs, ex)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    plain_ms, refined_ms = (sum(v) / 2 for v in (turns["plain"], turns["refined"]))
+    out.update(prompts=prompts, chunks=len(decodes), plain_ms=plain_ms,
+               refined_ms=refined_ms, refine_ms=refined_ms - plain_ms,
+               ms_per_prompt=(refined_ms - plain_ms) / prompts)
+    print(f"refined batch of 4 at 1024, in turns (plain, refined, refined, plain): "
+          f"{refined_ms:.1f} ms with refinement, {plain_ms:.1f} ms without "
+          f"({' '.join(f'{v:.1f}' for v in turns['refined'])} / "
+          f"{' '.join(f'{v:.1f}' for v in turns['plain'])}); the refinement "
+          f"{out['refine_ms']:.1f} ms, {out['ms_per_prompt'] * 1e3:.1f} us a prompt "
+          f"[{card}]", flush=True)
+    check_main_path_nms(torch, lambda: rpred(imgs, ex), cuda_nms, "refined batch")
+
+    # the refiner alone on the card against the CPU, and a chunk's parts
+    with torch.inference_mode():
+        img_dev = torch.as_tensor(imgs, device="cuda")
+        ex_dev = torch.as_tensor(ex, device="cuda")
+        mout = pred.model(img_dev, ex_dev, cap)
+        dets0 = pred._decode(mout, ex_dev[:, 0, :])
+        feature = mout["backbone_feature"]
+        card_out = refiner.refine(feature, dets0, (size, size))
+    out["cpu_check"] = check_refine_vs_cpu(torch, refiner, dets0, feature, card_out, size)
+    idx = torch.nonzero(dets0["valid"][0])[:refiner.chunk, 0]
+    parts = refine_parts_ms(torch, refiner, feature[:1].float().contiguous(),
+                            dets0["boxes"][0, idx] * size, size)
+    out["chunk_parts"] = parts
+    print(f"refiner, one chunk of {parts['prompts']} box prompts on a 64^2 grid at "
+          f"{size}^2: {parts['chunk_ms']:.3f} ms (prompt encoder + two-way transformer "
+          f"{parts['transformer_ms']:.3f}, upscaling and masks "
+          f"{parts['upscale_ms']:.3f}, full-size resize, threshold and boxes "
+          f"{parts['resize_boxes_ms']:.3f}); bound {parts['bound_ms']:.3f} ms "
+          f"({parts['bound_by']}, f32 peak) [{card}]", flush=True)
+    if profile:
+        profile_batch(torch, lambda: rpred(imgs, ex), "refined path")
+
+    # the multi and split programs with the refiner
+    mimgs, mex = multi_batches[0]
+    k_real = np.array(MULTI_K_REAL, np.int32)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    multi = rpred.predict_multi_batch(mimgs, mex, k_real)
+    torch.cuda.synchronize()
+    out["multi_ms"] = (time.perf_counter() - t0) * 1e3
+    mlaunches = dict(_build.LAUNCHES)
+    want_launches = {k: v // 3 for k, v in MULTI_LAUNCHES.items()}
+    dpred = Predictor(dataclasses.replace(cfg, decode_tail="device"), device="cuda",
+                      model=pred.model, refiner=refiner)
+    same_tail = lists_equal(np, detections_to_numpy(multi),
+                            detections_to_numpy(dpred.predict_multi_batch(mimgs, mex,
+                                                                          k_real)))
+    feats = rpred._get_backbone_fn()(imgs)
+    split = rpred._get_heads_fn(cap, size)(feats, ex)
+    torch.cuda.synchronize()
+    diff = [f for f in ("boxes", "scores", "refs", "valid")
+            if not torch.equal(split[f], fused[f])]
+    print(f"refined multi batch (4 images x 3 exemplars, k_real {MULTI_K_REAL}, "
+          f"{multi['valid'].shape[1]} union slots an image): {out['multi_ms']:.1f} ms "
+          f"[{card}]; launches {json.dumps(mlaunches)}; the device tail's lists equal the "
+          f"host tail's: {same_tail}; heads on the backbone's features vs the fused call, "
+          f"fields that differ bit for bit: {diff or 'none'}", flush=True)
+    if mlaunches != want_launches:
+        fail(f"refined multi batch launches {mlaunches}, expected {want_launches}")
+    if not same_tail or diff:
+        fail("refined multi or split programs differ from the call made another way")
+
+    # eval with refinement on phase 5's split
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"))
+        base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), eval=True,
+                      num_workers=4, refine_box=True)
+        state_dict = pred.model.state_dict()
+        with in_memory_images(images):
+            for k in (1, 3):
+                kcfg = dataclasses.replace(base, logpath=os.path.join(tmp, f"log{k}"),
+                                           num_exemplars=k, eval_batch_size=4)
+                metrics, records, wall, tr = run_eval(torch, kcfg, pred.model, state_dict,
+                                                      _build, pred.device, refiner)
+                name = f"eval with refinement num_exemplars={k}"
+                rates[k] = check_eval_run(torch, np, tr.predictor, tr, name, metrics,
+                                          records, wall, phase4_ms, card, compute_losses,
+                                          detections_to_numpy)
+                print(f"{name}: {rates[k]:.2f} img/s end to end beside phase 5's "
+                      f"{eval_rates[k]:.2f} (warm, without refinement) [{card}]",
+                      flush=True)
+                del records, tr
+    out["eval_img_s"] = rates
+    out["phase5_eval_img_s"] = dict(eval_rates)
+    out["sam"] = check_sam_surface(torch, np, pred, refiner, card, _build)
+    return out
+
+
+def check_sam_surface(torch, np, pred, refiner, card, _build) -> dict:
+    """The segment-anything surface on phase 4's ViT-B encoder and the refiner's prompt
+    encoder and mask decoder: ``SamPredictor`` on one 720 x 1280 image (``set_image``
+    launches global 4 and window 8, nothing else; a box and a point prompt each give a
+    mask of the original size), then ``SamAutomaticMaskGenerator.generate`` (its NMS
+    through the port's kernel)."""
+    from tmr_tpu_torch.sam import Sam, SamAutomaticMaskGenerator, SamPredictor
+
+    sam = Sam("vit_b", device="cuda")
+    state = {"image_encoder." + k: v for k, v in pred.model.backbone.state_dict().items()}
+    state.update(refiner.state_dict())
+    sam.load_state_dict(state)
+    rng = np.random.default_rng(SEED + 17)
+    h, w = SAM_IMAGE_HW
+    img = rng.uniform(0, 60, (h, w, 3)).astype(np.uint8)
+    for y, x, side in ((100, 200, 160), (400, 700, 120), (250, 1000, 200)):
+        img[y:y + side, x:x + side] = (200, 180, 40)
+    sp = SamPredictor(sam)
+    sp.set_image(img)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sp.set_image(img)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    masks = {}
+    prompts = {"box": dict(box=np.array([190.0, 90.0, 370.0, 270.0], np.float32)),
+               "point": dict(point_coords=np.array([[760.0, 460.0]], np.float32),
+                             point_labels=np.array([1], np.int32))}
+    predict_ms = {}
+    for name, kw in prompts.items():
+        sp.predict(**kw)  # warm-up
+        t0 = time.perf_counter()
+        masks[name] = sp.predict(**kw)
+        predict_ms[name] = (time.perf_counter() - t0) * 1e3
+    ok = all(m.shape == (h, w) and m.dtype == bool and math.isfinite(iou)
+             for m, iou in masks.values())
+    print(f"SamPredictor on {h} x {w}: set_image {set_ms:.1f} ms, launches "
+          f"{json.dumps(launches)}; predict (host clock, the resize to the original on the "
+          f"host included) box {predict_ms['box']:.1f} ms, point "
+          f"{predict_ms['point']:.1f} ms; masks {[m.shape for m, _ in masks.values()]}, "
+          f"pixels {[int(m.sum()) for m, _ in masks.values()]}, IoU "
+          f"{[round(i, 4) for _, i in masks.values()]} [{card}]", flush=True)
+    if launches != SAM_ENCODER_LAUNCHES or not ok:
+        fail(f"SamPredictor: launches {launches} (expected {SAM_ENCODER_LAUNCHES}) or "
+             "masks not of the original size")
+    amg = SamAutomaticMaskGenerator(sam, points_per_side=AMG_POINTS_PER_SIDE,
+                                    points_per_batch=64, pred_iou_thresh=-1e9,
+                                    stability_score_thresh=-1.0)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    records = amg.generate(img)
+    torch.cuda.synchronize()
+    amg_s = time.perf_counter() - t0
+    alaunches = dict(_build.LAUNCHES)
+    ok = bool(records) and all(r["segmentation"].shape == (h, w) for r in records)
+    print(f"SamAutomaticMaskGenerator ({AMG_POINTS_PER_SIDE}^2 points, quality filters "
+          f"open): {len(records)} masks in {amg_s:.2f} s per image, launches "
+          f"{json.dumps(alaunches)} [{card}]", flush=True)
+    want = dict(SAM_ENCODER_LAUNCHES, nms=1)
+    if alaunches != want or not ok:
+        fail(f"mask generator: launches {alaunches} (expected {want}) or no mask of the "
+             "image's size")
+    return {"set_image_ms": set_ms, "predict_ms": predict_ms, "amg_s": amg_s,
+            "amg_masks": len(records)}
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     saved = getattr(module, name)
@@ -2852,8 +3231,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 5. eval through Trainer.test on the same weights, both size buckets
-    check_eval_path(torch, np, pred, card, sum(times) / len(times), (_build,),
-                    args.profile)
+    eval_rates = check_eval_path(torch, np, pred, card, sum(times) / len(times),
+                                 (_build,), args.profile)
     # 5b. training: the attention backward at main-path shapes, then Trainer.fit from the
     # same weights
     backward = check_backward_kernels(torch, cuda_attn, card)
@@ -2863,6 +3242,11 @@ def main(argv=None) -> int:
     # 5c. the map phase and extract_feature on phase 4's encoder
     mapped = check_map_path(torch, np, pred, card, (_build, cuda_attn))
     print(json.dumps({"map": mapped}), flush=True)
+    # 5d. SAM box refinement and the segment-anything surface on phase 4's weights
+    refined = check_refine_path(torch, np, pred, batches, multi_batches, card,
+                                sum(times) / len(times), eval_rates, (_build, cuda_nms),
+                                args.profile)
+    print(json.dumps({"refine": refined}), flush=True)
     del pred
     torch.cuda.empty_cache()
 

@@ -240,9 +240,16 @@ def test_best_checkpoint_resolution(tmp_path):
 
 @pytest.mark.parametrize("field", ["refine_box", "visualize"])
 def test_trainer_refuses_unported_options(eval_pair, field):
+    """``visualize`` (ROADMAP A4) raises; ``refine_box`` is ported (A6): the Trainer
+    builds the SAM refiner for its Predictor (tests/test_torch_refine_eval.py)."""
     root = eval_pair[0]
     cfg = preset("TMR_FSCD147", **_cfg_kw(root, "refuse", 1, 1), **{field: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP A[46]"):
+    if field == "refine_box":
+        model = build_model(cfg, backbone=SamViT(pretrain_img_size=SIZE, **TINY),
+                            device="cpu")
+        assert loop.Trainer(cfg, device="cpu", model=model).predictor.refiner is not None
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         loop.Trainer(cfg, device="cpu")
 
 
@@ -307,7 +314,12 @@ def test_sam_pth_loads_like_convert_sam_vit(tmp_path):
                                           "model.input_proj.0.weight"), "A3"),
                                         (("mask_decoder.iou_token.weight",), "A6")])
 def test_unported_layouts_raise(keys, match):
+    """The ResNet layouts (ROADMAP A3) raise; the SAM refiner's (A6) is ported and named
+    (its converter: tests/test_torch_sam_decoder.py)."""
     sd = {k: torch.zeros(1) for k in keys}
+    if match == "A6":
+        assert convert.checkpoint_kind(sd) == "sam_refiner"
+        return
     with pytest.raises(NotImplementedError, match=match):
         if keys[0].startswith("model."):
             convert.matching_net_state_dict(sd)

@@ -84,6 +84,32 @@ def test_scan_covers_the_map_phase_modules(mod):
     assert not [n for n in roots if _forbidden(n)]
 
 
+@pytest.mark.parametrize("mod", ["models/sam_decoder.py", "refine.py", "sam.py",
+                                 "sam_amg.py"])
+def test_scan_covers_the_sam_modules(mod):
+    """The refiner and the segment-anything surface: each the port's own module, with no
+    import of JAX, ``tmr_tpu``, ``tests`` or cv2 (pycocotools only inside
+    ``sam_amg.coco_encode_rle`` and the mask generator's ``coco_rle`` check)."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
+
+
+def test_sam_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.refine import build_refiner
+    from tmr_tpu_torch.sam import Sam
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (lambda: build_refiner(preset("TMR_FSCD147", refine_box=True)),
+                  lambda: Sam("vit_b")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert next(build_refiner(preset("TMR_FSCD147"), device="cpu")
+                .parameters()).device.type == "cpu"
+
+
 def _pil_imports(node, where="<module>"):
     """The enclosing function's name (or ``<module>``) of each import of PIL under
     ``node``."""
@@ -101,11 +127,13 @@ def _pil_imports(node, where="<module>"):
 def test_pil_is_imported_only_in_the_decode_step():
     """PIL may be missing where the port runs: only the decode steps import it, inside
     the function (the datasets' ``_Base.decode`` and the map phase's
-    ``transforms.decode_image``), so every module imports without it."""
+    ``transforms.decode_image``), and the refiner's PNG writer (``save_masks``), so every
+    module imports without it."""
     where = [(str(p.relative_to(REPO)), fn) for p in _port_files()
              for fn in _pil_imports(ast.parse(p.read_text(), filename=str(p)))]
     assert sorted(where) == [("tmr_tpu_torch/data/datasets.py", "decode"),
-                             ("tmr_tpu_torch/data/transforms.py", "decode_image")]
+                             ("tmr_tpu_torch/data/transforms.py", "decode_image"),
+                             ("tmr_tpu_torch/refine.py", "save_masks")]
 
 
 def test_every_port_module_imports_without_jax():

@@ -182,11 +182,15 @@ def test_bogus_decode_tail_raises():
 
 
 def test_refine_box_raises(pair):
+    """``refine_box`` without a refiner no longer raises: it refines nothing, as the
+    JAX Predictor refines only with both (the refiner itself:
+    tests/test_torch_refine.py)."""
     _, pred, images = pair
     refining = Predictor(dataclasses.replace(pred.cfg, refine_box=True), device="cpu",
                          model=pred.model)
-    with pytest.raises(NotImplementedError, match="refiner"):
-        refining(images, SINGLE)
+    got, want = refining(images, SINGLE), pred(images, SINGLE)
+    for name in ("valid", "scores", "boxes", "refs"):
+        assert torch.equal(got[name], want[name]), name
 
 
 def test_union_tie_keeps_exemplar_0s_slot(pair):

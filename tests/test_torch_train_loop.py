@@ -317,5 +317,9 @@ def test_every_main_py_flag_is_parsed_or_refused_by_name():
         port_main.main(["--autotune", "--pp_microbatches", "2"])
     cfg = port_main.to_config(port_main.config_parser(["--eval_multi_scale"]))
     assert cfg.eval_multi_scale is True
+    # --refine_box runs (ROADMAP A6): it and its checkpoint reach the Trainer's config
+    cfg = port_main.to_config(port_main.config_parser(
+        ["--refine_box", "--refiner_checkpoint", "sam_vit_h.pth"]))
+    assert cfg.refine_box is True and cfg.refiner_checkpoint == "sam_vit_h.pth"
     j_cfg = j_main.to_config(j_main.config_parser(["--eval_multi_scale"]))
     assert j_cfg.eval_multi_scale is True

@@ -5,7 +5,8 @@ image, ImageNet Normalize and a CHW tensor; the JAX package emits NHWC float32. 
 keeps NHWC float32 and does the resize itself in numpy (:func:`resize_linear_u8`), with
 cv2's fixed-point arithmetic for 8-bit images: half-pixel centres, 11-bit interpolation
 coefficients rounded half to even, a horizontal pass into int32 rows and a vertical pass
-``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2``. cv2 is not imported.
+``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2``; float planes take
+cv2's float form of the same taps (:func:`resize_linear_f32`). cv2 is not imported.
 The map phase's mapper resizes with Pillow's ``Image.resize((S, S))`` (BICUBIC for RGB);
 :func:`resize_bicubic_u8` is that resample in numpy, in Pillow's fixed-point form, and
 :func:`decode_image` is the one place of this module that imports PIL.
@@ -88,6 +89,43 @@ def _resized_planes(img: np.ndarray, height: int, width: int):
         out += 2
         out >>= 2
         yield c, out
+
+
+def _lerp_f32(p0: np.ndarray, p1: np.ndarray, frac: np.ndarray) -> np.ndarray:
+    """``fma(p1 - p0, frac, p0)`` in float32: the difference rounded to float32, the
+    product and the sum taken in float64 (the product is exact there) and rounded once
+    more to float32."""
+    d = (p1 - p0).astype(np.float64)
+    return (p0.astype(np.float64) + d * frac.astype(np.float64)).astype(np.float32)
+
+
+def _taps_f64(src: int, dst: int):
+    """Source index and float32 fraction of each output coordinate as cv2's float path
+    computes them: ``f = (d + 0.5) * src / dst - 0.5`` and its fraction in float64."""
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s).astype(np.float32)
+
+
+def resize_linear_f32(plane: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize with ``INTER_LINEAR`` of a float32 (H, W) plane to (height, width), in
+    cv2's float form (bit for bit against cv2 5.0 on planes of 2 x 2 and more):
+    fractions taken in float64 (:func:`_taps_f64`, not the float32 taps of the uint8
+    path, nor its 2048-scaled weights), each pass a fused ``p0 + (p1 - p0) * frac``
+    (:func:`_lerp_f32`), the horizontal pass first; columns out of range clamp with a
+    zero fraction, rows out of range clamp their index (SAM's mask postprocessing,
+    ``sam.SamPredictor``)."""
+    src = np.asarray(plane, np.float32)
+    h, w = src.shape
+    if (h, w) == (height, width):
+        return src.copy()
+    sx, fx = _taps_f64(w, width)
+    fx = np.where((sx < 0) | (sx >= w - 1), np.float32(0.0), fx)
+    sx = np.clip(sx, 0, w - 1)
+    cols = _lerp_f32(src[:, sx], src[:, np.minimum(sx + 1, w - 1)], fx)
+    sy, fy = _taps_f64(h, height)
+    return _lerp_f32(cols[np.clip(sy, 0, h - 1)], cols[np.clip(sy + 1, 0, h - 1)],
+                     fy[:, None])
 
 
 def resize_linear_u8(image: np.ndarray, height: int, width: int) -> np.ndarray:

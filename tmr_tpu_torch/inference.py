@@ -13,11 +13,14 @@ bucket picked on the host from the exemplar geometry:
 - :meth:`Predictor._get_backbone_fn` / :meth:`Predictor._get_heads_fn`: the split
   programs behind a feature cache (the encoder alone; the rest on its features).
 
-All four end in the same tail (:meth:`Predictor._refine_nms`): NMS, then, under
-``cfg.decode_tail="device"``, the survivors compacted to the leading slots with a
-``count`` per image. Outputs are fixed-shape tensors (boxes, scores, refs, valid[,
-count]); :func:`detections_to_numpy` turns them into per-image ragged lists. The port has
-no SAM refiner yet: ``cfg.refine_box`` raises ``NotImplementedError``.
+All four end in the same tail (:meth:`Predictor._refine_nms`): with a ``refiner``
+(``refine.SamRefineModule``) and ``cfg.refine_box``, SAM box refinement on the encoder's
+pre-upsample feature (one per image: the multi programs hand over the encoder's output,
+not its copies per exemplar row), then NMS, then, under ``cfg.decode_tail="device"``, the
+survivors compacted to the leading slots with a ``count`` per image (the reference's
+test-step order, trainer.py:143-150). ``cfg.refine_box`` without a refiner refines
+nothing, as in the JAX package. Outputs are fixed-shape tensors (boxes, scores, refs,
+valid[, count]); :func:`detections_to_numpy` turns them into per-image ragged lists.
 
 Devices: everything runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit ``"cpu"`` the constructor raises, it never carries on on the
@@ -64,11 +67,13 @@ class Predictor:
 
     K_BUCKETS = K_BUCKETS
 
-    def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None):
+    def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None,
+                 refiner: Optional[torch.nn.Module] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         model = model if model is not None else build_model(cfg, device=self.device)
         self.model = model.to(self.device).eval()
+        self.refiner = None if refiner is None else refiner.to(self.device).eval()
         self._stamp: Optional[dict] = None
 
     def _weights_set(self) -> None:
@@ -152,12 +157,15 @@ class Predictor:
             scale_wh_only=cfg.regression_scaling_WH_only,
         )
 
-    def _refine_nms(self, dets: dict) -> dict:
-        """The tail every program shares: NMS per image, then under
-        ``decode_tail="device"`` the survivors compacted to the leading slots (the
-        per-image lists are those of the host tail)."""
-        if self.cfg.refine_box:
-            raise NotImplementedError("refine_box: the port has no SAM refiner yet")
+    def _refine_nms(self, dets: dict, feature: torch.Tensor,
+                    image_hw: Tuple[int, int]) -> dict:
+        """The tail every program shares: with a refiner and ``cfg.refine_box``, SAM box
+        refinement on ``feature`` (B, h, w, C), the encoder's output for the B images
+        of ``dets``, at ``image_hw``; NMS per image; then under ``decode_tail="device"``
+        the survivors compacted to the leading slots (the per-image lists are those of
+        the host tail)."""
+        if self.refiner is not None and self.cfg.refine_box:
+            dets = self.refiner.refine(feature, dets, image_hw)
         dets = batched_nms(dets, self.cfg.NMS_iou_threshold)
         if self.cfg.decode_tail == "device":
             dets = compact_detections(dets)
@@ -189,7 +197,8 @@ class Predictor:
             image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
             ex = torch.as_tensor(exemplars, dtype=torch.float32, device=self.device)
             out = self.model(image, ex, capacity)
-            dets = self._refine_nms(self._decode(out, ex[:, 0, :]))
+            dets = self._refine_nms(self._decode(out, ex[:, 0, :]), out["backbone_feature"],
+                                    (image.shape[1], image.shape[2]))
             if loss_fn is None:
                 return dets
             extra = [torch.as_tensor(e, device=self.device) for e in extra]
@@ -251,13 +260,15 @@ class Predictor:
         k_real = torch.as_tensor(k_real, device=self.device)
         b, kb = ex.shape[:2]
         rows = ex.reshape(b * kb, 4)
-        feat = self.model.backbone_features(images).repeat_interleave(kb, dim=0)
-        out = self.model(None, rows[:, None, :], cap, features=feat)
+        feat = self.model.backbone_features(images)
+        out = self.model(None, rows[:, None, :], cap,
+                         features=feat.repeat_interleave(kb, dim=0))
         dets = self._decode(out, rows)
         row_ok = torch.arange(kb, device=self.device)[None, :] < k_real[:, None]
         dets["valid"] = dets["valid"] & row_ok.reshape(-1)[:, None]
         dets = self._refine_nms({name: dets[name].reshape((b, -1) + dets[name].shape[2:])
-                                 for name in ("boxes", "scores", "refs", "valid")})
+                                 for name in ("boxes", "scores", "refs", "valid")},
+                                feat, (images.shape[1], images.shape[2]))
         return dets, out, rows
 
     def _get_backbone_fn(self) -> Callable:
@@ -276,16 +287,17 @@ class Predictor:
     def _get_heads_fn(self, capacity: int, image_size: int) -> Callable:
         """The program on precomputed features for one capacity bucket: (features
         (B, h, w, C), exemplars (B, K, 4)) -> the detections of ``__call__``, through the
-        same launches, so they equal it bit for bit. ``image_size`` names the bucket's
-        input size (the JAX program hands it to the refiner, which the port lacks)."""
-        capacity = int(capacity)
+        same launches, so they equal it bit for bit. ``image_size`` is the bucket's
+        input size, which the refiner takes with the features."""
+        capacity, image_size = int(capacity), int(image_size)
 
         @torch.inference_mode()
         def run(features, exemplars):
             ex = torch.as_tensor(exemplars, dtype=torch.float32, device=self.device)
             out = self.model(None, ex, capacity, features=torch.as_tensor(
                 features, dtype=torch.float32, device=self.device))
-            return self._refine_nms(self._decode(out, ex[:, 0, :]))
+            return self._refine_nms(self._decode(out, ex[:, 0, :]),
+                                    out["backbone_feature"], (image_size, image_size))
 
         return run
 

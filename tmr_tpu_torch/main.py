@@ -14,8 +14,10 @@ for training and what was forced is logged. ``--eval`` loads the highest-version
 Lightning ``best_model*.ckpt`` under ``--logpath`` (or its ``checkpoints/``). Either way
 the test metrics are printed as one JSON line. ``--device`` defaults to the GPU
 (``cuda``) and raises without one; ``--device cpu`` runs the plain CPU versions.
-``--refine_box``, ``--visualize``, the mesh flags, ``--pp_microbatches`` and ``--autotune``
-raise, each naming its ROADMAP item; ``--eval_multi_scale`` is accepted and unused, as in
+``--refine_box`` refines every eval program's detections with the SAM refiner before NMS
+(``--refiner_checkpoint``: a SAM ``.pth``; without it, seeded weights and a warning).
+``--visualize``, the mesh flags, ``--pp_microbatches`` and ``--autotune`` raise, each
+naming its ROADMAP item; ``--eval_multi_scale`` is accepted and unused, as in
 ``main.py``.
 """
 

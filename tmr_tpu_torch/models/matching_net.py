@@ -125,14 +125,23 @@ class MatchingNet(nn.Module):
         keeps."""
         return self.backbone(image).permute(0, 2, 3, 1).contiguous()
 
+    def _encode(self, image: Optional[torch.Tensor],
+                features: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoder's output (B, C, h, w), or ``features`` (B, h, w, C) in its place;
+        one layout either way, so the split programs run the fused one's ops bit for
+        bit."""
+        f = self.backbone(image) if features is None else features.permute(0, 3, 1, 2)
+        return f.contiguous()
+
     def match(self, image: Optional[torch.Tensor], exemplars: torch.Tensor,
               capacity: int, features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder, projection, matcher and fusion: ``f_cat`` (B, C, H, W), the tail's
         input. With ``features`` (B, h, w, C), the output of :meth:`backbone_features`,
         the encoder is skipped and ``image`` is not read."""
-        f = self.backbone(image) if features is None else features.permute(0, 3, 1, 2)
-        # one layout either way, so the split programs run the fused one's ops bit for bit
-        f = f.contiguous()
+        return self._match(self._encode(image, features), exemplars, capacity)
+
+    def _match(self, f: torch.Tensor, exemplars: torch.Tensor,
+               capacity: int) -> torch.Tensor:
         if self.feature_upsample:
             f = F.interpolate(f, scale_factor=2, mode="bilinear", align_corners=False)
         fp = self.input_proj_0(f)
@@ -161,8 +170,14 @@ class MatchingNet(nn.Module):
     def forward(self, image: Optional[torch.Tensor], exemplars: torch.Tensor,
                 capacity: int, features: Optional[torch.Tensor] = None) -> dict:
         """image (B, S, S, 3) NHWC; exemplars (B, K, 4) (the matcher uses exemplar 0);
-        ``capacity`` is the odd template bucket; ``features`` as in :meth:`match`."""
-        return self.heads(self.match(image, exemplars, capacity, features))
+        ``capacity`` is the odd template bucket; ``features`` as in :meth:`match`. The
+        heads' maps, and ``backbone_feature`` (B, h, w, C): the encoder's output before
+        the upsample, NHWC (a view), which the SAM refiner reads
+        (``tmr_tpu/models/matching_net.py:111,129``)."""
+        f = self._encode(image, features)
+        out = self.heads(self._match(f, exemplars, capacity))
+        out["backbone_feature"] = f.permute(0, 2, 3, 1)
+        return out
 
 
 def select_capacity_bucket(exemplar, feat_h: int, feat_w: int, buckets) -> int:

@@ -36,6 +36,7 @@ import torch
 
 from tmr_tpu_torch.data import DataLoader, build_dataset
 from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+from tmr_tpu_torch.refine import build_refiner
 from tmr_tpu_torch.train.state import TrainState, compute_losses, make_train_step
 from tmr_tpu_torch.utils.checkpoint import CheckpointManager, best_checkpoint
 from tmr_tpu_torch.utils.convert import load_matching_net
@@ -110,17 +111,21 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
 class Trainer:
     """The train and eval loops over one ``Config``, on ``device`` (``None``: the GPU,
     raising without one; ``"cpu"`` runs the plain versions). ``model`` overrides the
-    registry's detector (the tests pass a narrow one)."""
+    registry's detector (the tests pass a narrow one). Under ``cfg.refine_box`` the SAM
+    refiner is built once (``refine.build_refiner``: ``cfg.refiner_checkpoint`` or seeded
+    weights) and handed to the Predictor, which refines before NMS in every eval
+    program (the JAX ``Trainer``, ``tmr_tpu/train/loop.py:83-93``); ``refiner``
+    overrides it (the tests pass a narrow one)."""
 
-    def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None):
-        if cfg.refine_box:
-            raise NotImplementedError("--refine_box: the SAM refiner is not ported yet "
-                                      "(ROADMAP A6)")
+    def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None,
+                 refiner: Optional[torch.nn.Module] = None):
         if cfg.visualize:
             raise NotImplementedError("--visualize: the triptychs and PR curves are not "
                                       "ported yet (ROADMAP A4)")
         self.cfg = cfg
-        self.predictor = Predictor(cfg, device=device, model=model)
+        if refiner is None and cfg.refine_box:
+            refiner = build_refiner(cfg, seed=cfg.seed, device=device)
+        self.predictor = Predictor(cfg, device=device, model=model, refiner=refiner)
         self.model = self.predictor.model
         self._shared_loss_fn = None
         self.logger = CSVLogger(cfg.logpath)

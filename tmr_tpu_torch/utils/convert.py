@@ -8,14 +8,20 @@ Layouts:
   :func:`sam_vit_state_dict`, the ``SamViT`` module's keys;
 - Lightning training checkpoints (``best_model*.ckpt``): ``state_dict`` -> ``model.*``
   over matching_net (demo.py:154-155) -> :func:`matching_net_state_dict`, the
-  ``MatchingNet``'s keys.
+  ``MatchingNet``'s keys;
+- the SAM prompt encoder and mask decoder (``prompt_encoder.*`` / ``mask_decoder.*``
+  of a full ``sam_vit_{b,h}`` checkpoint, which the reference's refiner loads,
+  box_refine.py:41-60) -> :func:`sam_refiner_state_dict`, the keys of
+  ``refine.SamRefineModule`` (and of ``sam.Sam`` beside its ``image_encoder.*``).
 
 The port's modules keep torch's layouts (conv kernels OIHW, linear weights (out, in)),
-so every tensor is copied as it is, in f32; only the keys change. The result equals
-``params_from_jax(tmr_tpu.utils.convert.convert_matching_net(sd))`` key for key and bit
-for bit. torchvision ``resnet50`` state dicts (the ResNet backbones, ROADMAP A3) and the
-SAM refiner's ``prompt_encoder.*`` / ``mask_decoder.*`` (ROADMAP A6) wait for their
-modules and raise.
+so every tensor is copied as it is, in f32; only the keys change, except that the
+prompt encoder's four point embeddings become one (4, C) parameter and a
+``ConvTranspose2d`` weight (C_in, C_out, 2, 2) becomes ``UpConv2x``'s (C_out, C_in, 2, 2).
+The results equal ``params_from_jax`` of the JAX package's ``convert_matching_net`` /
+``convert_sam_refiner`` of the same checkpoint key for key and bit for bit. torchvision
+``resnet50`` state dicts (the ResNet backbones, ROADMAP A3) wait for their modules and
+raise.
 """
 
 from __future__ import annotations
@@ -41,6 +47,10 @@ def _f32(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().to("cpu", torch.float32).contiguous()
 
 
+def _prefixed(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A .pth/.ckpt as a flat {key: tensor} dict (a Lightning checkpoint's
     ``state_dict``), on the CPU."""
@@ -53,7 +63,7 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 def sam_vit_state_dict(sd: Mapping[str, torch.Tensor],
                        prefix: str = "image_encoder.") -> Dict[str, torch.Tensor]:
     """The SAM encoder's keys under ``prefix`` -> the port's ``SamViT`` state_dict."""
-    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    sd = _prefixed(sd, prefix)
     depth = 1 + max(int(m.group(1)) for k in sd if (m := re.match(r"blocks\.(\d+)\.", k)))
     out = {}
     for key in _SAM_TOP_KEYS:
@@ -80,7 +90,7 @@ def matching_net_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
       model.objectness_head.head.0.*     -> objectness_head_0.conv.*
       model.ltrbs_head.head.0.*          -> ltrbs_head_0.conv.*
     """
-    sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    sd = _prefixed(sd, "model.")
     enc = "encoder.backbone.backbone."
     if enc + "patch_embed.proj.weight" not in sd:
         if any(k.startswith(enc + "layer1.") for k in sd):
@@ -132,9 +142,82 @@ def lightning_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, to
     return out
 
 
+def prompt_encoder_state_dict(sd: Mapping[str, torch.Tensor],
+                              prefix: str = "prompt_encoder.") -> Dict[str, torch.Tensor]:
+    """A SAM ``prompt_encoder.*`` subtree -> ``models.sam_decoder.PromptEncoder``'s keys
+    (the JAX ``convert_prompt_encoder``): the four ``point_embeddings.{i}.weight``
+    (1, C) become one (4, C) parameter, ``mask_downscaling.{i}`` ``mask_down_{i}``."""
+    sd = _prefixed(sd, prefix)
+    out = {"pe_layer.positional_encoding_gaussian_matrix":
+           _f32(sd["pe_layer.positional_encoding_gaussian_matrix"]),
+           "point_embeddings": torch.cat([_f32(sd[f"point_embeddings.{i}.weight"])
+                                          for i in range(4)], dim=0),
+           "not_a_point_embed": _f32(sd["not_a_point_embed.weight"]),
+           "no_mask_embed": _f32(sd["no_mask_embed.weight"])}
+    for i in (0, 1, 3, 4, 6):
+        for leaf in ("weight", "bias"):
+            out[f"mask_down_{i}.{leaf}"] = _f32(sd[f"mask_downscaling.{i}.{leaf}"])
+    return out
+
+
+def mask_decoder_state_dict(sd: Mapping[str, torch.Tensor], prefix: str = "mask_decoder.",
+                            depth: int = 2) -> Dict[str, torch.Tensor]:
+    """A SAM ``mask_decoder.*`` subtree -> ``models.sam_decoder.MaskDecoder``'s keys
+    (the JAX ``convert_mask_decoder``, which reads the same keys and no others):
+    ``transformer.layers.{i}`` -> ``transformer.layers_{i}`` (``mlp.lin*`` ->
+    ``mlp_lin*``), ``output_upscaling.{0,1,3}`` -> ``upscale_{0,1,3}`` (the transposed
+    convs' weights as ``UpConv2x`` reads them), ``output_hypernetworks_mlps.{t}`` ->
+    ``hyper_mlps_{t}`` and ``layers.{j}`` of each MLP head -> ``layers_{j}``."""
+    sd = _prefixed(sd, prefix)
+    out = {"iou_token": _f32(sd["iou_token.weight"]),
+           "mask_tokens": _f32(sd["mask_tokens.weight"])}
+
+    def copy(theirs: str, mine: str, leaves=("weight", "bias")) -> None:
+        for leaf in leaves:
+            out[f"{mine}.{leaf}"] = _f32(sd[f"{theirs}.{leaf}"])
+
+    attn = ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token")
+    for i in range(depth):
+        theirs, mine = f"transformer.layers.{i}", f"transformer.layers_{i}"
+        for name in attn:
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                copy(f"{theirs}.{name}.{proj}", f"{mine}.{name}.{proj}")
+        for norm in ("norm1", "norm2", "norm3", "norm4"):
+            copy(f"{theirs}.{norm}", f"{mine}.{norm}")
+        copy(f"{theirs}.mlp.lin1", f"{mine}.mlp_lin1")
+        copy(f"{theirs}.mlp.lin2", f"{mine}.mlp_lin2")
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        copy(f"transformer.final_attn_token_to_image.{proj}",
+             f"transformer.final_attn_token_to_image.{proj}")
+    copy("transformer.norm_final_attn", "transformer.norm_final_attn")
+    for i in (0, 3):  # ConvTranspose2d (C_in, C_out, 2, 2) -> (C_out, C_in, 2, 2)
+        out[f"upscale_{i}.weight"] = _f32(sd[f"output_upscaling.{i}.weight"]).permute(
+            1, 0, 2, 3).contiguous()
+        copy(f"output_upscaling.{i}", f"upscale_{i}", ("bias",))
+    copy("output_upscaling.1", "upscale_1")
+    for j in range(3):
+        copy(f"iou_prediction_head.layers.{j}", f"iou_prediction_head.layers_{j}")
+    for t in range(out["mask_tokens"].shape[0]):
+        for j in range(3):
+            copy(f"output_hypernetworks_mlps.{t}.layers.{j}", f"hyper_mlps_{t}.layers_{j}")
+    return out
+
+
+def sam_refiner_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A full ``sam_vit_{b,h}``-style checkpoint (or its ``prompt_encoder.*`` /
+    ``mask_decoder.*`` alone) -> ``refine.SamRefineModule``'s state_dict (the JAX
+    ``convert_sam_refiner``)."""
+    out = {"prompt_encoder." + k: v for k, v in prompt_encoder_state_dict(sd).items()}
+    out.update({"mask_decoder." + k: v for k, v in mask_decoder_state_dict(sd).items()})
+    return out
+
+
 def checkpoint_kind(sd: Mapping[str, torch.Tensor]) -> str:
-    """The layout of a loaded checkpoint: ``"matching_net"`` or ``"sam_vit"``; the
-    layouts whose modules are not ported raise, naming their ROADMAP item."""
+    """The layout of a loaded checkpoint: ``"matching_net"``, ``"sam_vit"`` (a SAM
+    checkpoint with its encoder: a full one also holds the refiner's subtrees, which
+    :func:`sam_refiner_state_dict` reads) or ``"sam_refiner"`` (the prompt encoder and
+    mask decoder alone); the layouts whose modules are not ported raise, naming their
+    ROADMAP item."""
     if any(k.startswith("model.") for k in sd):
         return "matching_net"
     if any(k.startswith("image_encoder.") for k in sd):
@@ -143,8 +226,7 @@ def checkpoint_kind(sd: Mapping[str, torch.Tensor]) -> str:
         raise NotImplementedError("a torchvision resnet50 state_dict: the ResNet "
                                   "backbones are not ported yet (ROADMAP A3)")
     if any(k.startswith(("prompt_encoder.", "mask_decoder.")) for k in sd):
-        raise NotImplementedError("a SAM refiner checkpoint: the refiner is not ported "
-                                  "yet (ROADMAP A6)")
+        return "sam_refiner"
     raise KeyError(f"cannot tell the checkpoint's layout from keys like {sorted(sd)[:3]}")
 
 

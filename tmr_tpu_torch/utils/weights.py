@@ -7,6 +7,12 @@ package's ``state_dict``. The port's modules carry the flax names, so the mappin
 mechanical: conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), the fused
 ``qkv`` stays one linear, flax LayerNorm ``scale`` -> ``weight``, ``blocks_<i>`` ->
 ``blocks.<i>``; everything else is copied (``pos_embed`` keeps its (1, g, g, C) layout).
+The SAM prompt encoder and mask decoder (a JAX ``{"prompt_encoder", "mask_decoder"}``
+refiner tree, or the ``Sam`` tree with its ``image_encoder``) take the same rules: their
+raw parameters (the gaussian matrix, the point, mask and output tokens) are copied, the
+two-way blocks' flax LayerNorms (``norm1``..``norm4``, ``norm_final_attn``) give their
+``scale`` as ``weight``, and ``UpConv2x``'s (2, 2, C_in, C_out) kernel takes the conv
+rule, the layout ``models.sam_decoder.UpConv2x`` reads.
 """
 
 from __future__ import annotations
@@ -20,8 +26,12 @@ import torch
 import torch.nn as nn
 
 from tmr_tpu_torch.models.common import Conv2d, LayerNorm2d, Linear
+from tmr_tpu_torch.models.sam_decoder import UpConv2x
 
 _HEAD_PREFIXES = ("decoder_", "objectness_head_", "ltrbs_head_")
+#: the SAM decoder's raw parameters, N(0, 1) at flax init
+_UNIT_NORMAL = ("positional_encoding_gaussian_matrix", "point_embeddings",
+                "not_a_point_embed", "no_mask_embed", "iou_token", "mask_tokens")
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -51,9 +61,10 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device with a ``torch.Generator``.
 
     Linear/conv kernels: lecun-normal (std 1/sqrt(fan_in), cut at 2 std), the flax
-    default; decoder and head convs: N(0, 0.01); biases 0; norms 1/0; matcher scale 1.
-    The rel-pos tables and the position embedding (zero at flax init) get N(0, 0.02)
-    so that the bias path of the attention kernels does real work."""
+    default (``UpConv2x`` too, its fan-in 4 C_in); decoder and head convs: N(0, 0.01);
+    biases 0; norms 1/0; matcher scale 1; the SAM decoder's raw parameters N(0, 1), as
+    flax draws them. The rel-pos tables and the position embedding (zero at flax init)
+    get N(0, 0.02) so that the bias path of the attention kernels does real work."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -62,7 +73,7 @@ def init_params(model: nn.Module, seed: int) -> None:
         return torch.randn(t.shape, generator=gen, device=device, dtype=t.dtype)
 
     for mod_name, mod in model.named_modules():
-        if isinstance(mod, (Linear, Conv2d)):
+        if isinstance(mod, (Linear, Conv2d, UpConv2x)):
             if mod_name.startswith(_HEAD_PREFIXES):
                 mod.weight.copy_(randn(mod.weight) * 0.01)
             else:
@@ -79,3 +90,5 @@ def init_params(model: nn.Module, seed: int) -> None:
             p.copy_(randn(p) * 0.02)
         elif name.endswith("matcher.scale"):
             p.fill_(1.0)
+        elif name.rsplit(".", 1)[-1] in _UNIT_NORMAL:
+            p.copy_(randn(p))

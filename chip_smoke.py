@@ -44,6 +44,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel on 96^2 tokens at batch 4 (BH 48, the plain version in chunks), the windowed
    kernel on 4 x 49 windows, the f32 correlation on 4 x 512 x 192^2 at T = 9, 17, 33 and
    on the multi path's 3 x 512 x 192^2 at T = 9, each beside its bound and library call;
+   the f32 correlation on the default detector's 4 x 512 x 64^2 map at T = 1 (prototype
+   templates), 9, 17 and 33, each beside its bound and the grouped ``F.conv2d``; and its
+   backward (``cuda_xcorr.xcorr_backward``, one more launch of the kernel for d_feature)
+   at T = 1 and 9 on that map against ``torch.autograd.grad`` through ``xcorr_plain`` in
+   f32 (2e-5 x each gradient's max), beside its bound and the autograd of the grouped
+   ``F.conv2d``;
 4. main path: ``Predictor(preset("TMR_FSCD147"))`` (SAM ViT-B at 1024, batch 4, bf16)
    with seeded random weights answers 3 batches of 4 synthetic images whose exemplars
    hit the 9/17/33 template buckets; every kernel's launch count over those batches
@@ -172,6 +178,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    NMS once through the port's kernel. Printed: ms per batch with and without
    refinement, a chunk's ms and its parts, eval images/s, ``set_image`` and ``predict``
    ms, the mask generator's seconds per image, and a ``{"refine": ...}`` JSON line;
+4e. the JAX ``main.py`` default detector (run after 4c, on its own seeded weights):
+   ``Predictor(Config())`` (ResNet-50 with DC5 in f32 under the caller's cuDNN TF32
+   setting, 1024^2, emb_dim 512, no fusion, no upsample, roi_align, NMS 0.1 / 0.15, bf16
+   heads) answers 3 batches of 4 synthetic images whose exemplars hit buckets 9, 17 and
+   33 on its 64^2 map; each batch must launch exactly xcorr 1 and nms 1 and nothing else
+   of the port's; batch 0's keep mask must equal the plain version's; image 0's
+   objectness must lie within 5e-2 x max of an f32 CPU run (its ResNet feature's drift
+   printed beside it); image 0's seeded feature must be finite with a std in [1e-2,
+   1e2]; the split programs and the device tail must equal the fused call bit for bit;
+   then the same 3 batches with ``template_type="prototype"``: xcorr 1 a batch, every
+   call at T = 1. Printed: ms per batch, the ResNet's share of it, the device time of a
+   batch split into ResNet, heads, kernel 5 and NMS, and image 0's feature std;
+5e. the default detector's eval and training (run after 4e, on its weights):
+   ``Trainer.test`` on phase 5's split at num_exemplars 1 and 3 with phase 5's checks
+   (each batch xcorr 1, nms 1 and nothing else); ``Trainer.fit`` of ``Config()`` (the
+   backbone trains at ``lr_backbone`` 1e-5, roi_align at capacity 191 through the FFT)
+   on phase 5b's split for 2 epochs of 2 steps: every step launches none of the port's
+   kernels, the losses are finite and none skipped, the backbone moves and its batch
+   norm statistics do not, and ``test()`` reads back the best ``.ckpt`` it wrote (a
+   ResNet encoder in the Lightning layout); then one prototype train step through
+   ``cuda_xcorr.XCorr``: exactly 2 launches of kernel 5 (the forward and d_feature), and
+   the Function's gradients at the step's own inputs equal to ``torch.autograd`` through
+   ``xcorr_plain`` in f32 within 2e-5 x each gradient's max. Printed: ms per step, peak
+   device memory, and a ``{"default": ...}`` JSON line;
 6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -265,6 +295,11 @@ NMS_UNIONS = ((4, 6000), (1, 16000))
 #: multiple of 8, C_in not of 128), and the multi-exemplar path's 12 rows
 INT8_CONV_SHAPES = ((4, 128, 128, 1024, 2048), (1, 37, 53, 48, 20),
                     (12, 128, 128, 1024, 2048))
+#: the f32 correlation on the default detector's map (ResNet-50 DC5 at 1024: 4 images x
+#: 512 channels on 64^2), at the prototype's T = 1 and the buckets its exemplars take; its
+#: backward at the prototype's T and one more
+XCORR_64 = ((4, 512, 64, 64), (1, 9, 17, 33))
+XCORR_BWD_TS = (1, 9)
 BUCKET_SIDES_PX = {9: 56, 17: 120, 33: 240}  # exemplar sides that land in each bucket
 SEED = 0  # weights, images and kernel inputs are all drawn from it
 
@@ -536,6 +571,68 @@ def check_1536(torch, F, cuda_attn, cuda_xcorr) -> None:
                   f"3xTF32 at the TF32 peak) f32_bound_ms {f32ms:.4f} ({f32by})", flush=True)
             if not r["err"] <= r["tol"]:
                 fail(f"{what} disagrees with its plain version: {r['err']} > {r['tol']}")
+
+
+def check_xcorr_64(torch, F, cuda_xcorr) -> None:
+    """Kernel 5 on the default detector's map at :data:`XCORR_64`, each beside its bound
+    and the grouped ``F.conv2d``; then its backward at :data:`XCORR_BWD_TS`."""
+    shape, ts = XCORR_64
+    for t in ts:
+        r = check_xcorr(torch, F, cuda_xcorr, t, SEED, shape)
+        (bms, bby), (f32ms, f32by) = r["tensor_bound"], r["f32_bound"]
+        what = f"xcorr default detector {'x'.join(map(str, shape))} T={t}"
+        print(f"kernel {what}: max_err {r['err']:.3e} tol {r['tol']:.3e} kernel_ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {r['lib_ms']:.4f} "
+              f"(grouped F.conv2d) bound_ms {bms:.4f} ({bby}, 3xTF32 at the TF32 peak) "
+              f"f32_bound_ms {f32ms:.4f} ({f32by})", flush=True)
+        if not r["err"] <= r["tol"]:
+            fail(f"{what} disagrees with its plain version: {r['err']} > {r['tol']}")
+    for t in XCORR_BWD_TS:
+        check_xcorr_backward(torch, F, cuda_xcorr, t, shape)
+
+
+def grads_err(got, want) -> list:
+    """(max |got - want|, max |want|) of each gradient."""
+    return [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(got, want)]
+
+
+def check_xcorr_backward(torch, F, cuda_xcorr, t: int, shape) -> dict:
+    """The f32 correlation's backward (``xcorr_backward``: d_feature by the kernel on the
+    flipped template, d_template by T^2 plain products) against ``torch.autograd.grad``
+    through ``xcorr_plain`` in f32 on the same inputs, each gradient within
+    XCORR_REL_TOL x its max; timed beside that autograd (the plain version's backward),
+    the autograd of the grouped ``F.conv2d`` (the library call) and its bound: the bytes
+    of f, t and g read and both gradients written, or the 2 x 2 B C H W T^2 f32
+    operations at the CUDA cores' peak."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + t)
+    b, c, h, w = shape
+    feat = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    tmpl = torch.randn(b, c, t, t, generator=gen, device="cuda")
+    g = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    got = cuda_xcorr.xcorr_backward(feat, tmpl, g)
+    fr, tr = feat.clone().requires_grad_(), tmpl.clone().requires_grad_()
+    out = cuda_xcorr.xcorr_plain(fr, tr)
+    want = torch.autograd.grad(out, (fr, tr), g, retain_graph=True)
+    errs = grads_err(got, want)
+    ms = cuda_ms(lambda: cuda_xcorr.xcorr_backward(feat, tmpl, g))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out, (fr, tr), g, retain_graph=True),
+                       reps=1, warmup=0)
+    lib_out = F.conv2d(fr.view(1, b * c, h, w), tr.view(b * c, 1, t, t), padding=t // 2,
+                       groups=b * c)
+    lib_g = g.view(1, b * c, h, w)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (fr, tr), lib_g,
+                                                 retain_graph=True))
+    bms, bby = bound(4.0 * b * c * h * w * t * t, (3 * b * c * h * w + 2 * b * c * t * t) * 4,
+                     PEAK_F32_FLOPS)
+    print(f"kernel xcorr backward {b}x{c}x{h}x{w} T={t}: d_feature max_err "
+          f"{errs[0][0]:.3e} tol {XCORR_REL_TOL * errs[0][1]:.3e}, d_template max_err "
+          f"{errs[1][0]:.3e} tol {XCORR_REL_TOL * errs[1][1]:.3e}; backward_ms {ms:.4f} "
+          f"(1 launch of kernel 5) plain_ms {plain_ms:.4f} (autograd of xcorr_plain) "
+          f"library_ms {lib_ms:.4f} (autograd of the grouped F.conv2d) bound_ms "
+          f"{bms:.4f} ({bby})", flush=True)
+    if not all(e <= XCORR_REL_TOL * m for e, m in errs):
+        fail(f"xcorr backward at T={t} disagrees with the autograd of xcorr_plain: {errs}")
+    return dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bms, bound_by=bby)
 
 
 def int8_xcorr_inputs(torch, shape, t: int, seed: int, extreme: bool = False):
@@ -1039,6 +1136,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                     library_ms=r["lib_ms"])
     check_xcorr_maps(torch, F, cuda_xcorr)
     check_1536(torch, F, cuda_attn, cuda_xcorr)
+    check_xcorr_64(torch, F, cuda_xcorr)
     print(f"ptxas nms_mask_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_mask_kernel')}",
           flush=True)
     print(f"ptxas nms_scan_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_scan_kernel')}",
@@ -1741,7 +1839,8 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
 
 
 def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms, card,
-                   compute_losses, detections_to_numpy) -> float:
+                   compute_losses, detections_to_numpy,
+                   want_launches=EVAL_LAUNCHES) -> float:
     """The checks of one eval run: launches per batch, detections equal to the port
     Predictor's on the same tensors, losses equal to ``compute_losses`` on the same
     model outputs and finite, MAE/RMSE equal to those of the detection counts. Returns
@@ -1772,9 +1871,9 @@ def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms,
     counts = []
     for i, r in enumerate(records):
         batch, b = r["batch"], r["batch"]["image"].shape[0]
-        if r["launches"] != EVAL_LAUNCHES:
+        if r["launches"] != want_launches:
             fail(f"{name} batch {i} ({b} x {batch['image'].shape[1]}^2): launches "
-                 f"{r['launches']}, expected {EVAL_LAUNCHES}")
+                 f"{r['launches']}, expected {want_launches}")
         extra = (batch["gt_boxes"], batch["gt_valid"])
         thr = (cfg.positive_threshold, cfg.negative_threshold)
         if k == 1:
@@ -1811,7 +1910,7 @@ def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms,
             counts.append((len(meta["orig_boxes"]), max(len(d["boxes"]), 1)))
     err = np.array([g - p for g, p in counts], np.float64)
     mae, rmse = float(np.abs(err).mean()), float(np.sqrt((err ** 2).mean()))
-    print(f"{name}: {len(records)} batches, launches each {json.dumps(EVAL_LAUNCHES)}, "
+    print(f"{name}: {len(records)} batches, launches each {json.dumps(want_launches)}, "
           f"detections equal to the Predictor's bit for bit, losses equal to "
           f"compute_losses; (GT, detections) per image {counts}; MAE {mae:.4f} RMSE "
           f"{rmse:.4f} from the counts vs {metrics['test/MAE']:.4f} "
@@ -3097,6 +3196,306 @@ def check_sam_surface(torch, np, pred, refiner, card, _build) -> dict:
             "amg_masks": len(records)}
 
 
+#: phase 4e: exemplar sides that land in buckets 9, 17 and 33 on the default detector's
+#: 64^2 map (16 px a cell); the launches of one of its batches (the ResNet is cuDNN's:
+#: one correlation and one NMS); the range the seeded ResNet-50 feature's std must lie in
+DEFAULT_SIDES_PX = {9: 112, 17: 240, 33: 480}
+DEFAULT_LAUNCHES = dict(EVAL_LAUNCHES, global_attn=0, window_attn=0)
+FEATURE_STD_RANGE = (1e-2, 1e2)
+#: phase 5e: epochs of ``Trainer.fit`` on phase 5b's split (2 steps of 4 images each), and
+#: the launches of a prototype train step: kernel 5 forward and its d_feature backward
+DEFAULT_TRAIN_EPOCHS = 2
+PROTOTYPE_STEP_LAUNCHES = dict(DEFAULT_LAUNCHES, xcorr=2, nms=0)
+
+
+def check_default_path(torch, np, card, modules, profile=False):
+    """Phase 4e: the JAX ``main.py`` default detector, ``Predictor(Config())``, on seeded
+    weights over 3 batches of 4 hitting buckets 9, 17 and 33 on its 64^2 map, then the
+    same with prototype templates. Returns (the numbers PERF.md keeps, the predictor,
+    the prototype predictor on the same weights)."""
+    import dataclasses
+
+    from tmr_tpu_torch.config import Config
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_nms, cuda_xcorr = modules
+    cfg = Config()
+    pred = Predictor(cfg, device="cuda")
+    pred.init_params(SEED)
+    rng = np.random.default_rng(SEED + 20)
+    batches = [synthetic_batch(np, rng, DEFAULT_SIDES_PX[b]) for b in (9, 17, 33)]
+    caps = [pred.pick_capacity(ex, 1024) for _, ex in batches]
+    if caps != [9, 17, 33] or pred.feature_hw(1024) != 64:
+        fail(f"default detector: buckets {caps} on a {pred.feature_hw(1024)}^2 map, "
+             "expected [9, 17, 33] on 64^2")
+    times, outs, launches = run_batches(torch, pred, batches, detections_to_numpy, _build)
+    report_batches(np, "default path", caps, times, outs, card)
+    want = {k: 3 * v for k, v in DEFAULT_LAUNCHES.items()}
+    print(f"default path launches over the 3 batches: {json.dumps(launches)}", flush=True)
+    if launches != want:
+        fail(f"default path launches {launches}, expected {want}")
+    check_main_path_nms(torch, lambda: pred(*batches[0]), cuda_nms, "default path batch 0")
+
+    # image 0 against an f32 CPU run: the ResNet's feature (f32 on cuDNN under the
+    # caller's TF32 setting) and the objectness (bf16 heads)
+    imgs, ex = batches[0]
+    out = pred.forward(imgs, ex)
+    feat = out["backbone_feature"][0].float().cpu()
+    obj = out["objectness"][0].float().cpu()
+    std = feat.std().item()
+    ref = Predictor(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+    ref.model.load_state_dict({k: v.cpu() for k, v in pred.model.state_dict().items()})
+    t0 = time.perf_counter()
+    ref_out = ref.forward(imgs[:1], ex[:1])
+    cpu_s = time.perf_counter() - t0
+    ref_feat, ref_obj = ref_out["backbone_feature"][0], ref_out["objectness"][0]
+    feat_diff = (feat - ref_feat).abs().max().item()
+    feat_rms = ((feat - ref_feat).pow(2).mean().sqrt() / ref_feat.pow(2).mean().sqrt()).item()
+    obj_diff, scale = (obj - ref_obj).abs().max().item(), ref_obj.abs().max().item()
+    tf32 = torch.backends.cudnn.allow_tf32
+    print(f"default path image 0 vs an f32 CPU run ({cpu_s:.1f} s on the CPU): ResNet-50 "
+          f"feature {tuple(feat.shape)} std {std:.4f} (finite: "
+          f"{bool(torch.isfinite(feat).all())}, range {FEATURE_STD_RANGE}), max_abs_diff "
+          f"{feat_diff:.4e} = {feat_diff / ref_feat.abs().max().item():.4e} of its max, "
+          f"relative rms {feat_rms:.4e}, cuDNN TF32 convolutions allowed: {tf32}; "
+          f"objectness max_abs_diff {obj_diff:.4e}, map max {scale:.4e}, tol {OBJ_REL_TOL} "
+          f"x max [{card}]", flush=True)
+    lo, hi = FEATURE_STD_RANGE
+    if not (torch.isfinite(feat).all() and lo <= std <= hi):
+        fail(f"the seeded ResNet-50 feature is not finite or its std {std} is out of range")
+    if not (torch.isfinite(obj).all() and obj.shape == (64, 64)
+            and obj_diff <= OBJ_REL_TOL * scale):
+        fail("default path objectness disagrees with the f32 CPU reference")
+    del ref
+
+    # the split programs and the device tail against the fused call
+    backbone, heads = pred._get_backbone_fn(), pred._get_heads_fn(caps[0], 1024)
+    feats = backbone(imgs)
+    split, fused = heads(feats, ex), pred(imgs, ex)
+    dpred = Predictor(dataclasses.replace(cfg, decode_tail="device"), device="cuda",
+                      model=pred.model)
+    dev = dpred(imgs, ex)
+    torch.cuda.synchronize()
+    diff = [f for f in ("boxes", "scores", "refs", "valid")
+            if not torch.equal(split[f], fused[f])]
+    same_tail = lists_equal(np, detections_to_numpy(fused), detections_to_numpy(dev))
+    print(f"default path split programs (features {tuple(feats.shape)}): fields that "
+          f"differ from the fused call bit for bit {diff or 'none'}; the device tail's "
+          f"lists equal the host tail's: {same_tail}", flush=True)
+    if diff or not same_tail:
+        fail("the default path's split programs or device tail differ from the fused call")
+
+    # where a batch's time goes: the ResNet alone, and the rest by kernel
+    img_dev = torch.as_tensor(imgs, device="cuda")
+    batch_ms = cuda_ms(lambda: pred(img_dev, ex))
+    resnet_ms = cuda_ms(lambda: backbone(img_dev))
+    dev_resnet = profiled_device_ms(torch, lambda: backbone(img_dev), reps=5)
+    by_kernel = profiled_kernels_ms(torch, lambda: heads(feats, ex), reps=5)
+    k5 = sum(v for k, v in by_kernel.items() if "xcorr" in k)
+    nms = sum(v for k, v in by_kernel.items() if "nms_" in k)
+    rest = sum(by_kernel.values()) - k5 - nms
+    print(f"default path batch 0 (bucket 9), images on the card: {batch_ms:.2f} ms per "
+          f"batch, the ResNet alone {resnet_ms:.2f} ms = {resnet_ms / batch_ms:.3f} of it; "
+          f"device ms by the profiler: ResNet "
+          f"{'not measured' if dev_resnet is None else f'{dev_resnet:.3f}'}, heads "
+          f"(input_proj, matcher, decoders, decode) {rest:.3f}, kernel 5 {k5:.4f}, NMS "
+          f"{nms:.4f} [{card}]", flush=True)
+    if profile:
+        profile_batch(torch, lambda: pred(*batches[2]), "default path")
+
+    # the same batches with prototype templates: kernel 5 at T = 1 every call
+    ppred = Predictor(dataclasses.replace(cfg, template_type="prototype"), device="cuda")
+    ppred.load_state_dict(pred.model.state_dict())
+    with call_count(cuda_xcorr, "xcorr") as calls:
+        ptimes, pouts, plaunches = run_batches(torch, ppred, batches, detections_to_numpy,
+                                               _build)
+    report_batches(np, "default path, prototype templates", caps, ptimes, pouts, card)
+    sizes = sorted({tuple(args[1].shape[-2:]) for args, _ in calls})
+    print(f"default path, prototype templates: launches over the 3 batches "
+          f"{json.dumps(plaunches)}; template sizes handed to kernel 5 {sizes}",
+          flush=True)
+    if plaunches != want or sizes != [(1, 1)]:
+        fail(f"prototype launches {plaunches} (expected {want}) or templates {sizes} "
+             "(expected only 1 x 1)")
+    out = dict(ms=sum(times) / 3, batch_ms=times, resnet_ms=resnet_ms,
+               resnet_share=resnet_ms / batch_ms, device_resnet_ms=dev_resnet,
+               device_heads_ms=rest, device_xcorr_ms=k5, device_nms_ms=nms,
+               feature_std=std, feature_rel_rms=feat_rms, cudnn_tf32=tf32,
+               obj_rel=obj_diff / scale, prototype_ms=sum(ptimes) / 3)
+    return out, pred, ppred
+
+
+def check_default_train_eval(torch, np, pred, ppred, card, phase4e_ms, modules) -> dict:
+    """Phase 5e: ``Trainer.test`` of the default detector on phase 5's split, then
+    ``Trainer.fit`` of ``Config()`` from its weights, then one prototype train step
+    through kernel 5's Function against the plain version's autograd."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from tmr_tpu_torch.config import Config
+    from tmr_tpu_torch.inference import detections_to_numpy
+    from tmr_tpu_torch.ops import xcorr as xcorr_ops
+    from tmr_tpu_torch.train import loop
+    from tmr_tpu_torch.train.state import TrainState, compute_losses
+    from tmr_tpu_torch.utils.checkpoint import best_checkpoint
+    from tmr_tpu_torch.utils.convert import load_matching_net
+
+    _build, cuda_xcorr = modules
+    out = {}
+    state_dict = {k: v.detach().clone() for k, v in pred.model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"))
+        base = Config(dataset="FSCD147", datapath=os.path.join(tmp, "fsc"), eval=True,
+                      num_workers=4, eval_batch_size=4)
+        rates = {}
+        with in_memory_images(images):
+            for k in (1, 3):
+                cfg = dataclasses.replace(base, logpath=os.path.join(tmp, f"log{k}"),
+                                          num_exemplars=k)
+                metrics, records, wall, tr = run_eval(torch, cfg, pred.model, state_dict,
+                                                      _build, pred.device)
+                rates[k] = check_eval_run(torch, np, pred, tr, f"default eval "
+                                          f"num_exemplars={k}", metrics, records, wall,
+                                          phase4e_ms, card, compute_losses,
+                                          detections_to_numpy, DEFAULT_LAUNCHES)
+                del records, tr
+    out["eval_img_s"] = rates
+
+    # Trainer.fit: the backbone trains at lr_backbone, roi_align at capacity 191 (FFT)
+    steps, evals = [], []
+    make_step = loop.make_train_step
+
+    def recording_make_step(model, cfg):
+        step = make_step(model, cfg)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            losses = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches={k: v - before[k] for k, v in _build.LAUNCHES.items()},
+                              loss=float(losses["loss"]),
+                              skipped=float(losses["skipped_nonfinite"])))
+            return losses
+
+        return run
+
+    class RecordingTrainer(loop.Trainer):
+        def _eval_batch(self, batch):
+            before = dict(_build.LAUNCHES)
+            res = super()._eval_batch(batch)
+            evals.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+            return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"), TRAIN_SIDES, TRAIN_IMAGES)
+        cfg = Config(dataset="FSCD147", datapath=os.path.join(tmp, "fsc"), num_workers=4,
+                     seed=SEED, batch_size=4, eval_batch_size=4,
+                     max_epochs=DEFAULT_TRAIN_EPOCHS, logpath=os.path.join(tmp, "fit"))
+        loop.make_train_step = recording_make_step
+        try:
+            with in_memory_images(images):
+                torch.cuda.reset_peak_memory_stats()
+                tr = RecordingTrainer(cfg, device="cuda", model=pred.model)
+                t0 = time.perf_counter()
+                tr.fit(params=state_dict)
+                fit_s = time.perf_counter() - t0
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                it = iter(tr._loaders()[0])
+                batch = next(it)
+                it.close()
+                # main's order: fit, then test() on the best checkpoint fit wrote, read
+                # back through the Lightning loader (a ResNet encoder's keys)
+                best = best_checkpoint(cfg.logpath)
+                n_resnet = sum(k.startswith("backbone.layer")
+                               for k in load_matching_net(best))
+                ckpt_metrics = tr.test()
+        finally:
+            loop.make_train_step = make_step
+    zero = dict(DEFAULT_LAUNCHES, xcorr=0, nms=0)
+    losses = [r["loss"] for r in steps]
+    labels = tr.state.labels
+    got = dict(pred.model.named_parameters())
+    moved = {lab: sum(not torch.equal(got[n], state_dict[n]) for n in got if labels[n] == lab)
+             for lab in ("backbone", "frozen", "head")}
+    counts = {lab: sum(v == lab for v in labels.values()) for lab in moved}
+    warm = [r["ms"] for r in steps[1:]]
+    each = ", ".join(f"{r['ms']:.1f}" for r in steps)
+    print(f"default train path: {len(steps)} steps of 4 images at 1024, ms per step "
+          f"{each} (warm mean "
+          f"{sum(warm) / len(warm):.1f}, {4e3 * len(warm) / sum(warm):.2f} images/s); "
+          f"peak device memory {peak_gb:.2f} GB; fit {fit_s:.1f} s with validation at "
+          f"epoch 0; losses {', '.join(f'{x:.4f}' for x in losses)}; tensors moved by "
+          f"group {json.dumps(moved)} of {json.dumps(counts)}; step launches "
+          f"{steps[0]['launches']}, validation launches {evals[0] if evals else None} "
+          f"[{card}]", flush=True)
+    if any(r["launches"] != zero for r in steps) or len(steps) != 2 * DEFAULT_TRAIN_EPOCHS:
+        fail(f"default train steps launched {[r['launches'] for r in steps]}, expected "
+             f"{2 * DEFAULT_TRAIN_EPOCHS} x none")
+    if not evals or any(e != DEFAULT_LAUNCHES for e in evals):
+        fail(f"default validation batches launched {evals}, expected {DEFAULT_LAUNCHES}")
+    if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in steps):
+        fail(f"default train losses {losses}, skipped {[r['skipped'] for r in steps]}")
+    if moved["frozen"] or moved["backbone"] < counts["backbone"] // 2 or not moved["head"]:
+        fail(f"the backbone did not train, or its batch norm statistics moved: {moved}")
+    print(f"default train path: test() on {os.path.basename(best)} ({n_resnet} ResNet "
+          f"tensors read by the Lightning loader): {json.dumps(ckpt_metrics)}", flush=True)
+    if not n_resnet or not all(math.isfinite(v) for v in ckpt_metrics.values()):
+        fail(f"test() after fit: {n_resnet} ResNet tensors, metrics {ckpt_metrics}")
+    out.update(step_ms=steps, warm_step_ms=sum(warm) / len(warm), peak_gb=peak_gb,
+               fit_s=fit_s, losses=losses)
+
+    # one prototype train step through kernel 5's Function; its gradients at the step's
+    # own inputs against the autograd of the plain version in f32
+    seen = {}
+
+    class RecordingXCorr:
+        @staticmethod
+        def apply(feature, template):
+            res = cuda_xcorr.XCorr.apply(feature, template)
+            seen.update(feature=feature.detach().clone(), template=template.detach().clone())
+            res.register_hook(lambda g: seen.__setitem__("g", g.detach().clone()))
+            return res
+
+    pcfg = dataclasses.replace(cfg, template_type="prototype", eval=False)
+    ts = TrainState(ppred.model, pcfg, steps_per_epoch=100)
+    step = loop.make_train_step(ppred.model, pcfg)
+    with swapped(xcorr_ops, "XCorr", RecordingXCorr):
+        step(ts, batch)  # first call: allocator and cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        losses = step(ts, batch)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+    plaunches = dict(_build.LAUNCHES)
+    ppeak = torch.cuda.max_memory_allocated() / 1e9
+    f, t, g = seen["feature"], seen["template"], seen["g"]
+    grads = cuda_xcorr.xcorr_backward(f, t, g)
+    fr, tr_ = f.clone().requires_grad_(), t.clone().requires_grad_()
+    want = torch.autograd.grad(cuda_xcorr.xcorr_plain(fr, tr_), (fr, tr_), g)
+    errs = grads_err(grads, want)
+    print(f"default prototype train step: {pms:.1f} ms for 4 images at 1024 (warm), peak "
+          f"device memory {ppeak:.2f} GB, loss {float(losses['loss']):.4f}; launches "
+          f"{json.dumps(plaunches)}; kernel 5 at {tuple(f.shape)} T={t.shape[-1]}: "
+          f"d_feature max_err {errs[0][0]:.3e} of max {errs[0][1]:.3e}, d_template "
+          f"max_err {errs[1][0]:.3e} of max {errs[1][1]:.3e} (tol {XCORR_REL_TOL} x max) "
+          f"[{card}]", flush=True)
+    if plaunches != PROTOTYPE_STEP_LAUNCHES or t.shape[-1] != 1:
+        fail(f"prototype train step launches {plaunches} at T={t.shape[-1]}, expected "
+             f"{PROTOTYPE_STEP_LAUNCHES} at T=1")
+    if not (math.isfinite(float(losses["loss"])) and float(losses["skipped_nonfinite"]) == 0
+            and all(e <= XCORR_REL_TOL * m for e, m in errs)):
+        fail(f"prototype train step: loss {float(losses['loss'])} or kernel 5's gradients "
+             f"{errs} disagree with the plain version's autograd")
+    out.update(prototype_step_ms=pms, prototype_peak_gb=ppeak, prototype_grad_err=errs)
+    return out
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     saved = getattr(module, name)
@@ -3256,6 +3655,17 @@ def main(argv=None) -> int:
     if args.profile:
         profile_batch(torch, lambda: hpred(*batches[2]), "ViT-H path")
     del hpred
+    torch.cuda.empty_cache()
+
+    # 4e and 5e. the JAX main.py default detector (ResNet-50 DC5) and its prototype
+    # twin, then its eval and training
+    default, dpred, ppred = check_default_path(torch, np, card,
+                                               (_build, cuda_nms, cuda_xcorr), args.profile)
+    default.update(check_default_train_eval(torch, np, dpred, ppred, card, default["ms"],
+                                            (_build, cuda_xcorr)))
+    print(json.dumps({"default": default}), flush=True)
+    del dpred, ppred
+    torch.cuda.empty_cache()
 
     # 6. the kernels line
     meta = {

@@ -314,17 +314,34 @@ def test_sam_pth_loads_like_convert_sam_vit(tmp_path):
                                           "model.input_proj.0.weight"), "A3"),
                                         (("mask_decoder.iou_token.weight",), "A6")])
 def test_unported_layouts_raise(keys, match):
-    """The ResNet layouts (ROADMAP A3) raise; the SAM refiner's (A6) is ported and named
-    (its converter: tests/test_torch_sam_decoder.py)."""
+    """The layouts that once raised are read now: a torchvision resnet50 state dict
+    (ROADMAP A3, ported: ``checkpoint_kind`` names it ``"resnet50"``), a ResNet
+    ``matching_net`` checkpoint (A3: its encoder keys become the backbone's) and the SAM
+    refiner's (A6: ``"sam_refiner"``). The name and the cases stay those of the test
+    that held their refusal. The converters against the JAX package:
+    tests/test_torch_resnet.py, tests/test_torch_sam_decoder.py."""
     sd = {k: torch.zeros(1) for k in keys}
     if match == "A6":
         assert convert.checkpoint_kind(sd) == "sam_refiner"
         return
-    with pytest.raises(NotImplementedError, match=match):
-        if keys[0].startswith("model."):
-            convert.matching_net_state_dict(sd)
-        else:
-            convert.checkpoint_kind(sd)
+    if not keys[0].startswith("model."):
+        assert convert.checkpoint_kind(sd) == "resnet50"
+        return
+    # the ResNet encoder of a Lightning checkpoint: its stem, one block, and a projection
+    enc = "model.encoder.backbone.backbone."
+    sd.update({"model.input_proj.0.bias": torch.zeros(1),
+               enc + "conv1.weight": torch.zeros(64, 3, 7, 7),
+               **{f"{enc}{bn}.{leaf}": torch.zeros(64) for bn in ("bn1",)
+                  for leaf in ("weight", "bias", "running_mean", "running_var")},
+               **{f"{enc}layer1.0.conv{i}.weight": torch.zeros(1) for i in (1, 2, 3)},
+               **{f"{enc}layer1.0.bn{i}.{leaf}": torch.zeros(1) for i in (1, 2, 3)
+                  for leaf in ("weight", "bias", "running_mean", "running_var")}})
+    assert convert.checkpoint_kind(sd) == "matching_net"
+    got = convert.matching_net_state_dict(sd)
+    assert {k for k in got if k.startswith("backbone.")} == {
+        "backbone." + k[len(enc):] for k in sd if k.startswith(enc) and k != keys[0]}
+    assert {k for k in got if not k.startswith("backbone.")} == {"input_proj_0.weight",
+                                                                 "input_proj_0.bias"}
 
 
 # ------------------------------------------------------------------ the CLI

@@ -96,6 +96,19 @@ def test_scan_covers_the_sam_modules(mod):
     assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
 
 
+@pytest.mark.parametrize("mod", ["models/resnet.py", "models/__init__.py",
+                                 "models/matching_net.py", "ops/xcorr.py",
+                                 "ops/cuda_xcorr.py", "utils/weights.py"])
+def test_scan_covers_the_resnet_and_prototype_modules(mod):
+    """The ResNet backbones, prototype templates and the correlation's autograd
+    Function: each the port's own module, with no import of JAX, ``tmr_tpu``, ``tests``
+    or cv2."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
+
+
 def test_sam_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.refine import build_refiner

@@ -111,7 +111,11 @@ class Predictor:
         return None
 
     def feature_hw(self, image_size: int) -> int:
-        base = image_size // self.model.backbone.patch_size
+        """The matcher's map side at ``image_size``: the backbone's ``feature_stride`` (a
+        ResNet's) or ``patch_size`` (a SAM ViT's), x2 under ``feature_upsample``."""
+        bb = self.model.backbone
+        stride = getattr(bb, "feature_stride", None) or getattr(bb, "patch_size", 16)
+        base = image_size // stride
         return base * 2 if self.cfg.feature_upsample else base
 
     def pick_capacity(self, exemplars, image_size: int) -> int:

@@ -5,6 +5,11 @@ main.py:14-130), to train and to eval:
         --backbone sam_vit_b --emb_dim 512 --fusion --feature_upsample --lr_drop ...
     python -m tmr_tpu_torch.main --eval [the same flags]
 
+Without ``--backbone`` the detector is ``main.py``'s default: ResNet-50 with DC5
+(``--dilation``; an empty value turns it off, as in ``main.py``), computed in f32;
+``--backbone resnet50_layer{1,2,3}[_FRZ]`` truncates it (``_FRZ`` freezes it), and
+``--template_type prototype`` correlates a 1 x 1 crop-mean template.
+
 The flags are those of ``main.py`` that training and eval read (and that the scripts in
 ``scripts/train/`` and ``scripts/eval/`` pass), under the same names and defaults.
 Without ``--eval`` it trains (``Trainer.fit``: checkpoints and ``metrics.csv`` under

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from tmr_tpu_torch.models.matching_net import MatchingNet, select_capacity_bucket  # noqa: F401
+from tmr_tpu_torch.models.resnet import RESNET_VARIANTS, ResNet50, build_resnet  # noqa: F401
 from tmr_tpu_torch.models.vit import SamViT, build_sam_vit  # noqa: F401
 
 
@@ -22,14 +23,23 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def build_backbone(cfg, device=None) -> SamViT:
+def build_backbone(cfg, device=None) -> torch.nn.Module:
     """'sam'/'sam_vit_h' -> ViT-H (32 blocks, 16 heads of 80), 'sam_vit_b' -> ViT-B (12
-    blocks, 12 heads of 64) (the port's slice has the SAM backbones only), built on
-    ``device`` (:func:`resolve_device`), its blocks recomputed on the backward pass under
-    ``cfg.remat_backbone``."""
-    kind = {"sam": "vit_h", "sam_vit_h": "vit_h", "sam_vit_b": "vit_b"}.get(cfg.backbone)
+    blocks, 12 heads of 64), its blocks recomputed on the backward pass under
+    ``cfg.remat_backbone``; the ``RESNET_VARIANTS`` names -> the ResNet-50 family (f32,
+    ``cfg.dilation``: DC5), which has no block rematerialization (``ValueError`` with
+    ``remat_backbone``, as in the JAX package). Built on ``device``
+    (:func:`resolve_device`)."""
+    name = cfg.backbone
+    if name in RESNET_VARIANTS:
+        if cfg.remat_backbone:
+            raise ValueError("--remat_backbone applies to SAM-ViT backbones only; the "
+                             "resnet variants have no block rematerialization")
+        with resolve_device(device):
+            return build_resnet(name, dilation=cfg.dilation)
+    kind = {"sam": "vit_h", "sam_vit_h": "vit_h", "sam_vit_b": "vit_b"}.get(name)
     if kind is None:
-        raise KeyError(f"backbone {cfg.backbone!r} is not ported yet")
+        raise KeyError(f"unknown backbone {name!r}")
     with resolve_device(device):
         return build_sam_vit(kind, dtype=compute_dtype(cfg), remat=cfg.remat_backbone)
 

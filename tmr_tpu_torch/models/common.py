@@ -27,15 +27,16 @@ class Linear(nn.Linear):
 class Conv2d(nn.Conv2d):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dilation: int = 1):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
-                         bias=bias)
+                         bias=bias, dilation=dilation)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                        self.dilation)
 
 
 class LayerNorm2d(nn.Module):

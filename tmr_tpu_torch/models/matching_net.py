@@ -1,9 +1,10 @@
 """The TMR detector (counterpart of ``tmr_tpu/models/matching_net.py``).
 
-encoder -> [2x bilinear upsample] -> 1x1 input_proj to emb_dim -> template matcher
-(f32, learnable scalar scale) -> [fusion concat] -> decoder conv stacks ->
-objectness (1 ch) + ltrb (4 ch) heads. NCHW inside; the outputs keep the JAX
-package's layouts: objectness (B, H, W), regressions (B, H, W, 4), both f32.
+encoder (a SAM ViT or a ResNet-50) -> [2x bilinear upsample] -> 1x1 input_proj to
+emb_dim -> template matcher (RoIAlign or prototype template, f32, learnable scalar
+scale) -> [fusion concat] -> decoder conv stacks -> objectness (1 ch) + ltrb (4 ch)
+heads. NCHW inside; the outputs keep the JAX package's layouts: objectness (B, H, W),
+regressions (B, H, W, 4), both f32.
 
 The tail's dispatch mirrors ``tmr_tpu/models/matching_net.py:156-226`` without gates:
 ``quant="off"`` runs the cuDNN ``Decoder``/heads; ``quant="int8"`` runs
@@ -25,16 +26,22 @@ import torch.nn.functional as F
 from tmr_tpu_torch.models.common import Conv2d
 from tmr_tpu_torch.models.heads import BboxesHead, Decoder, Int8Conv2d, ObjectnessHead
 from tmr_tpu_torch.ops.fused_heads import fused_decoder_heads
-from tmr_tpu_torch.ops.xcorr import cross_correlation, extract_template
+from tmr_tpu_torch.ops.xcorr import cross_correlation, extract_prototype, extract_template
 
 
 class TemplateMatcher(nn.Module):
-    """RoIAlign template of exemplar 0, depthwise correlation, learnable scale."""
+    """The exemplar's template, depthwise correlation, learnable scale. ``template_type``
+    ``"roi_align"`` RoIAligns exemplar 0 into the capacity bucket; ``"prototype"`` means
+    the feature over its integer crop into a 1 x 1 template, which correlates at T = 1
+    whatever the bucket (``tmr_tpu/models/matching_net.py:51-57``)."""
 
-    def __init__(self, squeeze: bool = False, quant: str = "off",
-                 quant_kernel: str = "dequant"):
+    def __init__(self, template_type: str = "roi_align", squeeze: bool = False,
+                 quant: str = "off", quant_kernel: str = "dequant"):
         super().__init__()
+        if template_type not in ("roi_align", "prototype"):
+            raise ValueError(f"unknown template_type {template_type!r}")
         self.scale = nn.Parameter(torch.ones(1))
+        self.template_type = template_type
         self.squeeze = squeeze
         self.quant = quant
         self.quant_kernel = quant_kernel
@@ -42,7 +49,10 @@ class TemplateMatcher(nn.Module):
     def forward(self, feature: torch.Tensor, exemplars: torch.Tensor,
                 capacity: int) -> torch.Tensor:
         """feature (B, C, H, W) f32; exemplars (B, 4) normalized xyxy."""
-        templates, thw = extract_template(feature, exemplars, capacity)
+        if self.template_type == "prototype":
+            templates, thw = extract_prototype(feature, exemplars, 1)
+        else:
+            templates, thw = extract_template(feature, exemplars, capacity)
         out = cross_correlation(feature, templates, thw, squeeze=self.squeeze,
                                 quant=self.quant, kernel=self.quant_kernel)
         return out * self.scale
@@ -56,9 +66,6 @@ class MatchingNet(nn.Module):
                  dtype: torch.dtype = torch.float32, quant: str = "off",
                  quant_kernel: str = "dequant"):
         super().__init__()
-        if template_type != "roi_align":
-            raise NotImplementedError(
-                f"template_type {template_type!r}: the port has roi_align templates only")
         self.backbone = backbone
         self.compute_dtype = dtype
         self.quant = quant
@@ -68,9 +75,16 @@ class MatchingNet(nn.Module):
         self.box_reg = box_reg
         self.no_matcher = no_matcher
         self.feature_upsample = feature_upsample
-        self.input_proj_0 = Conv2d(backbone.out_chans, emb_dim, 1, dtype=dtype)
+        # the encoder's width: a SamViT's out_chans, a ResNet's num_channels (the JAX
+        # BackboneEncoder's rule)
+        width = getattr(backbone, "out_chans", None) or getattr(backbone, "num_channels",
+                                                                 None)
+        if width is None:
+            raise AttributeError(f"{type(backbone).__name__} exposes neither out_chans "
+                                 "nor num_channels")
+        self.input_proj_0 = Conv2d(width, emb_dim, 1, dtype=dtype)
         if not no_matcher:
-            self.matcher = TemplateMatcher(squeeze=squeeze, quant=quant,
+            self.matcher = TemplateMatcher(template_type, squeeze=squeeze, quant=quant,
                                            quant_kernel=quant_kernel)
         tm_ch = 1 if squeeze and not no_matcher else emb_dim
         c_cat = emb_dim + tm_ch if fusion else tm_ch

@@ -20,8 +20,13 @@ sum (:func:`int8_geometry` mirrors its launch geometry).
 The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
 only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
 header says what bounds it on the card and how each kernel is laid out) or raises. The
-kernels have no backward: on the card an input that requires grad raises while grad mode
-is on (``_build.refuse_grad``); the train forward correlates through the FFT path.
+wrappers themselves have no backward: on the card an input that requires grad raises
+while grad mode is on (``_build.refuse_grad``). The f32 correlation's gradient is
+:class:`XCorr`, the ``torch.autograd.Function`` the matcher calls: its forward is
+:func:`xcorr`, its backward :func:`xcorr_backward`, plain PyTorch around one more launch
+of the kernel (the JAX Pallas kernel has no VJP; JAX differentiates the XLA grouped conv
+of the same function). The int8 correlation keeps refusing grad: training runs exact
+weights.
 """
 
 from __future__ import annotations
@@ -96,6 +101,41 @@ def xcorr(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
                   template.data_ptr(), out.data_ptr(), b * c, h, w, t,
                   _build.stream_of(feature))
     return out
+
+
+def xcorr_backward(feature: torch.Tensor, template: torch.Tensor,
+                   g: torch.Tensor) -> tuple:
+    """The gradients (d_feature, d_template) of :func:`xcorr` at (feature (B, C, H, W),
+    template (B, C, T, T), T odd) for the upstream gradient ``g`` (B, C, H, W), f32.
+
+    d_feature is the SAME correlation of ``g`` with the template flipped in both axes (T
+    odd puts the flipped template's centre on the same tap), so on the card it is one
+    more launch of the kernel; d_template[i, j] sums ``g`` times the padded feature
+    shifted by (i, j) over every position, T^2 plain products and sums a channel."""
+    _, _, h, w = feature.shape
+    t = template.shape[-1]
+    c = t // 2
+    g = g.float()
+    d_feature = xcorr(g.contiguous(), template.float().flip(-2, -1).contiguous())
+    fpad = F.pad(feature.float(), (c, t - 1 - c, c, t - 1 - c))
+    d_template = torch.stack([(fpad[:, :, i:i + h, j:j + w] * g).sum(dim=(2, 3))
+                              for i in range(t) for j in range(t)], dim=-1)
+    return d_feature, d_template.reshape(template.shape)
+
+
+class XCorr(torch.autograd.Function):
+    """:func:`xcorr` with its gradient (:func:`xcorr_backward`): the kernel (the plain
+    version on the CPU) forward, and on the card one more kernel launch for d_feature in
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, feature, template):
+        ctx.save_for_backward(feature, template)
+        return xcorr(feature, template)
+
+    @staticmethod
+    def backward(ctx, g):
+        return xcorr_backward(*ctx.saved_tensors, g)
 
 
 def xcorr_int8_plain(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Tensor,

@@ -1,23 +1,28 @@
 """Template extraction and cross-correlation (counterpart of ``tmr_tpu/ops/xcorr.py``).
 
 - :func:`template_geometry` / :func:`extract_template`: RoIAlign the exemplar into an
-  odd (ht, wt) template centred in a static (T, T) capacity (template_matching.py:55-76).
+  odd (ht, wt) template centred in a static (T, T) capacity (template_matching.py:55-76);
+- :func:`extract_prototype`: the mean of the feature over the exemplar's integer crop as
+  a 1 x 1 template (template_matching.py:43-53);
 - :func:`cross_correlation`: depthwise SAME correlation with per-image templates,
   divided by ``ht * wt + 1e-14``, the ``(ht // 2, wt // 2)`` border band zeroed, an
   optional channel sum. Buckets up to :data:`FFT_CAPACITY_THRESHOLD` run the direct
-  correlation (``ops/cuda_xcorr.py``); larger ones the correlation theorem with
-  ``torch.fft``, whose cost does not grow with T. With ``quant="int8"`` the direct
-  path takes the int8 arms of ``tmr_tpu/ops/xcorr.py`` (no gates): ``"dequant"``, a
-  bf16 feature and the int8-grid template through the f32 kernel (products of bf16
-  values are exact in f32); ``"int8"``, both operands quantized per (image, channel)
-  through the int8 kernel. The FFT path is f32 whatever ``quant`` says, as in JAX.
+  correlation (``ops/cuda_xcorr.py``; the f32 arm through its autograd Function
+  ``XCorr``, so that a loss behind it trains what is before it); larger ones the
+  correlation theorem with ``torch.fft``, whose cost does not grow with T. With
+  ``quant="int8"`` the direct path takes the int8 arms of ``tmr_tpu/ops/xcorr.py`` (no
+  gates): ``"dequant"``, a bf16 feature and the int8-grid template through the f32
+  kernel (products of bf16 values are exact in f32); ``"int8"``, both operands quantized
+  per (image, channel) through the int8 kernel. The FFT path is f32 whatever ``quant``
+  says, as in JAX.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from tmr_tpu_torch.ops.cuda_xcorr import xcorr, xcorr_int8
+from tmr_tpu_torch.ops.cuda_xcorr import XCorr, xcorr, xcorr_int8
 from tmr_tpu_torch.ops.quant import quantize_int8, quantize_int8_template, quantize_template
 from tmr_tpu_torch.ops.roi_align import sampling_matrix
 
@@ -52,6 +57,27 @@ def extract_template(feature: torch.Tensor, exemplars: torch.Tensor, capacity: i
     template = torch.matmul(torch.matmul(ay[:, None], feature.float()),
                             ax[:, None].transpose(-1, -2))
     return template, torch.stack([ht, wt], dim=1)
+
+
+def extract_prototype(feature: torch.Tensor, exemplars: torch.Tensor, capacity: int = 1):
+    """feature (B, C, H, W), exemplars (B, 4) -> (templates (B, C, T, T): the mean of the
+    feature over the crop [floor(y1 H), ceil(y2 H)) x [floor(x1 W), ceil(x2 W)) at the
+    centre of a zero (T, T) kernel, T = ``capacity``; thw (B, 2) int32 ones)."""
+    b, _, h, w = feature.shape
+    g = template_geometry(exemplars, h, w)
+    dev = feature.device
+    xs = torch.arange(w, device=dev)[None, :]
+    ys = torch.arange(h, device=dev)[None, :]
+    mx = ((xs >= torch.floor(g["x1"]).to(torch.int32)[:, None])
+          & (xs < torch.ceil(g["x2"]).to(torch.int32)[:, None]))
+    my = ((ys >= torch.floor(g["y1"]).to(torch.int32)[:, None])
+          & (ys < torch.ceil(g["y2"]).to(torch.int32)[:, None]))
+    mask = (my[:, :, None] & mx[:, None, :]).to(feature.dtype)
+    denom = mask.sum(dim=(1, 2)).clamp_min(1.0)
+    proto = (feature * mask[:, None]).sum(dim=(2, 3)) / denom[:, None]
+    c = capacity // 2
+    template = F.pad(proto[:, :, None, None], (c, capacity - 1 - c, c, capacity - 1 - c))
+    return template, torch.ones((b, 2), dtype=torch.int32, device=dev)
 
 
 def _fft_size(n: int) -> int:
@@ -105,7 +131,7 @@ def cross_correlation(feature: torch.Tensor, template: torch.Tensor,
         out = xcorr(feature.to(torch.bfloat16).float(),
                     quantize_template(template, torch.bfloat16).float())
     else:
-        out = xcorr(feature.float(), template.float())
+        out = XCorr.apply(feature.float(), template.float())
     ht = template_hw[:, 0]
     wt = template_hw[:, 1]
     out = out / (ht * wt + 1e-14).to(out.dtype)[:, None, None, None]

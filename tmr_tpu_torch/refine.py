@@ -62,6 +62,18 @@ class SamRefineModule(nn.Module):
         """Seeded random weights (``utils.weights.init_params``)."""
         init_params(self, seed)
 
+    def _features(self, features: torch.Tensor) -> torch.Tensor:
+        """The encoder's output (B, h, w, C) as the decoder takes it, f32; a width other
+        than the decoder's raises (the JAX program fails to broadcast it: every ResNet
+        variant but resnet50_layer1 hands over 512 to 2048 channels)."""
+        width = self.mask_decoder.transformer_dim
+        if features.shape[-1] != width:
+            raise ValueError(
+                f"refine_box: the SAM mask decoder takes {width}-channel features; the "
+                f"backbone gives {features.shape[-1]} (of the ResNet variants only "
+                "resnet50_layer1 has 256)")
+        return features.float().contiguous()
+
     def _decode(self, feature: torch.Tensor, image_pe: torch.Tensor,
                 boxes_px: torch.Tensor, image_size: Tuple[int, int]) -> tuple:
         """One chunk of box prompts on one image's feature (1, h, w, C) -> (mask logits
@@ -97,7 +109,7 @@ class SamRefineModule(nn.Module):
         the box); invalid slots unchanged; refs the box centres. ``mask_size`` defaults
         to the image size, as the reference upsamples to the full image."""
         mask_size = tuple(image_size) if mask_size is None else tuple(mask_size)
-        features = features.float().contiguous()
+        features = self._features(features)
         boxes, scores, valid = dets["boxes"], dets["scores"], dets["valid"]
         res = _res(boxes, image_size)
         out_boxes, out_scores = boxes.clone(), scores.clone()
@@ -123,7 +135,7 @@ class SamRefineModule(nn.Module):
         applied to every refined valid box about its centre; refs stay those of
         :meth:`refine`."""
         mask_size = tuple(image_size) if mask_size is None else tuple(mask_size)
-        features = features.float().contiguous()
+        features = self._features(features)
         exemplars = exemplars.float()
         res = _res(exemplars, image_size)
         scalers = []
@@ -156,7 +168,7 @@ class SamRefineModule(nn.Module):
                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Union mask per image (B, H, W) bool of the valid slots' masks at full image
         size (the ``save_masks`` path, box_refine.py:260-307, without the file)."""
-        features = features.float().contiguous()
+        features = self._features(features)
         b = boxes.shape[0]
         union = torch.zeros((b,) + tuple(image_size), dtype=torch.bool,
                             device=boxes.device)

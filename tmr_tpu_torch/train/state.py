@@ -9,8 +9,9 @@ optax chain, ``clip_by_global_norm -> multi_transform{head: adamw, backbone: ada
 set_to_zero}``, wrapped in ``MultiSteps`` for ``grad_accum_steps`` > 1; this module keeps
 its order:
 
-- gradients are taken for every parameter, the frozen backbone's too, and the clip's
-  global norm and the non-finite check run over all of them;
+- gradients are taken for every parameter, the frozen backbone's and the ResNet's batch
+  norm statistics' too, and the clip's global norm and the non-finite check run over all
+  of them;
 - the frozen group (``set_to_zero``) has no moments and no weight decay, and never moves;
 - the drop lands on the update whose count reaches ``int(max_epochs * 0.6) *
   updates_per_epoch`` (optax's ``piecewise_constant_schedule``), counted in optimizer
@@ -75,12 +76,21 @@ def frozen_backbone(cfg) -> bool:
 
 
 def param_labels(model: torch.nn.Module, frozen: bool) -> Dict[str, str]:
-    """Each parameter's group: ``"backbone"`` (``"frozen"`` when ``frozen``) under the
-    top-level ``backbone`` module, else ``"head"`` (the reference matches parameter names
-    on 'backbone', trainer.py:210-225). The JAX package's third case, FrozenBatchNorm
-    statistics, are buffers here and never reach the optimizer."""
-    return {name: ("frozen" if frozen else "backbone") if name.split(".")[0] == "backbone"
-            else "head" for name, _ in model.named_parameters()}
+    """Each parameter's group (the JAX ``param_labels``): ``"frozen"`` for the ResNet's
+    FrozenBatchNorm statistics (``running_mean`` / ``running_var``) whatever ``frozen``
+    says; else ``"backbone"`` (``"frozen"`` when ``frozen``) under the top-level
+    ``backbone`` module, and ``"head"`` elsewhere (the reference matches parameter names
+    on 'backbone', trainer.py:210-225). The statistics are parameters, as in JAX: their
+    gradients enter the clip's global norm, and the frozen group never moves."""
+
+    def label(name: str) -> str:
+        if name.rsplit(".", 1)[-1] in ("running_mean", "running_var"):
+            return "frozen"
+        if name.split(".")[0] == "backbone":
+            return "frozen" if frozen else "backbone"
+        return "head"
+
+    return {name: label(name) for name, _ in model.named_parameters()}
 
 
 def lr_milestone(cfg, steps_per_epoch: int) -> int:
@@ -182,8 +192,9 @@ class TrainState:
 def make_train_step(model: torch.nn.Module, cfg) -> Callable[[TrainState, dict], dict]:
     """The train step: ``(state, batch) -> losses``, applying the step to ``state`` in
     place. The forward runs at the largest template bucket, as the JAX trainer builds its
-    model with ``template_capacity=max(template_buckets)`` (191 correlates through the
-    FFT path, which autograd differentiates). Every parameter gets its gradient; the
+    model with ``template_capacity=max(template_buckets)`` (roi_align templates: 191
+    correlates through the FFT path, which autograd differentiates; prototype templates
+    correlate at T = 1 through ``cuda_xcorr.XCorr``, kernel 5 and its backward). Every parameter gets its gradient; the
     losses come back detached, with ``skipped_nonfinite``."""
     capacity = int(max(cfg.template_buckets))
 

@@ -12,16 +12,19 @@ Layouts:
 - the SAM prompt encoder and mask decoder (``prompt_encoder.*`` / ``mask_decoder.*``
   of a full ``sam_vit_{b,h}`` checkpoint, which the reference's refiner loads,
   box_refine.py:41-60) -> :func:`sam_refiner_state_dict`, the keys of
-  ``refine.SamRefineModule`` (and of ``sam.Sam`` beside its ``image_encoder.*``).
+  ``refine.SamRefineModule`` (and of ``sam.Sam`` beside its ``image_encoder.*``);
+- torchvision ``resnet50`` state dicts (``conv1.*``, ``bn1.*``, ``layer{s}.{b}.*``) and a
+  Lightning checkpoint's ResNet encoder -> :func:`resnet50_state_dict`, the
+  ``models.resnet.ResNet50`` keys (the same names; ``fc.*`` and ``num_batches_tracked``
+  are left out, and a truncated net's missing blocks are skipped).
 
 The port's modules keep torch's layouts (conv kernels OIHW, linear weights (out, in)),
 so every tensor is copied as it is, in f32; only the keys change, except that the
 prompt encoder's four point embeddings become one (4, C) parameter and a
 ``ConvTranspose2d`` weight (C_in, C_out, 2, 2) becomes ``UpConv2x``'s (C_out, C_in, 2, 2).
 The results equal ``params_from_jax`` of the JAX package's ``convert_matching_net`` /
-``convert_sam_refiner`` of the same checkpoint key for key and bit for bit. torchvision
-``resnet50`` state dicts (the ResNet backbones, ROADMAP A3) wait for their modules and
-raise.
+``convert_sam_refiner`` / ``convert_resnet50`` of the same checkpoint key for key and bit
+for bit.
 """
 
 from __future__ import annotations
@@ -78,11 +81,44 @@ def sam_vit_state_dict(sd: Mapping[str, torch.Tensor],
     return out
 
 
+#: blocks per stage of ResNet-50 (the JAX ``convert_resnet50`` reads these and skips a
+#: truncated checkpoint's missing ones)
+_RESNET_LAYERS = (3, 4, 6, 3)
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def resnet50_state_dict(sd: Mapping[str, torch.Tensor],
+                        prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A torchvision ``resnet50`` state_dict under ``prefix`` -> the port's ``ResNet50``
+    state_dict (the JAX ``convert_resnet50``): the stem, then every block of the four
+    stages the checkpoint holds."""
+    sd = _prefixed(sd, prefix)
+    out = {"conv1.weight": _f32(sd["conv1.weight"])}
+
+    def bn(key: str) -> None:
+        for leaf in _BN_LEAVES:
+            out[f"{key}.{leaf}"] = _f32(sd[f"{key}.{leaf}"])
+
+    bn("bn1")
+    for stage, blocks in enumerate(_RESNET_LAYERS, start=1):
+        for block in range(blocks):
+            t = f"layer{stage}.{block}."
+            if t + "conv1.weight" not in sd:
+                continue  # truncated checkpoint
+            for i in (1, 2, 3):
+                out[f"{t}conv{i}.weight"] = _f32(sd[f"{t}conv{i}.weight"])
+                bn(f"{t}bn{i}")
+            if t + "downsample.0.weight" in sd:
+                out[t + "downsample.0.weight"] = _f32(sd[t + "downsample.0.weight"])
+                bn(t + "downsample.1")
+    return out
+
+
 def matching_net_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A Lightning ``model.*`` state_dict -> the port's ``MatchingNet`` state_dict.
 
     Reference module paths (trainer.py:21 / matching_net.py):
-      model.encoder.backbone.backbone.*  -> backbone.*          (SAM ViT)
+      model.encoder.backbone.backbone.*  -> backbone.*          (SAM ViT or ResNet-50)
       model.input_proj.{i}.*             -> input_proj_{i}.*
       model.matcher.scale                -> matcher.scale
       model.decoder_o.layer.{2j}.*       -> decoder_o_0.conv_{j}.*
@@ -92,13 +128,14 @@ def matching_net_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
     """
     sd = _prefixed(sd, "model.")
     enc = "encoder.backbone.backbone."
-    if enc + "patch_embed.proj.weight" not in sd:
-        if any(k.startswith(enc + "layer1.") for k in sd):
-            raise NotImplementedError(
-                "a ResNet matching_net checkpoint: the port has the SAM backbones only "
-                "(the ResNet backbones are ROADMAP A3)")
-        raise KeyError(f"matching_net checkpoint has no {enc}patch_embed.* keys")
-    out = {"backbone." + k: v for k, v in sam_vit_state_dict(sd, prefix=enc).items()}
+    if enc + "patch_embed.proj.weight" in sd:
+        backbone = sam_vit_state_dict(sd, prefix=enc)
+    elif enc + "conv1.weight" in sd:
+        backbone = resnet50_state_dict(sd, prefix=enc)
+    else:
+        raise KeyError(f"matching_net checkpoint has neither {enc}patch_embed.* (SAM) nor "
+                       f"{enc}conv1.* (ResNet) keys")
+    out = {"backbone." + k: v for k, v in backbone.items()}
     i = 0
     while f"input_proj.{i}.weight" in sd:
         out[f"input_proj_{i}.weight"] = _f32(sd[f"input_proj.{i}.weight"])
@@ -215,16 +252,15 @@ def sam_refiner_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Te
 def checkpoint_kind(sd: Mapping[str, torch.Tensor]) -> str:
     """The layout of a loaded checkpoint: ``"matching_net"``, ``"sam_vit"`` (a SAM
     checkpoint with its encoder: a full one also holds the refiner's subtrees, which
-    :func:`sam_refiner_state_dict` reads) or ``"sam_refiner"`` (the prompt encoder and
-    mask decoder alone); the layouts whose modules are not ported raise, naming their
-    ROADMAP item."""
+    :func:`sam_refiner_state_dict` reads), ``"resnet50"`` (a torchvision state dict,
+    :func:`resnet50_state_dict`) or ``"sam_refiner"`` (the prompt encoder and mask
+    decoder alone), sniffed as the JAX package's ``convert`` CLI does."""
     if any(k.startswith("model.") for k in sd):
         return "matching_net"
     if any(k.startswith("image_encoder.") for k in sd):
         return "sam_vit"
     if any(k.startswith("layer1.") for k in sd):
-        raise NotImplementedError("a torchvision resnet50 state_dict: the ResNet "
-                                  "backbones are not ported yet (ROADMAP A3)")
+        return "resnet50"
     if any(k.startswith(("prompt_encoder.", "mask_decoder.")) for k in sd):
         return "sam_refiner"
     raise KeyError(f"cannot tell the checkpoint's layout from keys like {sorted(sd)[:3]}")

@@ -12,7 +12,10 @@ refiner tree, or the ``Sam`` tree with its ``image_encoder``) take the same rule
 raw parameters (the gaussian matrix, the point, mask and output tokens) are copied, the
 two-way blocks' flax LayerNorms (``norm1``..``norm4``, ``norm_final_attn``) give their
 ``scale`` as ``weight``, and ``UpConv2x``'s (2, 2, C_in, C_out) kernel takes the conv
-rule, the layout ``models.sam_decoder.UpConv2x`` reads.
+rule, the layout ``models.sam_decoder.UpConv2x`` reads. The ResNet's flax names become
+torchvision's: ``layer{s}_{b}`` -> ``layer{s}.{b}``, ``downsample_0/1`` ->
+``downsample.0/1``; its ``FrozenBatchNorm`` leaves (``weight``, ``bias``,
+``running_mean``, ``running_var``) are copied.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from tmr_tpu_torch.models.common import Conv2d, LayerNorm2d, Linear
+from tmr_tpu_torch.models.resnet import FrozenBatchNorm
 from tmr_tpu_torch.models.sam_decoder import UpConv2x
 
 _HEAD_PREFIXES = ("decoder_", "objectness_head_", "ltrbs_head_")
@@ -41,7 +45,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     def walk(node: Mapping, path: list) -> None:
         for name, val in node.items():
             if isinstance(val, Mapping):
-                walk(val, path + [re.sub(r"^blocks_(\d+)$", r"blocks.\1", name)])
+                walk(val, path + [re.sub(r"^(blocks|layer\d|downsample)_(\d+)$", r"\1.\2",
+                                         name)])
                 continue
             arr = np.asarray(val, dtype=np.float32)
             leaf = name
@@ -63,8 +68,10 @@ def init_params(model: nn.Module, seed: int) -> None:
     Linear/conv kernels: lecun-normal (std 1/sqrt(fan_in), cut at 2 std), the flax
     default (``UpConv2x`` too, its fan-in 4 C_in); decoder and head convs: N(0, 0.01);
     biases 0; norms 1/0; matcher scale 1; the SAM decoder's raw parameters N(0, 1), as
-    flax draws them. The rel-pos tables and the position embedding (zero at flax init)
-    get N(0, 0.02) so that the bias path of the attention kernels does real work."""
+    flax draws them; the ResNet's frozen batch norms weight 1, bias 0, mean 0, var 1, as
+    flax inits them (a full-depth ResNet-50 feature then has a std of ~2.5 at 1024^2).
+    The rel-pos tables and the position embedding (zero at flax init) get N(0, 0.02) so
+    that the bias path of the attention kernels does real work."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -85,6 +92,11 @@ def init_params(model: nn.Module, seed: int) -> None:
         elif isinstance(mod, (nn.LayerNorm, LayerNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, FrozenBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
     for name, p in model.named_parameters():
         if name.endswith(("rel_pos_h", "rel_pos_w", "pos_embed")):
             p.copy_(randn(p) * 0.02)

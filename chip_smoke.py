@@ -178,6 +178,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    NMS once through the port's kernel. Printed: ms per batch with and without
    refinement, a chunk's ms and its parts, eval images/s, ``set_image`` and ``predict``
    ms, the mask generator's seconds per image, and a ``{"refine": ...}`` JSON line;
+5f. the serving engine (run after 5d, on phase 4's predictor):
+   ``tmr_tpu_torch.serve.ServeEngine`` (batch bound 4, ``max_wait_ms`` 10, default caches)
+   fed by 4 client threads with 48 requests in 3 waves: the 12 single-exemplar requests
+   of phase 4's batches (buckets 9, 17, 33) and the 12 multi-exemplar ones of phase 4d;
+   then every other one of them again (result-cache hits) and 8 of the images with a new
+   exemplar (the second sighting: promotion, the heads path with the encoder for the
+   fill); then 4 of those with a third exemplar (feature-cache hits). Checks: every future
+   resolves; no error, fallback or rejection; the counters reconcile exactly with the
+   batches the engine finished (submitted, completed, batches, riders and result-cache
+   hits, coalesced, padded slots, heads batches, fills); the launches are exactly global
+   4, window 8, xcorr 1, nms 1 per executed fused batch, xcorr 1 and nms 1 per heads batch
+   (the encoder's 4 and 8 only where it fills) and nothing for a cache hit; each served
+   result equals the same ``Predictor`` program on the engine's own padded stack bit for
+   bit (and each fill's features the encoder on the staged images). Measured and
+   printed, not held: how many distinct requests differ from a sequential B = 1 call, by
+   how much, and the first module whose row-0 output differs between a batch of 4 and
+   the image alone. Then a second engine with an in-flight bound of 4 (``TMR_ADMIT``'s
+   controller) takes a burst of 20 and is closed at once: every future resolves, the
+   rejections equal the counters by cause, and ``close()`` keeps its drain bound; one
+   request under ``TMR_TRACE=1`` carries all seven spans (submit, queue_wait,
+   batch_assemble, stage, execute, postprocess, resolve); ``health()`` passes the port's
+   ``validate_health_report`` and its ``compile`` section lists this run's ``nvcc``
+   builds. Printed: requests/s, latency p50/p95/p99 (client side, and the engine's
+   histogram), batches, mean fill, padded slots, cache hit rates, the spans' ms, beside
+   phase 4's sequential ms per batch, and a ``{"serve": ...}`` JSON line; ``--profile``
+   adds a torch.profiler table and the busy share of one served burst of 24 requests;
 4e. the JAX ``main.py`` default detector (run after 4c, on its own seeded weights):
    ``Predictor(Config())`` (ResNet-50 with DC5 in f32 under the caller's cuDNN TF32
    setting, 1024^2, emb_dim 512, no fusion, no upsample, roi_align, NMS 0.1 / 0.15, bf16
@@ -3496,6 +3522,402 @@ def check_default_train_eval(torch, np, pred, ppred, card, phase4e_ms, modules) 
     return out
 
 
+#: phase 5f: the serving engine's batch bound and latency bound (the JAX engine's
+#: defaults), its client threads, and the overload engine's in-flight bound with a burst
+#: of 5x it
+SERVE_BATCH = 4
+SERVE_MAX_WAIT_MS = 10.0
+SERVE_CLIENTS = 4
+SERVE_ADMIT = 4
+SERVE_BURST = 5 * SERVE_ADMIT
+SERVE_DRAIN_S = 120.0  # close()'s drain bound in phase 5f
+SERVE_WAIT_S = 300.0  # every future's timeout
+#: the seven pipeline stages a traced request carries (the JAX TRACE_SERVE_STAGES)
+SERVE_STAGES = ("serve.submit", "serve.queue_wait", "serve.batch_assemble", "serve.stage",
+                "serve.execute", "serve.postprocess", "serve.resolve")
+
+
+def serve_waves(batches, multi_batches):
+    """Phase 5f's traffic, three waves of (image, exemplars, submit kwargs): (A) the 12
+    single-exemplar requests of phase 4's batches (buckets 9, 17, 33) and the 12
+    multi-exemplar ones of phase 4d (k 3, real rows 3, 3, 2, 1); (B) every other request
+    of A again (result-cache hits) and 8 of A's single images with a new exemplar (row 1
+    of phase 4d's, same bucket: the second sighting, which promotes the image and runs
+    the heads path with a fill); (C) 4 of those images with a third exemplar (row 2:
+    feature-cache hits, the heads path without the encoder)."""
+    singles = [(imgs[i], ex[i], {}) for imgs, ex in batches for i in range(4)]
+    multis = [(imgs[i], ex[i], dict(multi=True, k_real=int(MULTI_K_REAL[i])))
+              for imgs, ex in multi_batches for i in range(4)]
+    second = [(imgs[i], ex[i, 1:2], {}) for imgs, ex in multi_batches for i in range(4)
+              if MULTI_K_REAL[i] > 1][:8]
+    third = [(imgs[i], ex[i, 2:3], {}) for imgs, ex in multi_batches[:2] for i in range(4)
+             if MULTI_K_REAL[i] > 2]
+    return [singles + multis, singles[::2] + multis[::2] + second, third]
+
+
+def serve_clients(engine, requests, latencies=None, clients=SERVE_CLIENTS):
+    """``requests`` submitted by ``clients`` threads (round-robin shares, each submitted
+    back to back); returns the futures in request order. ``latencies`` collects each
+    future's submit-to-resolve seconds (a done callback: taken when it resolves)."""
+    import threading
+
+    futs = [None] * len(requests)
+
+    def client(idx):
+        for i in idx:
+            img, ex, kw = requests[i]
+            t0 = time.perf_counter()
+            futs[i] = engine.submit(img, ex, **kw)
+            if latencies is not None:
+                futs[i].add_done_callback(
+                    lambda f, t0=t0: latencies.append(time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client, args=(range(c, len(requests), clients),))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return futs
+
+
+def capture_serving(pred, engine):
+    """Record what the engine's dispatch thread hands the ``Predictor``'s programs
+    (``_get_fn``, ``_get_multi_batched_fn``, ``_get_heads_fn``: the name, the key and the
+    input tensors of each call, in dispatch order) and what its completion thread
+    finishes (each batch's bucket, requests, fill rows and staged images, in the same
+    order). Returns (calls, finished, restore)."""
+    calls, finished = [], []
+
+    def wrap(name):
+        getter = getattr(type(pred), name)
+
+        def get(*key):
+            prog = getter(pred, *key)
+
+            def run(*args):
+                calls.append((name, key, args))
+                return prog(*args)
+            return run
+        return get
+
+    for name in ("_get_fn", "_get_multi_batched_fn", "_get_heads_fn"):
+        setattr(pred, name, wrap(name))
+    finish = engine._finish
+
+    def finishing(staged, *rest):
+        finished.append((staged.bucket, list(staged.requests), list(staged.fill_index),
+                         staged.images))
+        return finish(staged, *rest)
+
+    engine._finish = finishing
+
+    def restore():
+        for name in ("_get_fn", "_get_multi_batched_fn", "_get_heads_fn"):
+            delattr(pred, name)
+        del engine._finish
+    return calls, finished, restore
+
+
+def quantiles_ms(vals) -> dict:
+    s = sorted(vals)
+    pick = lambda q: s[min(len(s) - 1, int(math.ceil(q * len(s))) - 1)] * 1e3  # noqa: E731
+    return {"p50": pick(0.50), "p95": pick(0.95), "p99": pick(0.99)}
+
+
+def first_variant_module(torch, model, run_batch, run_one):
+    """The first module, in execution order, whose output for row 0 differs bit for bit
+    between a batched forward and the same row alone, with its class; None when none."""
+    records = {}
+
+    def hook(name):
+        def fn(mod, _inp, out):
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            if torch.is_tensor(out):
+                records.setdefault(name, (type(mod).__name__, []))[1].append(
+                    out[:1].clone())
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        with torch.inference_mode():
+            run_batch()
+            order = list(records)
+            run_one()
+    finally:
+        for h in handles:
+            h.remove()
+    for name in order:
+        cls, (a, *rest) = records[name]
+        if rest and a.shape == rest[-1].shape and not torch.equal(a, rest[-1]):
+            return f"{name} ({cls})"
+    return None
+
+
+def check_serve_path(torch, np, pred, batches, multi_batches, card, phase4_ms, modules,
+                     profile=False) -> dict:
+    """Phase 5f: ``tmr_tpu_torch.serve.ServeEngine`` on phase 4's ViT-B predictor at 1024:
+    clean traffic from 4 client threads (launches per executed batch, served results
+    against the same program on the engine's padded stack and against sequential B = 1
+    calls, counters), a burst of 5x an admission bound, one traced request's seven
+    spans, and ``health()``."""
+    from tmr_tpu_torch import obs
+    from tmr_tpu_torch.diagnostics import validate_health_report
+    from tmr_tpu_torch.obs import tracing
+    from tmr_tpu_torch.serve import AdmissionController, RejectedError, ServeEngine
+    from tmr_tpu_torch.serve.staging import _pad_to
+
+    (_build,) = modules
+    fields = ("boxes", "scores", "refs", "valid")
+    waves = serve_waves(batches, multi_batches)
+    n_req = sum(len(w) for w in waves)
+    out = {"requests": n_req, "batch": SERVE_BATCH, "max_wait_ms": SERVE_MAX_WAIT_MS,
+           "clients": SERVE_CLIENTS}
+
+    # clean traffic
+    t0 = time.perf_counter()
+    engine = ServeEngine(pred, batch=SERVE_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS)
+    out["engine_start_s"] = time.perf_counter() - t0  # the weights' digest, once
+    calls, finished, restore = capture_serving(pred, engine)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    latencies, futs = [], []
+    t0 = time.perf_counter()
+    for wave in waves:
+        wave_futs = serve_clients(engine, wave, latencies)
+        for f in wave_futs:
+            f.result(timeout=SERVE_WAIT_S)
+        futs += wave_futs
+    wall = time.perf_counter() - t0
+    restore()
+    launches = dict(_build.LAUNCHES)
+    c, stats = engine.counters, engine.stats()
+    hist = engine.metrics_snapshot()["histograms"]["serve.request_latency_s"]
+    health = engine.health()
+    # one traced request on the warm engine (a new image): all seven stages
+    rng = np.random.default_rng(SEED + 5)
+    size = batches[0][0].shape[1]
+    timg, tex = synthetic_batch(np, rng, BUCKET_SIDES_PX[17] * size // 1024, b=1,
+                                size=size)
+    tracing.clear()
+    tracing.configure(enabled=True)
+    try:
+        engine.submit(timg[0], tex[0]).result(timeout=SERVE_WAIT_S)
+    finally:
+        tracing.configure(enabled=False)
+    spans = tracing.spans()
+    tid = next(s["trace"] for s in spans if s["name"] == "serve.submit")
+    stage_ms = {s["name"]: s["dur"] * 1e3 for s in spans if s["trace"] == tid}
+    missing = [s for s in SERVE_STAGES if s not in stage_ms]
+    print("serving spans of one traced request: " + ", ".join(
+        f"{s[6:]} {stage_ms[s]:.2f} ms" for s in SERVE_STAGES if s in stage_ms)
+        + f"; missing {missing or 'none'}", flush=True)
+    if missing:
+        fail(f"a traced request lacks the spans {missing}")
+    tracing.clear()
+    out["spans_ms"] = stage_ms
+    engine.close(timeout=SERVE_DRAIN_S)
+    print(f"serving, clean traffic: {n_req} requests from {SERVE_CLIENTS} client threads "
+          f"in 3 waves; counters {json.dumps(c)}", flush=True)
+    if c["errors"] or c["batch_fallbacks"] or c["rejected"]:
+        fail(f"serving: errors {c['errors']}, batch fallbacks {c['batch_fallbacks']}, "
+             f"rejected {c['rejected']} in clean traffic (0 expected)")
+
+    # the counters reconcile with the batches the engine finished
+    kinds = [b[0][0] for b in finished]
+    riders = sum(len(r.futures) for b in finished for r in b[1])
+    rows = sum(len(b[1]) for b in finished)
+    padded = sum(_pad_to(len(b[1]), SERVE_BATCH) - len(b[1]) for b in finished)
+    hits = stats["result_cache"]["hits"]
+    fills = sum(len(b[2]) for b in finished)
+    checks = {
+        "submitted": (c["submitted"], n_req),
+        "completed": (c["completed"], n_req),
+        "batches": (c["batches"], len(finished)),
+        "program calls": (len(calls), len(finished)),
+        "riders + result-cache hits": (riders + hits, n_req),
+        "coalesced": (c["coalesced"], riders - rows),
+        "padded_slots": (c["padded_slots"], padded),
+        "heads_batches": (c["heads_batches"], kinds.count("heads")),
+        "feature_fills": (c["feature_fills"], fills),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if c["submitted"] != c["completed"] + c["rejected"] + c["errors"] or bad:
+        fail(f"serving counters do not reconcile: {bad}")
+    fused = kinds.count("single") + kinds.count("multi")
+    filled = sum(1 for b in finished if b[0][0] == "heads" and b[2])
+    want = {name: 0 for name in _build.LAUNCHES}
+    want.update(global_attn=4 * (fused + filled), window_attn=8 * (fused + filled),
+                xcorr=len(finished), nms=len(finished))
+    print(f"serving launches {json.dumps(launches)}; expected from {fused} fused batches "
+          f"(4 / 8 / 1 / 1 each), {kinds.count('heads')} heads batches (xcorr 1, nms 1; "
+          f"the encoder's 4 / 8 in the {filled} with fills), 0 for {hits} result-cache "
+          f"hits", flush=True)
+    if launches != want:
+        fail(f"serving launches {launches}, expected {want}")
+
+    # each served result against the same program on the engine's padded stack
+    mism = []
+    for (name, key, args), (bucket, reqs, fill, images) in zip(calls, finished):
+        with torch.inference_mode():
+            again = getattr(type(pred), name)(pred, *key)(*args)
+            if fill:
+                feats = type(pred)._get_backbone_fn(pred)(images)
+                if not torch.equal(feats[:len(fill)], args[0][fill]):
+                    mism.append((bucket, "fill features"))
+        for i, r in enumerate(reqs):
+            got = r.futures[0].result(timeout=SERVE_WAIT_S)
+            for f in fields:
+                if not np.array_equal(got[f], again[f][i:i + 1].cpu().numpy()):
+                    mism.append((bucket, i, f))
+    print(f"serving: every served result vs the same program on the engine's padded "
+          f"stack ({len(finished)} batches), fields that differ bit for bit: "
+          f"{len(mism)} (must be 0)", flush=True)
+    if mism:
+        fail(f"served results differ from their programs on the padded stack: {mism[:5]}")
+
+    # batch invariance, measured: every request that reached the card against a
+    # sequential B = 1 call of the Predictor (a heads request against the fused call)
+    def sequential(r):
+        if r.bucket[0] == "multi":
+            return pred.predict_multi_exemplar(np.stack([r.image]), r.exemplars,
+                                               k_real=r.k_real)
+        return pred(np.stack([r.image]), np.stack([r.exemplars]))
+
+    inv = {"requests": 0, "differ": 0, "valid_mismatch": 0, "max_score_diff": 0.0,
+           "max_box_diff": 0.0, "differing": []}
+    firsts = {}  # the first differing row of each (kind, batch size, with a fill)
+    for (name, key, args), (bucket, reqs, fill, _) in zip(calls, finished):
+        for i, r in enumerate(reqs):
+            got = r.futures[0].result(timeout=SERVE_WAIT_S)
+            one = {k: v.cpu().numpy() for k, v in sequential(r).items() if k in fields}
+            inv["requests"] += 1
+            if all(np.array_equal(got[k], one[k]) for k in fields):
+                continue
+            inv["differ"] += 1
+            both = got["valid"] & one["valid"]
+            inv["valid_mismatch"] += int((got["valid"] != one["valid"]).sum())
+            inv["max_score_diff"] = max(inv["max_score_diff"], float(
+                np.abs(got["scores"] - one["scores"])[both].max(initial=0.0)))
+            inv["max_box_diff"] = max(inv["max_box_diff"], float(
+                np.abs(got["boxes"] - one["boxes"])[both].max(initial=0.0)))
+            size = int(args[0].shape[0])
+            inv["differing"].append(f"{bucket[0]} cap {bucket[2]} k {bucket[3]}: row {i} "
+                                    f"of {size}")
+            group = f"{bucket[0]} at B = {size}" + (" with a fill" if fill else "")
+            firsts.setdefault(group, (name, key, args, i, r))
+    # the module that first breaks the equality, per group: the request's batch with its
+    # row moved to the front (the same program at the same size) against the B = 1 call
+    inv["first_variant_layer"] = {}
+    for group, (name, key, args, i, r) in firsts.items():
+        perm = torch.tensor([i] + [j for j in range(int(args[0].shape[0])) if j != i],
+                            device=pred.device)
+        prog = getattr(type(pred), name)(pred, *key)
+        inv["first_variant_layer"][group] = first_variant_module(
+            torch, pred.model, lambda: prog(*[a[perm] for a in args]),
+            lambda: sequential(r)) or "none of the model's modules: the decode and NMS tail"
+    out["batch_invariance"] = inv
+    print(f"serving batch invariance: {inv['differ']} of {inv['requests']} requests on "
+          f"the card differ from a sequential B = 1 call (valid slots that flip "
+          f"{inv['valid_mismatch']}, largest score difference {inv['max_score_diff']:.3e},"
+          f" box {inv['max_box_diff']:.3e} over slots valid in both): {inv['differing']}; "
+          f"first module to break the equality: {inv['first_variant_layer'] or 'none'}",
+          flush=True)
+
+    occupancy = {int(k): v for k, v in stats["batch_occupancy"].items()}
+    lat = quantiles_ms(latencies)
+    out.update(
+        wall_s=wall, requests_per_s=n_req / wall, latency_ms=lat,
+        engine_latency_ms={q: hist[q] * 1e3 for q in ("p50", "p95", "p99")},
+        batches=len(finished), batch_kinds={k: kinds.count(k) for k in set(kinds)},
+        mean_fill=rows / len(finished), padded_slots=c["padded_slots"],
+        occupancy=occupancy, result_cache=stats["result_cache"],
+        feature_cache=stats["feature_cache"], coalesced=c["coalesced"],
+        launches=launches, phase4_ms_per_batch=phase4_ms,
+        phase4_img_s=4e3 / phase4_ms)
+    print(f"serving: {out['requests_per_s']:.2f} requests/s ({n_req} in {wall:.2f} s), "
+          f"latency p50 {lat['p50']:.1f} / p95 {lat['p95']:.1f} / p99 {lat['p99']:.1f} ms "
+          f"(the engine's histogram {out['engine_latency_ms']['p50']:.1f} / "
+          f"{out['engine_latency_ms']['p95']:.1f} / {out['engine_latency_ms']['p99']:.1f});"
+          f" {len(finished)} batches ({out['batch_kinds']}), mean fill "
+          f"{out['mean_fill']:.2f} of {SERVE_BATCH}, padded slots {c['padded_slots']}, "
+          f"occupancy {occupancy}; result cache hit rate "
+          f"{stats['result_cache']['hit_rate']:.3f}, feature cache "
+          f"{stats['feature_cache']['hit_rate']:.3f}; beside phase 4's sequential "
+          f"{phase4_ms:.1f} ms per batch of 4 ({4e3 / phase4_ms:.2f} img/s) [{card}]",
+          flush=True)
+
+    del calls, finished
+
+    # health: valid, its compile section the kernel builds of this run
+    problems = validate_health_report(health)
+    events = obs.compile_events()
+    built = sorted(e["kind"] for e in events)
+    recent = sorted(e["kind"] for e in health["compile"]["recent"])
+    print(f"serving health: problems {problems or 'none'}; compile section total "
+          f"{health['compile']['total']}, recent {recent}; builds of this run {built}; "
+          f"anomalies {[a['anomaly'] for a in health['anomalies']]}", flush=True)
+    if problems or recent != sorted(e["kind"] for e in events[-8:]) \
+            or health["compile"]["total"] != len(events):
+        fail("serving health report is invalid or its compile section is not this run's")
+    out["health"] = {"compile": health["compile"]["total"], "recent": recent,
+                     "anomalies": [a["anomaly"] for a in health["anomalies"]]}
+
+    # overload: a burst of 5x an in-flight bound, then close() while it drains
+    burst = waves[0][:SERVE_BURST]
+    oeng = ServeEngine(pred, batch=SERVE_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS,
+                       exemplar_cache=0, feature_cache=0,
+                       admission=AdmissionController(enabled=True, max_pending=SERVE_ADMIT))
+    ofuts = serve_clients(oeng, burst)
+    t0 = time.perf_counter()
+    oeng.close(timeout=SERVE_DRAIN_S)
+    close_s = time.perf_counter() - t0
+    causes, served, retry = {}, 0, []
+    for f in ofuts:
+        if not f.done():
+            fail("serving overload: a future is unresolved after close()")
+        exc = f.exception()
+        if exc is None:
+            served += 1
+        elif isinstance(exc, RejectedError):
+            causes[exc.cause] = causes.get(exc.cause, 0) + 1
+            retry.append(exc.retry_after_s)
+        else:
+            fail(f"serving overload: a request failed: {exc!r}")
+    oc, ov, ostats = oeng.counters, oeng.overload_counters(), oeng.stats()
+    rejected = sum(causes.values())
+    print(f"serving overload: a burst of {len(burst)} against an in-flight bound of "
+          f"{SERVE_ADMIT}: served {served}, rejected {rejected} by cause {causes} "
+          f"(retry_after_s {min(retry, default=0):.3f}-{max(retry, default=0):.3f}); "
+          f"counters admit_rejected {ov['admit_rejected']}, submitted {oc['submitted']}, "
+          f"completed {oc['completed']}; close() {close_s:.2f} s (bound {SERVE_DRAIN_S} s,"
+          f" drain timed out {ostats['overload']['drain_timed_out']})", flush=True)
+    if (served + rejected != len(burst) or rejected != ov["admit_rejected"]
+            or any(ov.get(f"admit_rejected.{k}") != v for k, v in causes.items())
+            or oc["submitted"] != served or oc["completed"] != served or oc["errors"]
+            or not rejected or close_s > SERVE_DRAIN_S
+            or ostats["overload"]["drain_timed_out"]):
+        fail("serving overload is not accounted exactly or close() overran its bound")
+    out["overload"] = {"burst": len(burst), "bound": SERVE_ADMIT, "served": served,
+                       "rejected": causes, "close_s": close_s}
+
+    if profile:
+        peng = ServeEngine(pred, batch=SERVE_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS,
+                           exemplar_cache=0, feature_cache=0)
+
+        def burst_run():
+            for f in serve_clients(peng, waves[0]):
+                f.result(timeout=SERVE_WAIT_S)
+
+        try:
+            profile_batch(torch, burst_run, "serving",
+                          f"one burst of {len(waves[0])} requests, 12 single and 12 multi")
+        finally:
+            peng.close(timeout=SERVE_DRAIN_S)
+    return out
+
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     saved = getattr(module, name)
@@ -3646,6 +4068,10 @@ def main(argv=None) -> int:
                                 sum(times) / len(times), eval_rates, (_build, cuda_nms),
                                 args.profile)
     print(json.dumps({"refine": refined}), flush=True)
+    # 5f. the serving engine on phase 4's predictor
+    served = check_serve_path(torch, np, pred, batches, multi_batches, card,
+                              sum(times) / len(times), (_build,), args.profile)
+    print(json.dumps({"serve": served}), flush=True)
     del pred
     torch.cuda.empty_cache()
 

@@ -229,3 +229,44 @@ def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path, alone):
                          capture_output=True, text=True, timeout=120, env=env)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_scan_covers_the_serve_and_obs_modules():
+    """The serving layer and the telemetry it records into: each the port's own module
+    (including the copies of the JAX package's JAX-free batcher, admission, degrade and
+    obs modules), with no import of JAX, ``tmr_tpu``, ``tests`` or cv2."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    mods = [f"{pkg}/{m}.py" for pkg, ms in (
+        ("serve", ("__init__", "admission", "batcher", "caches", "degrade", "engine",
+                   "staging")),
+        ("obs", ("__init__", "compile", "flight", "metrics", "tracing"))) for m in ms]
+    for mod in mods:
+        assert f"tmr_tpu_torch/{mod}" in names, mod
+        roots = list(_imported_roots(PORT / mod))
+        assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"], mod
+
+
+def test_serve_engine_runs_on_its_predictors_device():
+    """The engine and its stager take the predictor's device: ``cuda`` for a predictor
+    built without ``device="cpu"`` (no CPU in between), the CPU only for one built with
+    it; a ``devices=`` list naming another device raises."""
+    from tmr_tpu_torch.serve import ServeEngine
+
+    class _Pred:
+        weights_set = True
+
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def feature_stamp(self):
+            return ("w", "b")
+
+    for device in ("cuda", "cpu"):
+        eng = ServeEngine(_Pred(device), batch=1)
+        try:
+            assert eng.device.type == device and eng._stager.device.type == device
+            assert eng.stats()["devices"] == [device]
+        finally:
+            eng.close(timeout=10)
+    with pytest.raises(ValueError, match="predictor's device"):
+        ServeEngine(_Pred("cuda"), devices=["cpu"])

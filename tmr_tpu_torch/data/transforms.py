@@ -11,7 +11,8 @@ The map phase's mapper resizes with Pillow's ``Image.resize((S, S))`` (BICUBIC f
 :func:`resize_bicubic_u8` is that resample in numpy, in Pillow's fixed-point form, and
 :func:`decode_image` is the one place of this module that imports PIL.
 :func:`sam_longest_side_preprocess` is the feature extractor's SAM preprocessing.
-``gt_based_random_crop`` belongs to training's augmentation and is not ported yet.
+The JAX module's ``gt_based_random_crop`` is not ported: nothing in ``tmr_tpu`` calls
+it, so the JAX trainer does not run it either.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Map-report schema and validator (counterpart of the map part of
+"""Report schemas and validators (counterpart of the map, metrics and health parts of
 ``tmr_tpu/diagnostics.py``).
 
 ``map_report/v1`` is the map phase's structured report (``parallel/mapreduce.MapReport``,
@@ -6,9 +6,16 @@ written by ``map --report_out``): per-shard status, attempts and causes, the qua
 and resumed lists, skipped-image and non-finite counts, retry totals and wall seconds
 per shard. The JAX package's report also carries a ``metrics`` key (a
 ``metrics_report/v1`` snapshot) and, under its flight recorder, an ``mfu`` key; the
-port's report has neither until the port has the measurement plane (ROADMAP A8), and
-:func:`validate_map_report` refuses them by name when they are present rather than
-passing them unchecked.
+port's map phase is not instrumented until the port has the measurement plane (ROADMAP
+A8), and :func:`validate_map_report` refuses both by name when they are present rather
+than passing them unchecked.
+
+``metrics_report/v1`` is a metrics-registry snapshot (``obs/metrics.py``) and
+``health_report/v1`` the serving engine's health document (``ServeEngine.health()``):
+queue depths, per-device batches, cache stats, compile-event tallies (the port's are
+its ``nvcc`` builds) and the anomalies its health watch fired. The JAX engine's
+``mfu_totals`` input and the mesh sections have no counterpart until ROADMAP A8 and A7;
+:func:`validate_health_report` refuses a ``mesh`` section by name.
 """
 
 from __future__ import annotations
@@ -71,4 +78,151 @@ def validate_map_report(doc: dict) -> List[str]:
     for key in ("quarantined", "resumed"):
         if not isinstance(doc.get(key), list):
             problems.append(f"{key}: not a list")
+    return problems
+
+
+#: schema tag of a metrics-registry snapshot (``obs.metrics.MetricsRegistry.snapshot``)
+METRICS_REPORT_SCHEMA = "metrics_report/v1"
+
+
+def validate_metrics_report(doc: dict) -> List[str]:
+    """Structural check of a metrics_report/v1 document; returns the problems (empty:
+    valid)."""
+    if not isinstance(doc, dict):
+        return [f"not a dict: {type(doc).__name__}"]
+    problems: List[str] = []
+    if doc.get("schema") != METRICS_REPORT_SCHEMA:
+        problems.append(f"schema != {METRICS_REPORT_SCHEMA}: {doc.get('schema')!r}")
+    for section in ("counters", "gauges", "histograms"):
+        if not isinstance(doc.get(section), dict):
+            problems.append(f"{section}: not a dict")
+    for section in ("counters", "gauges"):
+        for name, v in (doc.get(section) or {}).items():
+            if not _number(v):
+                problems.append(f"{section}[{name!r}]: not a number")
+    for name, h in (doc.get("histograms") or {}).items():
+        where = f"histograms[{name!r}]"
+        if not isinstance(h, dict):
+            problems.append(f"{where}: not a dict")
+            continue
+        for key in ("buckets_le", "counts", "count", "sum", "p50", "p95", "p99"):
+            if key not in h:
+                problems.append(f"{where}: missing {key!r}")
+        bounds, counts = h.get("buckets_le"), h.get("counts")
+        if isinstance(bounds, list) and isinstance(counts, list) \
+                and len(counts) != len(bounds) + 1:
+            problems.append(f"{where}: counts must have len(buckets_le)+1 entries "
+                            "(overflow bucket)")
+    return problems
+
+
+def _number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+#: closed anomaly vocabulary of the health watch (``obs/flight.HealthWatch``):
+#: recompile_storm = key-change compile events over a threshold in one window;
+#: latency_regression = window p99 over factor x a rolling baseline; queue_saturation =
+#: batcher depth over a threshold; cache_hit_collapse = window hit rate under factor x a
+#: rolling baseline; mfu_drop = achieved FLOP/s under factor x a rolling baseline (no
+#: input in the port until ``devtime`` is, ROADMAP A8, so it never fires)
+ANOMALY_KINDS = ("recompile_storm", "latency_regression", "queue_saturation",
+                 "cache_hit_collapse", "mfu_drop")
+
+
+def validate_anomaly(rec: dict) -> List[str]:
+    """Structural check of one anomaly record: kind, message, numeric evidence."""
+    if not isinstance(rec, dict):
+        return [f"not a dict: {type(rec).__name__}"]
+    problems: List[str] = []
+    if rec.get("anomaly") not in ANOMALY_KINDS:
+        problems.append(f"anomaly: bad kind {rec.get('anomaly')!r}")
+    if not isinstance(rec.get("message"), str) or not rec.get("message"):
+        problems.append("message: not a non-empty string")
+    if not isinstance(rec.get("evidence"), dict):
+        problems.append("evidence: not a dict")
+    return problems
+
+
+#: schema tag of the serving engine's health document (``ServeEngine.health()``)
+HEALTH_REPORT_SCHEMA = "health_report/v1"
+
+#: ``quant`` attachment modes (``Predictor.quant_stamp()``): the in-program arm and
+#: whether the weights are stored as int8
+QUANT_STAMP_MODES = ("off", "int8")
+
+
+def _validate_quant_attachment(doc: dict) -> List[str]:
+    if "quant" not in doc:
+        return []
+    q = doc["quant"]
+    if not isinstance(q, dict):
+        return ["quant: not a dict"]
+    problems: List[str] = []
+    for key in ("mode", "storage"):
+        if q.get(key) not in QUANT_STAMP_MODES:
+            problems.append(f"quant.{key}: bad value {q.get(key)!r}")
+    if q.get("storage") == "int8":
+        if not isinstance(q.get("digest"), str) or not q.get("digest"):
+            problems.append("quant.digest: not a non-empty string under storage=int8")
+        for key in ("quantized_leaves", "weight_bytes", "f32_weight_bytes"):
+            v = q.get(key)
+            if not isinstance(v, int) or isinstance(v, bool) or v <= 0:
+                problems.append(f"quant.{key}: not a positive int")
+    return problems
+
+
+def validate_health_report(doc: dict) -> List[str]:
+    """Structural check of a health_report/v1 document; returns the problems (empty:
+    valid)."""
+    if not isinstance(doc, dict):
+        return [f"not a dict: {type(doc).__name__}"]
+    problems = _validate_quant_attachment(doc)
+    if "mesh" in doc:
+        problems.append("mesh: mesh serving is not ported (ROADMAP A7)")
+    if doc.get("schema") != HEALTH_REPORT_SCHEMA:
+        problems.append(f"schema != {HEALTH_REPORT_SCHEMA}: {doc.get('schema')!r}")
+    for key, typ in (("ts", (int, float)), ("uptime_s", (int, float)),
+                     ("closed", bool), ("inflight", int)):
+        v = doc.get(key)
+        if not isinstance(v, typ) or (typ is int and isinstance(v, bool)):
+            problems.append(f"{key}: not a {typ}")
+    queues = doc.get("queues")
+    if not isinstance(queues, dict) or not isinstance(queues.get("pending"), int) \
+            or not isinstance(queues.get("per_bucket"), dict):
+        problems.append("queues: missing pending/per_bucket")
+    if not isinstance(doc.get("devices"), list):
+        problems.append("devices: not a list")
+    if not isinstance(doc.get("per_device_batches"), dict):
+        problems.append("per_device_batches: not a dict")
+    caches = doc.get("caches")
+    if not isinstance(caches, dict):
+        problems.append("caches: not a dict")
+    else:
+        for which in ("result", "feature"):
+            sub = caches.get(which)
+            if not isinstance(sub, dict) or not all(
+                    k in sub for k in ("hits", "misses", "evictions")):
+                problems.append(f"caches.{which}: missing hits/misses/evictions")
+    counters = doc.get("counters")
+    if not isinstance(counters, dict) or not all(_number(v) for v in counters.values()):
+        problems.append("counters: not a dict of numbers")
+    compiled = doc.get("compile")
+    if not isinstance(compiled, dict) or not all(
+            isinstance(compiled.get(k), int) for k in ("total", "cold", "key_change")):
+        problems.append("compile: missing total/cold/key_change ints")
+    anomalies = doc.get("anomalies")
+    if not isinstance(anomalies, list):
+        problems.append("anomalies: not a list")
+    else:
+        for i, rec in enumerate(anomalies):
+            problems += [f"anomalies[{i}]: {p}" for p in validate_anomaly(rec)]
+    adm = doc.get("admission", {"enabled": 0, "max_pending": 0, "in_system": 0})
+    if not isinstance(adm, dict) or not all(
+            k in adm for k in ("enabled", "max_pending", "in_system")):
+        problems.append("admission: missing enabled/max_pending/in_system")
+    deg = doc.get("degrade", {"level": 0, "steps": []})
+    if not isinstance(deg, dict) or not isinstance(deg.get("level"), int) \
+            or not isinstance(deg.get("steps"), list):
+        problems.append("degrade: missing level/steps")
     return problems

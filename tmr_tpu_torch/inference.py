@@ -35,6 +35,7 @@ keeps only their int8 copies and scales (:meth:`MatchingNet.store_int8`);
 
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
@@ -75,10 +76,17 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self.refiner = None if refiner is None else refiner.to(self.device).eval()
         self._stamp: Optional[dict] = None
+        #: set once the weights are (``init_params``, ``load_state_dict``,
+        #: ``load_jax_params``): the JAX ``Predictor.params is not None``, which the
+        #: serving engine requires
+        self.weights_set = False
+        self._digest: Optional[str] = None
 
     def _weights_set(self) -> None:
         if self.cfg.quant_storage == "int8":
             self._stamp = self.model.store_int8()
+        self.weights_set = True
+        self._digest = None
 
     def _check_settable(self) -> None:
         if self._stamp is not None:
@@ -103,12 +111,33 @@ class Predictor:
 
     def quant_stamp(self) -> Optional[dict]:
         """Which quantization the model runs, and under int8 storage the int8 bytes of
-        the stored kernels beside the f32 bytes they replace; None when exact."""
+        the stored kernels beside the f32 bytes they replace and the digest of the
+        stored weights; None when exact."""
         if self._stamp is not None:
-            return dict(self._stamp)
+            return dict(self._stamp, digest=self.weights_digest())
         if self.cfg.quant == "int8":
             return {"mode": "int8", "storage": "off"}
         return None
+
+    def weights_digest(self) -> str:
+        """sha1 of the model's state (every entry's name, dtype, shape and host bytes,
+        in ``state_dict`` order), computed once per setting of the weights."""
+        if self._digest is None:
+            h = hashlib.sha1()
+            for name, t in self.model.state_dict().items():
+                t = t.detach().cpu().contiguous()
+                h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+                h.update(t.view(-1).view(torch.uint8).numpy().tobytes()
+                         if t.numel() else b"")
+            self._digest = h.hexdigest()
+        return self._digest
+
+    def feature_stamp(self) -> tuple:
+        """Cache-key provenance of extracted backbone features (the JAX ``:184``):
+        ``(weights digest, backbone formulation)``. A serving feature-cache key carries
+        it beside the image digest, so features extracted under other weights are
+        never served."""
+        return (self.weights_digest(), str(self.cfg.backbone))
 
     def feature_hw(self, image_size: int) -> int:
         """The matcher's map side at ``image_size``: the backbone's ``feature_stride`` (a
@@ -251,6 +280,22 @@ class Predictor:
         buffer-donation flag with no eager counterpart, so there is none here.)"""
         return self._multi(images, exemplars, k_real,
                            self.pick_capacity(_host(exemplars), int(images.shape[1])))[0]
+
+    def _get_multi_batched_fn(self, capacity: int, k_bucket: int) -> Callable:
+        """The batched multi-exemplar program for one (capacity, k bucket):
+        (images (B, S, S, 3), exemplars (B, k_bucket, 4), k_real (B,)) -> the detections
+        of :meth:`predict_multi_batch`, at the capacity given rather than one picked from
+        the rows (a serving batch's padded rows must not move its bucket). The JAX
+        program's ``donate`` has no eager counterpart."""
+        capacity, k_bucket = int(capacity), int(k_bucket)
+
+        def run(images, exemplars, k_real):
+            if exemplars.shape[1] != k_bucket:
+                raise ValueError(f"exemplars carry {exemplars.shape[1]} rows, the "
+                                 f"program's k bucket is {k_bucket}")
+            return self._multi(images, exemplars, k_real, capacity)[0]
+
+        return run
 
     @torch.inference_mode()
     def _multi(self, images, exemplars, k_real, cap: int):

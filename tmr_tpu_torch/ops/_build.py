@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc`` fo
 ``sm_90a`` into its own shared library under ``tmr_tpu_torch/_build/``, then loaded
 with ``ctypes``; no PyTorch header is compiled, so a build takes seconds. All sources
 are compiled in parallel (one ``nvcc`` each). Libraries are keyed by a hash of their
-source and flags, so an edited source is rebuilt and never served stale.
+source and flags, so an edited source is rebuilt and never served stale. Each build is
+recorded as a compile event (``obs/compile.py``: kind ``nvcc <name>.cu``, key the
+library's file name, its wall seconds).
 
 Nothing here runs at import: the CPU tests import every module of the port on
 machines without ``nvcc``.
@@ -101,8 +103,10 @@ def _lib_path(name: str) -> Path:
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
     """Compile every named source that has no current library, all ``nvcc`` runs
-    started together. Returns the wall seconds spent. Raises with the compiler's
-    output when a build fails."""
+    started together, and record each finished build as a compile event. Returns the
+    wall seconds spent. Raises with the compiler's output when a build fails."""
+    from tmr_tpu_torch.obs.compile import record_compile_event
+
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not _lib_path(n).exists()]
@@ -124,6 +128,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        record_compile_event(f"nvcc {name}.cu", out.name, t0, time.perf_counter())
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -166,8 +171,10 @@ def refuse_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what}: the kernel has no backward, and an input requires grad; run it "
-            "under torch.no_grad() / inference_mode(), or see ROADMAP A8 for the "
-            "gradients that are not ported")
+            "under torch.no_grad() / inference_mode(). No training path differentiates "
+            "through it (training scrubs quant, as the JAX main.py does, and correlates "
+            "through cuda_xcorr.XCorr); see ROADMAP A2 for the gradients that are not "
+            "ported")
 
 
 def stream_of(t) -> int:

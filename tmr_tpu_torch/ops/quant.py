@@ -6,8 +6,9 @@ same last bit), ``q = clip(round_half_even(w / scale), -127, 127)``, and all-zer
 groups take scale 1. Decoder and head weights get one scale per (tap, output
 channel); templates and the correlation's feature one per (image, channel).
 
-Forward only: training is not ported, so :func:`fake_quant` has no straight-through
-gradient.
+Forward only: training scrubs the quant fields (as the JAX ``main.py`` does), so no
+path differentiates through :func:`fake_quant`, and its straight-through gradient is
+not ported (ROADMAP A2).
 
 :func:`quantize_conv` is the storage half (the counterpart of ``quantize_tree``): an
 OIHW conv kernel becomes an int8 ``(kh, kw, O, I)`` tensor, each tap an ``(N, K)``

@@ -1,0 +1,36 @@
+"""Throughput serving over the ``Predictor``'s bucketed programs (counterpart of the
+single-process part of ``tmr_tpu/serve``).
+
+``ServeEngine`` is the entry point: dynamic micro-batching under a latency bound, pinned
+double-buffered staging, content-addressed result and feature caches, admission control
+and the degrade ladder; see engine.py for the pipeline and its contracts. Streams, the
+feature tier, galleries, the fleet and mesh plans are ROADMAP A7's.
+"""
+
+from tmr_tpu_torch.serve.admission import (
+    REJECTION_CAUSES,
+    AdmissionController,
+    RejectedError,
+    class_weight_fn,
+)
+from tmr_tpu_torch.serve.batcher import MicroBatcher, Request
+from tmr_tpu_torch.serve.caches import LRUCache, array_digest
+from tmr_tpu_torch.serve.degrade import DEGRADE_STEPS, DegradeController
+from tmr_tpu_torch.serve.engine import ServeEngine
+from tmr_tpu_torch.serve.staging import DeviceStager, StagedBatch
+
+__all__ = [
+    "AdmissionController",
+    "DEGRADE_STEPS",
+    "DegradeController",
+    "DeviceStager",
+    "LRUCache",
+    "MicroBatcher",
+    "REJECTION_CAUSES",
+    "RejectedError",
+    "Request",
+    "ServeEngine",
+    "StagedBatch",
+    "array_digest",
+    "class_weight_fn",
+]

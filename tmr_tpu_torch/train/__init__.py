@@ -1,3 +1,3 @@
-"""The eval half of the training package (counterpart of ``tmr_tpu/train``): target
-assignment, the criterion, ``compute_losses`` and the ``Trainer``'s eval entry points.
-Training itself (``TrainState``, the train step, ``Trainer.fit``) is not ported yet."""
+"""The training package (counterpart of ``tmr_tpu/train``): target assignment, the
+criterion and ``compute_losses``, ``TrainState`` and the train step (``state.py``), and
+the ``Trainer`` (``loop.py``) with its eval entry points and ``fit``."""

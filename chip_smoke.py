@@ -23,14 +23,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    both attention kernels again at head dim 80 (SAM ViT-H: the global kernel at 64x64
    with BH 64, with and without the bias, beside the bound of the products it performs,
    and at 24x40, 5x7 and 7x64; the windowed kernel at 14x14 with BH 1600, 7x7 and 16x16),
-   with ``-Xptxas -v`` of every attention instantiation; the f32 correlation at T = 1 to 65
+   with ``-Xptxas -v`` of every attention instantiation; the f32 attention kernels
+   (``csrc/attn_f32.cu``, 3xTF32) against their plain version in f32 (per element 2e-5 x
+   max|want|) at the main paths' shapes (global 64x64 at BH 48 and, at head dim 80, 64;
+   windowed 14x14 at BH 1200 and 1600), the 1536 bucket's 96^2 tokens (BH 48) and 4 x 49
+   windows, 24x40, 5x7 and 7x64 grids and 7x7 and 16x16 windows at both head dims, each
+   beside SDPA in f32 with the mask precomputed and its bound at a third of the TF32 peak,
+   with ``-Xptxas -v`` of the four instantiations; the f32 correlation at T = 1 to 65
    on the matcher's map with its 3xTF32 tensor bound and its f32 bound, and on 96^2 and 64^2
    maps, a ragged map, a bf16-valued feature, the multi path's 12 rows and a feature with
    non-finite values planted; the int8 correlation at T = 1 to 65 on the matcher's map,
    timed in turns with the CUDA-core kernel it replaced, beside the function's bound and the
    band's, and on two ragged maps, a map of -128/-127/127 only and the multi path's 12 rows
    (0 mismatches everywhere); the int8 matmul at the heads' shape for 4 and 12 rows, a tap's
-   and a ragged one; greedy NMS (an IoU bitmask and a block scan, two launches a call) on 4
+   and a ragged one (its library yardstick ``torch._int_mm`` times the scales, the heads'
+   N = 5 padded to 8); greedy NMS (an IoU bitmask and a block scan, two launches a call) on 4
    x 2000 boxes with planted ties at IoU 0.5 and 0.15 (keep masks equal to the plain
    version's on the card and on the CPU), timed in turns with the sequential kernel it
    replaced, its launches split by the profiler, beside the function's bound and the
@@ -108,7 +115,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tensors bit for bit; its losses equal ``compute_losses`` on the same model outputs
    and are finite; MAE and RMSE equal those of the detection counts; the 1536 batch
    takes the template bucket phase 3 checks on 192^2 maps; and image 0 of the 1536
-   batch has its objectness within 5e-2 x max of an f32 CPU run;
+   batch has its objectness within 5e-2 x max of an f32 CPU run; then once at
+   ``compute_dtype="float32"`` (num_exemplars 1, both buckets) with the same checks and
+   the f32 attention kernels' launches (4 / 8 a batch, none of the bf16 ones);
 5b. training (run after 5, on phase 4's weights): first each attention Function's
    backward (PyTorch, recomputing the scores in query bands) at main-path shapes, the
    global one at BH 48 on 64x64 tokens with and without the bias and the windowed one at
@@ -131,7 +140,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    peak device memory, and a ``{"train": ..., "backward": [...]}`` JSON line; beside each
    backward, the autograd of SDPA with its mask built from the tables in the graph (the
    library yardstick) and whether the memory-efficient backend alone returns the mask's
-   gradient;
+   gradient. At ``compute_dtype="float32"``: the same Functions on f32 inputs at the
+   bias cases' shapes, every gradient within 1e-4 of its largest element, and one epoch
+   of ``Trainer.fit`` (2 steps, each launching exactly the f32 kernels' 4 / 8, finite
+   losses, none skipped; its validation batch 4 / 8 / 1 / 1), ms per step and peak memory
+   printed beside the bf16 run's;
 5c. the map phase (run after 5b, on phase 4's encoder): kernels 1 and 4 against their
    plain versions at batch 8's shapes (BH 96 and 2400); 3 synthetic tar shards of 10
    PNGs of 480 x 640 (``Easy_0``, ``Normal_0``, ``Hard_0``: a batch of 8 and a padded
@@ -204,6 +217,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    histogram), batches, mean fill, padded slots, cache hit rates, the spans' ms, beside
    phase 4's sequential ms per batch, and a ``{"serve": ...}`` JSON line; ``--profile``
    adds a torch.profiler table and the busy share of one served burst of 24 requests;
+4f. ``compute_dtype="float32"`` (run after 4d on phase 4's weights, and for ViT-H after
+   4c on its weights): ``Predictor(preset("TMR_FSCD147", compute_dtype="float32"))`` on
+   phase 4's 3 batches and one ``predict_multi_batch`` of phase 4d's, then ViT-H at f32 on
+   phase 4's batch 0; PyTorch's TF32 settings are kept at their defaults and printed (the
+   linears cuBLAS SGEMM, TF32 off; the convolutions cuDNN, TF32 on). Each batch must
+   launch exactly the f32 attention kernels' 4 global and 8 windowed blocks (ViT-H: 4 and
+   28 at head dim 80), one correlation and one NMS, and no bf16 attention kernel; nothing
+   may call ``bias_projections``; the keep mask must equal the plain version's; image 0's
+   objectness must lie within 2e-2 x max of the f32 CPU run of phase 4 (4c), printed
+   beside the bf16 network's figure. Then ``tmr_tpu_torch.main --eval --compute_dtype
+   float32 --visualize`` in process on phase 5's split from a Lightning checkpoint of
+   phase 4's weights: 4 / 8 / 1 / 1 a batch, finite metrics, and a triptych PNG (3 x 512 x
+   384) of each of the 12 images. Printed: ms per batch, images/s and peak memory beside
+   the bf16 figures of the same call, and a ``{"f32": ...}`` JSON line;
 4e. the JAX ``main.py`` default detector (run after 4c, on its own seeded weights):
    ``Predictor(Config())`` (ResNet-50 with DC5 in f32 under the caller's cuDNN TF32
    setting, 1024^2, emb_dim 512, no fusion, no upsample, roi_align, NMS 0.1 / 0.15, bf16
@@ -263,6 +290,12 @@ PEAK_BYTES = 3.35e12
 ATTN_REL_TOL = 2.0 ** -7
 ATTN_ABS_TOL = 2.0 ** -9
 ATTN_MEAN_TOL = 2.0 ** -8
+#: the f32 attention kernels (3xTF32, about 2^-21 per product) vs their plain version's
+#: exact f32 products summed in another order, per element relative to max|want|: the
+#: correlation's f32 tier (one TF32 pass would miss it)
+ATTN_F32_TOL = 2e-5
+#: the rate an f32 product runs at as 3xTF32: three TF32 products
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 #: the f32 correlation (3xTF32 on the tensor cores, about 2^-21 per product) vs its
 #: plain version's f32 sums of T^2 products in another order, relative to max|want|
 XCORR_REL_TOL = 2e-5
@@ -293,14 +326,18 @@ INT8_PATH_OBJ_BOUND = 0.25
 #: launches of the int8 path over its 3 batches: one fused 3x3 layer and one head
 #: matmul, one int8 correlation, 4 global and 8 windowed attention blocks, one NMS per
 #: batch
+#: the f32 attention kernels' counters (``compute_dtype="float32"``), none launched on
+#: the bf16 paths
+F32_ZERO = {"global_attn_f32": 0, "window_attn_f32": 0, "global_attn_f32_d80": 0,
+            "window_attn_f32_d80": 0}
 QUANT_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 0, "nms": 3,
                   "xcorr_int8": 3, "int8_mm": 3, "int8_conv": 3, "add1": 0,
-                  "global_attn_d80": 0, "window_attn_d80": 0}
+                  "global_attn_d80": 0, "window_attn_d80": 0, **F32_ZERO}
 #: launches of the ViT-H path over its 3 batches: 4 global and 28 windowed attention
 #: blocks at head dim 80, one f32 correlation and one NMS per batch
 VIT_H_LAUNCHES = {"global_attn": 0, "window_attn": 0, "xcorr": 3, "nms": 3,
                   "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
-                  "global_attn_d80": 12, "window_attn_d80": 84}
+                  "global_attn_d80": 12, "window_attn_d80": 84, **F32_ZERO}
 #: the multi-exemplar path (phase 4d): real exemplar rows of the 4 images of a batch, in
 #: k bucket 3; its launches over the 3 batches (the encoder once per image, the heads,
 #: correlation and NMS once per batch); the int8 path's over one batch; the bound on each
@@ -310,7 +347,7 @@ VIT_H_LAUNCHES = {"global_attn": 0, "window_attn": 0, "xcorr": 3, "nms": 3,
 MULTI_K_REAL = (3, 3, 2, 1)
 MULTI_LAUNCHES = {"global_attn": 12, "window_attn": 24, "xcorr": 3, "nms": 3,
                   "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
-                  "global_attn_d80": 0, "window_attn_d80": 0}
+                  "global_attn_d80": 0, "window_attn_d80": 0, **F32_ZERO}
 MULTI_INT8_LAUNCHES = {name: n // 3 for name, n in QUANT_LAUNCHES.items()}
 MULTI_ROW_TOL = 1e-2
 #: the NMS kernel at the multi-exemplar path's unions (images, slots): k 3 at batch 4,
@@ -391,21 +428,24 @@ VIT_HEADS = {64: 12, 80: 16}
 
 
 def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: int,
-                    grid=(64, 64), bh=None, d: int = 64, chunk=None):
+                    grid=(64, 64), bh=None, d: int = 64, chunk=None, f32: bool = False):
     """One attention kernel vs its plain version at head dim ``d``, by default at the
     batch of the ViT with that head dim (4 images of 12 heads for ViT-B, 16 for ViT-H;
     windowed: 25 windows each). The global kernel takes compact (2g - 1, d) tables, the
     windowed kernel expanded (g, g, d) ones; the plain version and the yardstick use the
     expanded tables. Times, on the same inputs: the kernel (one launch, projections
-    inside), ``bias_projections`` alone, the bf16 mask built from the projections, and
-    SDPA with that mask precomputed. With ``chunk``, the plain version runs over that
-    many rows of BH at a time (its dense f32 scores of a 96^2 grid at BH 48 would take
-    16 GB), its time the sum of the chunks'."""
+    inside), ``bias_projections`` alone, the mask built from the projections, and SDPA
+    with that mask precomputed. With ``chunk``, the plain version runs over that many
+    rows of BH at a time (its dense f32 scores of a 96^2 grid at BH 48 would take 16 GB),
+    its time the sum of the chunks'. ``f32``: the f32 kernels (``compute_dtype=
+    "float32"``) on f32 inputs, held to ATTN_F32_TOL x max|want| per element, SDPA in f32,
+    the bound at the 3xTF32 rate (a third of the TF32 peak)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     gh, gw = grid
     bh = bh or (4 * VIT_HEADS[d] * (25 if windowed else 1))
     s = gh * gw
-    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+    dtype = torch.float32 if f32 else torch.bfloat16
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     tab = rh = rw = None
     if has_bias and windowed:
@@ -432,12 +472,13 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     want = torch.cat([plain(part) for part in parts])
     torch.cuda.synchronize()
     diff, ref = (got.float() - want.float()).abs(), want.float().abs()
-    limit = ATTN_REL_TOL * ref + ATTN_ABS_TOL * ref.max()
+    limit = (ATTN_F32_TOL * ref.max() if f32
+             else ATTN_REL_TOL * ref + ATTN_ABS_TOL * ref.max())
     acc = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
                mean_abs_want=ref.mean().item(), max_abs_want=ref.max().item(),
-               worst_err_over_limit=(diff / limit).max().item())
-    acc["ok"] = (acc["worst_err_over_limit"] <= 1.0
-                 and acc["mean_abs_err"] <= ATTN_MEAN_TOL * acc["mean_abs_want"])
+               worst_err_over_limit=(diff / limit).max().item(), f32=f32)
+    acc["ok"] = acc["worst_err_over_limit"] <= 1.0 and (
+        f32 or acc["mean_abs_err"] <= ATTN_MEAN_TOL * acc["mean_abs_want"])
     t = dict(ms=cuda_ms(lambda: fn(q, k, v, *tab, (gh, gw), scale)))
     del want, diff, ref, limit
     t["plain_ms"] = sum(cuda_ms(lambda: plain(part), reps=3 if len(parts) == 1 else 1,
@@ -448,7 +489,7 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
 
         def build_mask():
             m = (rel[0][..., :, None] + rel[1][..., None, :]).reshape(bh, s, s)
-            return m.to(torch.bfloat16)[None]
+            return m.to(dtype)[None]
 
         t["mask_ms"] = cuda_ms(build_mask, reps=5, warmup=1)
         mask = build_mask()
@@ -457,8 +498,9 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     flops = 4.0 * bh * s * s * d
     # q, k, v read and out written once, and the tables the kernel reads (the windowed
     # kernel's expanded ones, the global kernel's compact ones)
-    nbytes = 4 * bh * s * d * 2 + (sum(t.numel() for t in tab) * 4 if has_bias else 0)
-    return acc, t, bound(flops, nbytes, PEAK_BF16_FLOPS)
+    nbytes = (4 * bh * s * d * q.element_size()
+              + (sum(t.numel() for t in tab) * 4 if has_bias else 0))
+    return acc, t, bound(flops, nbytes, PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS)
 
 
 #: token grids off the main path, each with and without the bias, (gh, gw, batch*heads):
@@ -486,6 +528,58 @@ def check_global_grids(torch, F, cuda_attn, d: int = 64, grids=GLOBAL_GRIDS) -> 
                 fail(f"{what} disagrees with its plain version: {acc}")
 
 
+#: the f32 attention kernels (``compute_dtype="float32"``) at the main paths' shapes, the
+#: kernels line's entries: (counter, windowed, grid, head dim), at the batch of the ViT
+#: with that head dim (ViT-B BH 48 and 1200, ViT-H 64 and 1600)
+ATTN_F32_MAIN = (("global_attn_f32", False, (64, 64), 64),
+                 ("global_attn_f32_d80", False, (64, 64), 80),
+                 ("window_attn_f32", True, (14, 14), 64),
+                 ("window_attn_f32_d80", True, (14, 14), 80))
+#: and off them, (windowed, grid, BH or None for the ViT's, head dim, plain version's BH
+#: chunk): the 1536 bucket's 96^2 tokens at batch 4 and its 4 x 49 windows, rows that are
+#: not one key tile (24x40), one partial tile (5x7), 64-token rows in an odd count (7x64),
+#: 7x7 and 16x16 windows, at both head dims
+ATTN_F32_GRIDS = ((False, (96, 96), 48, 64, 12), (True, (14, 14), 4 * 12 * 49, 64, None),
+                  (False, (24, 40), 48, 64, None), (False, (5, 7), 48, 64, None),
+                  (False, (7, 64), 48, 64, None), (False, (24, 40), 64, 80, None),
+                  (False, (5, 7), 64, 80, None), (False, (7, 64), 64, 80, None),
+                  (True, (7, 7), None, 64, None), (True, (16, 16), None, 64, None),
+                  (True, (7, 7), None, 80, None), (True, (16, 16), None, 80, None))
+
+
+def check_attention_f32(torch, F, cuda_attn, _build) -> dict:
+    """The f32 attention kernels (``csrc/attn_f32.cu``) against their plain version at
+    :data:`ATTN_F32_MAIN` and :data:`ATTN_F32_GRIDS`, with ``-Xptxas -v`` of each
+    instantiation; returns the kernels line's entries."""
+    entries = {}
+    log = _build.LOGS.get("attn_f32")
+    for d in (64, 80):
+        for compact in (1, 0):
+            print(f"ptxas attn_f32_kernel<{d}, {'compact' if compact else 'expanded'} "
+                  f"tables>: {ptxas_info(log, f'attn_f32_kernelILi{d}ELb{compact}E')}",
+                  flush=True)
+    cases = [(name, windowed, grid, None, d, None)
+             for name, windowed, grid, d in ATTN_F32_MAIN]
+    cases += [(None, *case) for case in ATTN_F32_GRIDS]
+    for name, windowed, grid, bh, d, chunk in cases:
+        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, True, SEED,
+                                             grid, bh, d, chunk, f32=True)
+        what = name or (f"{'window' if windowed else 'global'}_attn_f32"
+                        f"{'' if d == 64 else f'_d{d}'} {grid[0]}x{grid[1]} "
+                        f"{'windows' if windowed else 'grid'}"
+                        + (f", BH={bh}" if bh else ""))
+        print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
+              f"({bby}, 3xTF32 at a third of the TF32 peak)", flush=True)
+        if not acc["ok"]:
+            fail(f"{what} disagrees with its plain version: {acc}")
+        if name:
+            entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=t["ms"],
+                                 plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
+                                 library_ms=t["lib_ms"])
+        torch.cuda.empty_cache()
+    return entries
+
+
 def attn_times(t: dict) -> str:
     extra = (f" bias_projections_ms {t['proj_ms']:.4f} mask_build_ms {t['mask_ms']:.4f}"
              if "proj_ms" in t else "")
@@ -495,9 +589,11 @@ def attn_times(t: dict) -> str:
 
 
 def attn_accuracy(acc: dict) -> str:
+    limit = (f"limit {ATTN_F32_TOL:g} max|want| per element" if acc["f32"] else
+             f"limit {ATTN_REL_TOL:g}|want| + {ATTN_ABS_TOL:g} max|want| per element, "
+             f"mean_err <= {ATTN_MEAN_TOL:g} mean|want|")
     return (f"max_err {acc['max_abs_err']:.3e} mean_err {acc['mean_abs_err']:.3e} "
-            f"(limit {ATTN_REL_TOL:g}|want| + {ATTN_ABS_TOL:g} max|want| per element, "
-            f"mean_err <= {ATTN_MEAN_TOL:g} mean|want|; mean|want| "
+            f"({limit}; mean|want| "
             f"{acc['mean_abs_want']:.3e}, max|want| {acc['max_abs_want']:.3e}, worst "
             f"err/limit {acc['worst_err_over_limit']:.3f})")
 
@@ -774,8 +870,9 @@ def check_int8_mm(torch, cuda_int8, kind: str, seed: int):
     """int8_mm vs its plain version (exact int32 sums, the same epilogue): equal bit for
     bit. The library yardstick is ``torch._int_mm`` times the broadcast row and column
     scales, on a contiguous copy of x (it takes no strided rows); the bare ``_int_mm``
-    (int32 out) is timed beside it. None where its shape rules refuse (N must be a
-    multiple of 8)."""
+    (int32 out) is timed beside it. Its shape rules want N a multiple of 8: the heads'
+    N = 5 is padded with zero rows of w (made once, outside the timing) and the product
+    cut back to N, which computes the same function. None where K is not a multiple of 8."""
     x, w, sx, sw = int8_mm_inputs(torch, kind, seed)
     got = cuda_int8.int8_mm(x, w, sx, sw)
     want = cuda_int8.int8_mm_plain(x, w, sx, sw)
@@ -787,10 +884,13 @@ def check_int8_mm(torch, cuda_int8, kind: str, seed: int):
     n, k = w.shape
     m = sx.numel()
     lib_ms = bare_ms = None
-    if n % 8 == 0 and k % 8 == 0 and m > 16:
-        x2, wt = x.reshape(m, k).contiguous(), w.t()
+    if k % 8 == 0 and m > 16:
+        n8 = -(-n // 8) * 8
+        wp = torch.zeros(n8, k, dtype=w.dtype, device=w.device)
+        wp[:n] = w
+        x2, wt = x.reshape(m, k).contiguous(), wp.t()
         sx2, sw2 = sx.reshape(m, 1), sw.reshape(1, n)
-        lib_ms = cuda_ms(lambda: torch._int_mm(x2, wt) * sx2 * sw2)
+        lib_ms = cuda_ms(lambda: torch._int_mm(x2, wt)[:, :n] * sx2 * sw2)
         bare_ms = cuda_ms(lambda: torch._int_mm(x2, wt))
     ops = 2.0 * m * n * k
     nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
@@ -1123,6 +1223,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         entries[name] = dict(max_abs_err=acc["max_abs_err"], ms=t["ms"],
                              plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
                              library_ms=t["lib_ms"])
+    entries.update(check_attention_f32(torch, F, cuda_attn, _build))
     check_global_grids(torch, F, cuda_attn)
     check_global_grids(torch, F, cuda_attn, 80, GLOBAL_GRIDS_D80)
     # the windowed kernel at 7x7 windows (8-slot key rows, a pad key row, 64 query rows)
@@ -1243,7 +1344,8 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         lib, bare = ("null" if v is None else f"{v:.4f}" for v in (lib_ms, bare_ms))
         print(f"kernel int8_mm {kind} M={m} N={n} K={k}: mismatches {mism} (must be 0), "
               f"max_err {err:.3e} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms {lib} (torch._int_mm x scales; bare _int_mm {bare}) "
+              f"library_ms {lib} (torch._int_mm x scales{', N padded to 8' if n % 8 else ''}"
+              f"; bare _int_mm {bare}) "
               f"bound_ms {bms:.4f} ({bby})", flush=True)
         if mism:
             fail(f"int8_mm {kind} differs from its plain version in {mism} outputs")
@@ -1692,7 +1794,10 @@ EVAL_1536_BUCKETS = (9,)  # checked in phase 3 on 192^2 maps (XCORR_1536)
 #: correlation, one NMS
 EVAL_LAUNCHES = {"global_attn": 4, "window_attn": 8, "xcorr": 1, "nms": 1,
                  "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
-                 "global_attn_d80": 0, "window_attn_d80": 0}
+                 "global_attn_d80": 0, "window_attn_d80": 0, **F32_ZERO}
+#: the same at ``compute_dtype="float32"``: the encoder's blocks through the f32 kernels
+F32_EVAL_LAUNCHES = dict(EVAL_LAUNCHES, global_attn=0, window_attn=0, global_attn_f32=4,
+                         window_attn_f32=8)
 
 
 def eval_split(np, root: str, sides=EVAL_SIDES, n_train: int = 0) -> dict:
@@ -1801,8 +1906,10 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
     FSCD-147-layout test split of 12 images, 8 at 1024 and 4 escalated to 1536, at
     num_exemplars 1 (eval_batch_size 4) and 3 (forced to 1), each twice: the first run
     pays the first calls at the eval's shapes (cold), the second is timed warm. With
-    ``profile``, a torch.profiler breakdown of the 1536 batch's program. Returns the warm
-    runs' images/s end to end by num_exemplars."""
+    ``profile``, a torch.profiler breakdown of the 1536 batch's program. Then one run at
+    ``compute_dtype="float32"`` (num_exemplars 1, both buckets) with the same checks and
+    the f32 kernels' launches. Returns the warm runs' images/s end to end by
+    num_exemplars, and the f32 run's under ``"f32"``."""
     import dataclasses
     import os
     import tempfile
@@ -1859,6 +1966,22 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
                                       "eval 1536 bucket", "one batch of 4 with its losses, "
                                       "bucket 9")
                 del records, tr
+            # compute_dtype="float32" at num_exemplars 1: the f32 attention kernels in both
+            # buckets (the 1536 one on 96^2 tokens); the Trainer builds its f32 model
+            cfg = dataclasses.replace(base, logpath=os.path.join(tmp, "log_f32"),
+                                      num_exemplars=1, eval_batch_size=4,
+                                      compute_dtype="float32")
+            torch.cuda.reset_peak_memory_stats()
+            metrics, records, wall, tr = run_eval(torch, cfg, None, state_dict, _build,
+                                                  pred.device)
+            name = "eval num_exemplars=1 compute_dtype=float32"
+            print(f"{name}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+            rates["f32"] = check_eval_run(torch, np, tr.predictor, tr, name, metrics,
+                                          records, wall, phase4_ms, card, compute_losses,
+                                          detections_to_numpy, F32_EVAL_LAUNCHES)
+            del records, tr
+            torch.cuda.empty_cache()
     # the 1536 bucket's objectness against an f32 CPU run (phase 4's measure)
     check_1536_objectness(torch, pred, Predictor, big["image"], big["exemplars"])
     return rates
@@ -1962,6 +2085,13 @@ BWD_TABLE_TOL = 1e-4
 BWD_CASES = ((False, True, 64, (64, 64), 48), (False, False, 64, (64, 64), 48),
              (True, True, 64, (14, 14), 1200), (False, True, 80, (64, 64), 64),
              (False, False, 80, (64, 64), 64), (True, True, 80, (14, 14), 1600))
+#: the same Functions at ``compute_dtype="float32"`` (the f32 kernels forward), at the
+#: main paths' shapes with the bias, against the f32 autograd of ``attention_plain``: every
+#: gradient within BWD_F32_TOL of its largest element (f32 on both sides, sums in another
+#: order)
+BWD_F32_CASES = ((False, True, 64, (64, 64), 48), (True, True, 64, (14, 14), 1200),
+                 (False, True, 80, (64, 64), 64), (True, True, 80, (14, 14), 1600))
+BWD_F32_TOL = 1e-4
 #: phase 5b's synthetic train split: 8 train images, then 4 val images, objects of 30-46
 #: px on FSC-147's 384 x 512 (all at 1024: training takes no small-object bucket)
 TRAIN_SIDES = (30, 38, 46, 34, 42, 30, 38, 46, 32, 40, 44, 36)
@@ -1971,7 +2101,9 @@ TRAIN_IMAGES = 8
 #: capacity is 191, the FFT route), NMS or int8 kernel
 TRAIN_STEP_LAUNCHES = {"global_attn": 4, "window_attn": 8, "xcorr": 0, "nms": 0,
                        "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
-                       "global_attn_d80": 0, "window_attn_d80": 0}
+                       "global_attn_d80": 0, "window_attn_d80": 0, **F32_ZERO}
+F32_TRAIN_STEP_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, global_attn=0, window_attn=0,
+                               global_attn_f32=4, window_attn_f32=8)
 #: the gradient's global norm through the kernels against the same step with the
 #: attention through ``attention_plain`` on the card, relative: both are bf16 networks
 #: (12 blocks of bf16 activations; the two attentions round p at other points)
@@ -1985,7 +2117,7 @@ RESUME_TOL = 1e-2
 
 
 def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d: int,
-                             grid, bh: int, seed: int) -> dict:
+                             grid, bh: int, seed: int, f32: bool = False) -> dict:
     """One attention Function's backward (``attention_backward``, PyTorch on the card)
     at a main-path shape against ``torch.autograd.grad`` of ``attention_plain`` in f32 on
     the same inputs: dq, dk, dv and the gradients of the compact (2g - 1, d) tables
@@ -1993,17 +2125,20 @@ def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d
     largest element. Times the kernel forward, the backward and the f32 reference's
     backward; the bound is the backward's operations, 2.5x the forward's (the scores
     recomputed, dp, dv, dq and dk: five products of the forward's two), at the bf16
-    peak, and the same at the f32 peak of the f32 products it performs."""
+    peak, and the same at the f32 peak of the f32 products it performs. ``f32``: f32
+    q, k, v and output gradient (``compute_dtype="float32"``), every gradient held to
+    BWD_F32_TOL."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     gh, gw = grid
     s = gh * gw
     scale = d ** -0.5
-    q, k, v, g = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+    dtype = torch.float32 if f32 else torch.bfloat16
+    q, k, v, g = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
                   for _ in range(4))
     tabs = [torch.randn(2 * n - 1, d, generator=gen, device="cuda") * 0.1
             for n in grid] if has_bias else []
     leaves = [t.requires_grad_() for t in (q, k, v, *tabs)]
-    f32 = [t.detach().float().requires_grad_() for t in leaves]
+    ref = [t.detach().float().requires_grad_() for t in leaves]
 
     def run(qkv, tables, plain=False):
         rel = [cuda_attn.get_rel_pos(n, n, t) for n, t in zip(grid, tables)]
@@ -2016,8 +2151,8 @@ def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d
 
     out = run(leaves[:3], leaves[3:])
     got = torch.autograd.grad(out, leaves, g, retain_graph=True)
-    want_out = run(f32[:3], f32[3:], plain=True)
-    want = torch.autograd.grad(want_out, f32, g.float(), retain_graph=True)
+    want_out = run(ref[:3], ref[3:], plain=True)
+    want = torch.autograd.grad(want_out, ref, g.float(), retain_graph=True)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "d_rel_pos_h", "d_rel_pos_w")
     errs = {}
@@ -2027,14 +2162,15 @@ def check_attention_backward(torch, cuda_attn, windowed: bool, has_bias: bool, d
         fwd_ms = cuda_ms(lambda: run(leaves[:3], leaves[3:]), reps=5, warmup=1)
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
                      reps=5, warmup=1)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(want_out, f32, g.float(),
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(want_out, ref, g.float(),
                                                    retain_graph=True), reps=3, warmup=1)
     del out, want_out, got, want
     torch.cuda.empty_cache()
     lib = sdpa_backward(torch, cuda_attn, [t.detach() for t in leaves], g, grid, scale)
     flops = 2.5 * 4.0 * bh * s * s * d
-    nbytes = 7 * bh * s * d * 2 + sum(t.numel() for t in tabs) * 4 * 2
-    ok = all(e <= (BWD_TOL if n in names[:3] else BWD_TABLE_TOL) for n, e in errs.items())
+    nbytes = 7 * bh * s * d * q.element_size() + sum(t.numel() for t in tabs) * 4 * 2
+    ok = all(e <= (BWD_F32_TOL if f32 else BWD_TOL if n in names[:3] else BWD_TABLE_TOL)
+             for n, e in errs.items())
     return dict(errs=errs, ok=ok, fwd_ms=fwd_ms,
                 bwd_ms=bwd_ms, plain_bwd_ms=plain_ms, **lib,
                 bound=bound(flops, nbytes, PEAK_BF16_FLOPS),
@@ -2088,13 +2224,16 @@ def sdpa_backward(torch, cuda_attn, tensors, g, grid, scale) -> dict:
 
 
 def check_backward_kernels(torch, cuda_attn, card) -> list:
-    """Phase 5b, first part: every BWD_CASES backward; returns their records."""
+    """Phase 5b, first part: every BWD_CASES backward, then every BWD_F32_CASES one at
+    f32; returns their records."""
     records = []
-    for i, (windowed, has_bias, d, grid, bh) in enumerate(BWD_CASES):
+    cases = [(*c, False) for c in BWD_CASES] + [(*c, True) for c in BWD_F32_CASES]
+    for i, (windowed, has_bias, d, grid, bh, f32) in enumerate(cases):
         r = check_attention_backward(torch, cuda_attn, windowed, has_bias, d, grid, bh,
-                                     SEED + 50 + i)
+                                     SEED + 50 + i, f32)
         name = (f"{'window' if windowed else 'global'}_attn"
-                f"{'' if has_bias else '_nobias'}{'' if d == 64 else f'_d{d}'}")
+                f"{'' if has_bias else '_nobias'}{'_f32' if f32 else ''}"
+                f"{'' if d == 64 else f'_d{d}'}")
         (b_ms, by), (f32_ms, _) = r["bound"], r["bound_f32"]
         lib = (f"{r['library_bwd_ms']:.4f} ms" if r["library_bwd_ms"] is not None
                else f"raised {r['library_error']}")
@@ -2105,7 +2244,9 @@ def check_backward_kernels(torch, cuda_attn, card) -> list:
               f"library (autograd of SDPA, mask built from the tables in the graph) {lib}; "
               f"memory-efficient SDPA alone: {r['efficient']}; "
               "error / max: " + ", ".join(f"{k} {v:.3e}" for k, v in r["errs"].items())
-              + f" (tol {BWD_TOL:.3e}; tables {BWD_TABLE_TOL:.0e}) [{card}]", flush=True)
+              + (f" (tol {BWD_F32_TOL:.0e}, all five)" if f32 else
+                 f" (tol {BWD_TOL:.3e}; tables {BWD_TABLE_TOL:.0e})") + f" [{card}]",
+              flush=True)
         if not r["ok"]:
             fail(f"the {name} backward disagrees with the f32 autograd of attention_plain")
         records.append(dict(name=name, route="pytorch", source="tmr_tpu_torch/ops/cuda_attn.py",
@@ -2232,9 +2373,9 @@ def check_train_path(torch, np, pred, card, modules, backward=(), profile=False)
         base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), num_workers=4,
                       seed=SEED, eval_batch_size=4, nowandb=True)
 
-        def fit(tag, epochs, resume=False):
+        def fit(tag, epochs, resume=False, **kw):
             cfg = dataclasses.replace(base, logpath=os.path.join(tmp, tag),
-                                      max_epochs=epochs, resume=resume)
+                                      max_epochs=epochs, resume=resume, **kw)
             tr = RecordingTrainer(cfg, device="cuda")
             n0 = len(steps)
             t0 = time.perf_counter()
@@ -2255,6 +2396,13 @@ def check_train_path(torch, np, pred, card, modules, backward=(), profile=False)
                 it = iter(whole._loaders()[0])
                 batch = next(it)
                 it.close()
+                # compute_dtype="float32": one epoch (2 steps and a validation batch)
+                n_evals = len(evals)
+                torch.cuda.reset_peak_memory_stats()
+                f32_tr, f32_steps, f32_s = fit("f32", 1, compute_dtype="float32")
+                f32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                f32_evals = evals[n_evals:]
+                del evals[n_evals:], f32_tr
         finally:
             loop.make_train_step = make_step
     all_steps = w_steps + p_steps + r_steps
@@ -2273,6 +2421,25 @@ def check_train_path(torch, np, pred, card, modules, backward=(), profile=False)
     ms = sum(warm) / len(warm)
     out.update(step_ms=ms, first_step_ms=w_steps[0]["ms"], images_per_s=4e3 / ms,
                peak_gb=peak_gb, fit_s=w_s, losses=losses)
+    f32_losses = [r["loss"] for r in f32_steps]
+    f32_ms = ", ".join(f"{r['ms']:.1f}" for r in f32_steps)
+    print(f"train path at compute_dtype=float32: {len(f32_steps)} steps of 4 images at "
+          f"1024, ms {f32_ms} (the bf16 run's warm "
+          f"{ms:.1f}), {4e3 / f32_steps[-1]['ms']:.2f} images/s at the last step; peak "
+          f"device memory {f32_peak_gb:.2f} GB (bf16 {peak_gb:.2f}); losses "
+          f"{', '.join(f'{x:.4f}' for x in f32_losses)}; launches a step "
+          f"{json.dumps(f32_steps[0]['launches'] if f32_steps else None)}, validation "
+          f"{json.dumps(f32_evals)}; the epoch with validation {f32_s:.1f} s [{card}]",
+          flush=True)
+    if (len(f32_steps) != 2
+            or any(r["launches"] != F32_TRAIN_STEP_LAUNCHES for r in f32_steps)
+            or f32_evals != [F32_EVAL_LAUNCHES]
+            or not all(math.isfinite(x) for x in f32_losses)
+            or any(r["skipped"] for r in f32_steps)):
+        fail(f"f32 train steps {f32_steps} (expected 2 of {F32_TRAIN_STEP_LAUNCHES}, "
+             f"finite, none skipped), validation {f32_evals}")
+    out["f32"] = dict(step_ms=[r["ms"] for r in f32_steps], peak_gb=f32_peak_gb,
+                      losses=f32_losses, fit_s=f32_s)
     print(f"train path: ms per step of 4 images at 1024 (warm, the uninterrupted run's "
           f"steps 1-5): {ms:.1f} (steps {', '.join(f'{x:.1f}' for x in warm)}; first "
           f"{w_steps[0]['ms']:.1f}) = {4e3 / ms:.2f} images/s; peak device memory "
@@ -2465,7 +2632,195 @@ def check_vit_h_path(torch, np, batches, caps, card, modules):
     if not (torch.isfinite(obj).all() and obj.shape == (128, 128)
             and diff <= OBJ_REL_TOL * scale):
         fail("ViT-H objectness map disagrees with the f32 CPU reference")
-    return launches, hpred
+    return launches, hpred, (ref_obj, diff / scale, sum(times) / len(times))
+
+
+#: phase 4f: image 0's objectness at ``compute_dtype="float32"`` on the card against the
+#: f32 CPU run of the same weights (phase 4's, 4c's), relative to the map's max: two f32
+#: networks, the card's with its convolutions in TF32 (cuDNN's default, kept) and its
+#: attention in 3xTF32
+F32_OBJ_TOL = 2e-2
+#: launches of one ViT-H batch of 4 at f32: 4 global and 28 windowed blocks at head dim 80
+F32_VIT_H_LAUNCHES = dict(VIT_H_LAUNCHES, xcorr=1, nms=1, global_attn_d80=0,
+                          window_attn_d80=0, global_attn_f32_d80=4, window_attn_f32_d80=28)
+
+
+def tf32_settings(torch) -> str:
+    """PyTorch's TF32 switches: the f32 network's linears and convolutions run under them."""
+    return (f"torch.backends.cuda.matmul.allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32} (cuBLAS SGEMM), "
+            f"torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} (cuDNN "
+            f"convolutions), float32_matmul_precision "
+            f"{torch.get_float32_matmul_precision()!r}")
+
+
+def check_f32_objectness(torch, name, fpred, imgs, ex, ref_obj, bf16_rel) -> float:
+    """Image 0's objectness of ``fpred`` (f32 on the card) against ``ref_obj``, the f32 CPU
+    run of the same weights, within F32_OBJ_TOL of the map's max; printed beside the bf16
+    network's figure from the same call. Returns the relative difference."""
+    obj = fpred.forward(imgs, ex)["objectness"][0].float().cpu()
+    scale = ref_obj.abs().max().item()
+    diff = (obj - ref_obj).abs().max().item()
+    print(f"{name} objectness image 0 vs the f32 CPU run: max_abs_diff {diff:.4e}, map max "
+          f"{scale:.4e}, {diff / scale:.4e} of the max (tol {F32_OBJ_TOL}); the bf16 "
+          f"network's in this call {bf16_rel:.4e}", flush=True)
+    if not (torch.isfinite(obj).all() and obj.shape == ref_obj.shape
+            and diff <= F32_OBJ_TOL * scale):
+        fail(f"{name}: objectness disagrees with the f32 CPU reference")
+    return diff / scale
+
+
+def check_f32_path(torch, np, pred, batches, multi_batches, caps, ref, card, modules):
+    """Phase 4f, ViT-B: ``Predictor(preset("TMR_FSCD147", compute_dtype="float32"))`` on
+    phase 4's weights over phase 4's 3 batches (buckets 9, 17, 33), then one
+    ``predict_multi_batch`` of phase 4d's. Each batch must launch exactly the f32 attention
+    kernels' 4 global and 8 windowed blocks, one correlation and one NMS, and no bf16
+    attention kernel; nothing may call ``bias_projections``; batch 0's keep mask must
+    equal the plain version's; image 0's objectness must lie within F32_OBJ_TOL of phase
+    4's f32 CPU run. ``ref`` is (that run's map, the bf16 path's relative difference from
+    it, phase 4's ms per batch). Returns the launches over the 3 batches and the numbers
+    PERF.md keeps."""
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_attn, cuda_nms = modules
+    ref_obj, bf16_rel, bf16_ms = ref
+    print(f"f32 path: PyTorch's defaults, kept: {tf32_settings(torch)}", flush=True)
+    fpred = Predictor(preset("TMR_FSCD147", compute_dtype="float32"), device="cuda")
+    fpred.model.load_state_dict(pred.model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    with call_count(cuda_attn, "bias_projections") as proj_calls:
+        times, outs, launches = run_batches(torch, fpred, batches, detections_to_numpy,
+                                            _build)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report_batches(np, "f32 path", caps, times, outs, card)
+    want = {k: 3 * v for k, v in F32_EVAL_LAUNCHES.items()}
+    print(f"f32 path launches over the 3 batches: {json.dumps(launches)}; bias_projections "
+          f"calls {len(proj_calls)} (expected 0)", flush=True)
+    if launches != want or proj_calls:
+        fail(f"f32 path launches {launches} (expected {want}), bias_projections calls "
+             f"{len(proj_calls)}")
+    ms = sum(times) / len(times)
+    print(f"f32 path: {ms:.1f} ms per batch of 4, {4e3 / ms:.2f} img/s, peak device memory "
+          f"{peak:.2f} GB; the bf16 path (phase 4) {bf16_ms:.1f} ms, {4e3 / bf16_ms:.2f} "
+          f"img/s [{card}]", flush=True)
+    check_main_path_nms(torch, lambda: fpred(*batches[0]), cuda_nms, "f32 path batch 0")
+    imgs, ex = batches[0]
+    rel = check_f32_objectness(torch, "f32 path", fpred, imgs, ex, ref_obj, bf16_rel)
+
+    imgs, ex = multi_batches[0]
+    k_real = np.array(MULTI_K_REAL, np.int32)
+    fpred.predict_multi_batch(imgs, ex, k_real)  # warm-up at the multi shapes
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dets = fpred.predict_multi_batch(imgs, ex, k_real)
+    torch.cuda.synchronize()
+    multi_ms = (time.perf_counter() - t0) * 1e3
+    mlaunches = dict(_build.LAUNCHES)
+    lists = detections_to_numpy(dets)
+    print(f"f32 multi path, one batch of 4 images x 3 exemplars (real rows "
+          f"{list(MULTI_K_REAL)}): {multi_ms:.1f} ms, detections per image "
+          f"{[len(d['boxes']) for d in lists]}, launches {json.dumps(mlaunches)} [{card}]",
+          flush=True)
+    if mlaunches != F32_EVAL_LAUNCHES or not all(
+            np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all() for d in lists):
+        fail(f"f32 multi path: launches {mlaunches} (expected {F32_EVAL_LAUNCHES}) or "
+             "non-finite detections")
+    del fpred
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, images_per_s=4e3 / ms, peak_gb=peak, obj_rel=rel,
+                          bf16_ms=bf16_ms, multi_ms=multi_ms)
+
+
+def check_f32_vit_h(torch, np, hpred, batches, caps, ref, card, modules):
+    """Phase 4f, ViT-H: ``backbone="sam_vit_h"`` at ``compute_dtype="float32"`` on phase
+    4c's weights, one batch of 4 (phase 4's batch 0) after a warm-up: exactly 4 global and
+    28 windowed f32 blocks at head dim 80, one correlation, one NMS; the keep mask equal to
+    the plain version's; image 0's objectness within F32_OBJ_TOL of phase 4c's f32 CPU run
+    (``ref``: that map, the bf16 network's relative difference, 4c's ms per batch).
+    Returns the batch's launches and the numbers PERF.md keeps."""
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+
+    _build, cuda_attn, cuda_nms = modules
+    ref_obj, bf16_rel, bf16_ms = ref
+    fh = Predictor(preset("TMR_FSCD147", backbone="sam_vit_h", compute_dtype="float32"),
+                   device="cuda")
+    fh.model.load_state_dict(hpred.model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    with call_count(cuda_attn, "bias_projections") as proj_calls:
+        times, outs, launches = run_batches(torch, fh, batches[:1], detections_to_numpy,
+                                            _build)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = [len(d["boxes"]) for d in outs[0]]
+    if not all(np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()
+               for d in outs[0]):
+        fail("f32 ViT-H path: non-finite detections")
+    print(f"f32 ViT-H path batch 0 (bucket {caps[0]}): detections per image {counts}; "
+          f"launches over the batch: {json.dumps(launches)}; "
+          f"bias_projections calls {len(proj_calls)} (expected 0); {times[0]:.1f} ms per "
+          f"batch of 4, {4e3 / times[0]:.2f} img/s, peak device memory {peak:.2f} GB; the "
+          f"bf16 ViT-H path (phase 4c) {bf16_ms:.1f} ms [{card}]", flush=True)
+    if launches != F32_VIT_H_LAUNCHES or proj_calls:
+        fail(f"f32 ViT-H path launches {launches} (expected {F32_VIT_H_LAUNCHES}), "
+             f"bias_projections calls {len(proj_calls)}")
+    check_main_path_nms(torch, lambda: fh(*batches[0]), cuda_nms, "f32 ViT-H path batch 0")
+    imgs, ex = batches[0]
+    rel = check_f32_objectness(torch, "f32 ViT-H path", fh, imgs, ex, ref_obj, bf16_rel)
+    del fh
+    torch.cuda.empty_cache()
+    return launches, dict(ms=times[0], images_per_s=4e3 / times[0], peak_gb=peak,
+                          obj_rel=rel, bf16_ms=bf16_ms)
+
+
+def check_f32_cli(torch, np, pred, card, modules) -> dict:
+    """Phase 4f, the CLI: ``tmr_tpu_torch.main --eval --compute_dtype float32
+    --visualize`` (in process, the flags of ``preset("TMR_FSCD147")``) on phase 5's
+    synthetic split, reading phase 4's weights from a Lightning ``best_model.ckpt``: its 3
+    eval batches (2 at 1024, 1 at 1536) must launch exactly the f32 kernels' 4 / 8 and one
+    correlation and one NMS each, the metrics must be finite, and a triptych of each of
+    the 12 images must be written (3 panels of the 384 x 512 image)."""
+    import os
+    import tempfile
+
+    from tmr_tpu_torch import main as cli
+    from tmr_tpu_torch.utils.convert import lightning_state_dict
+
+    _build, = modules
+    with tempfile.TemporaryDirectory() as tmp:
+        images = eval_split(np, os.path.join(tmp, "fsc"))
+        log = os.path.join(tmp, "log")
+        os.makedirs(log)
+        torch.save({"state_dict": lightning_state_dict(pred.model.state_dict())},
+                   os.path.join(log, "best_model.ckpt"))
+        argv = ["--eval", "--compute_dtype", "float32", "--visualize", "--dataset",
+                "FSCD147", "--datapath", os.path.join(tmp, "fsc"), "--logpath", log,
+                "--backbone", "sam_vit_b", "--emb_dim", "512", "--fusion",
+                "--feature_upsample", "--positive_threshold", "0.5",
+                "--negative_threshold", "0.5", "--NMS_cls_threshold", "0.25",
+                "--NMS_iou_threshold", "0.5", "--eval_batch_size", "4", "--num_workers",
+                "4", "--nowandb"]
+        with in_memory_images(images):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            metrics = cli.main(argv)
+            wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        out = Path(log) / "visualizations" / "test"
+        trips = sorted(out.glob("*_triptych.png"))
+        sizes = {png_size(path.read_bytes()) for path in trips}
+    want = {k: 3 * v for k, v in F32_EVAL_LAUNCHES.items()}
+    print(f"f32 CLI (main --eval --compute_dtype float32 --visualize): {wall:.2f} s for 12 "
+          f"images (checkpoint load, loader, 3 batches, metrics, triptychs), launches "
+          f"{json.dumps(launches)}; metrics {json.dumps(metrics)}; {len(trips)} triptychs, "
+          f"sizes {sorted(sizes)} [{card}]", flush=True)
+    if launches != want or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"f32 CLI: launches {launches} (expected {want}) or non-finite metrics")
+    if len(trips) != len(images) or sizes - {(3 * EVAL_HW[1], EVAL_HW[0])}:
+        fail(f"f32 CLI --visualize wrote {len(trips)} triptychs of sizes {sizes}, expected "
+             f"{len(images)} of {3 * EVAL_HW[1]}x{EVAL_HW[0]}")
+    return dict(cli_s=wall, triptychs=len(trips))
 
 
 #: phase 5c's synthetic shards: 10 PNGs of 480 x 640 in each category (one batch of 8
@@ -2537,6 +2892,15 @@ def read_png(data: bytes):
     if rows[:, 0].any():
         raise ValueError("only filter 0 is read")
     return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def png_size(data: bytes):
+    """(width, height) from a PNG's IHDR chunk."""
+    import struct
+
+    if data[:8] != PNG_SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG")
+    return struct.unpack(">II", data[16:24])
 
 
 def use_png_reader() -> None:
@@ -4012,9 +4376,10 @@ def main(argv=None) -> int:
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     stray = [k for k in ("xcorr_int8", "int8_mm", "int8_conv", "add1", "global_attn_d80",
-                         "window_attn_d80") if launches[k]]
+                         "window_attn_d80", *F32_ZERO) if launches[k]]
     if stray:
-        fail(f"int8, probe or head dim 80 kernels launched on the ViT-B bf16 path: {stray}")
+        fail(f"int8, probe, head dim 80 or f32 kernels launched on the ViT-B bf16 path: "
+             f"{stray}")
     check_main_path_nms(torch, lambda: pred(*batches[0]), cuda_nms)
 
     imgs, ex = batches[0]
@@ -4035,6 +4400,7 @@ def main(argv=None) -> int:
             and diff <= OBJ_REL_TOL * scale):
         fail("objectness map disagrees with the f32 CPU reference")
     del ref
+    phase4_ref = (ref_obj, diff / scale, sum(times) / len(times))
 
     # 4b. the int8-storage path on the same weights
     qlaunches, qpred = check_quant_path(torch, np, pred, batches, caps, obj, reg, card,
@@ -4050,6 +4416,11 @@ def main(argv=None) -> int:
             "one batch of 4 images x 3 exemplars, bucket 33")
     del qpred
     torch.cuda.empty_cache()
+    # 4f. compute_dtype="float32" on phase 4's weights: its batches, a multi batch and the
+    # CLI with --visualize
+    f32_launches, f32 = check_f32_path(torch, np, pred, batches, multi_batches, caps,
+                                       phase4_ref, card, (_build, cuda_attn, cuda_nms))
+    f32.update(check_f32_cli(torch, np, pred, card, (_build,)))
 
     # 5. eval through Trainer.test on the same weights, both size buckets
     eval_rates = check_eval_path(torch, np, pred, card, sum(times) / len(times),
@@ -4076,10 +4447,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 4c. SAM ViT-H (head dim 80) on the same batches
-    hlaunches, hpred = check_vit_h_path(torch, np, batches, caps, card,
-                                        (_build, cuda_attn, cuda_nms))
+    hlaunches, hpred, href = check_vit_h_path(torch, np, batches, caps, card,
+                                              (_build, cuda_attn, cuda_nms))
     if args.profile:
         profile_batch(torch, lambda: hpred(*batches[2]), "ViT-H path")
+    # 4f, ViT-H: the same weights at compute_dtype="float32"
+    h32_launches, f32["vit_h"] = check_f32_vit_h(torch, np, hpred, batches, caps, href, card,
+                                                 (_build, cuda_attn, cuda_nms))
+    print(json.dumps({"f32": f32}), flush=True)
     del hpred
     torch.cuda.empty_cache()
 
@@ -4099,6 +4474,14 @@ def main(argv=None) -> int:
         "window_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
         "global_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
         "window_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
+        "global_attn_f32": ("tmr_tpu_torch/csrc/attn_f32.cu",
+                            "tmr_tpu/ops/pallas_attn.py:59"),
+        "window_attn_f32": ("tmr_tpu_torch/csrc/attn_f32.cu",
+                            "tmr_tpu/ops/pallas_attn.py:350"),
+        "global_attn_f32_d80": ("tmr_tpu_torch/csrc/attn_f32.cu",
+                                "tmr_tpu/ops/pallas_attn.py:59"),
+        "window_attn_f32_d80": ("tmr_tpu_torch/csrc/attn_f32.cu",
+                                "tmr_tpu/ops/pallas_attn.py:350"),
         "xcorr": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/pallas_xcorr.py:47"),
         "nms": ("tmr_tpu_torch/csrc/nms.cu", "tmr_tpu/ops/pallas_nms.py:32"),
         "xcorr_int8": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/xcorr.py:171"),
@@ -4110,7 +4493,11 @@ def main(argv=None) -> int:
                          int8_mm=qlaunches["int8_mm"], int8_conv=qlaunches["int8_conv"],
                          add1=probe_launches,
                          global_attn_d80=hlaunches["global_attn_d80"],
-                         window_attn_d80=hlaunches["window_attn_d80"])
+                         window_attn_d80=hlaunches["window_attn_d80"],
+                         global_attn_f32=f32_launches["global_attn_f32"],
+                         window_attn_f32=f32_launches["window_attn_f32"],
+                         global_attn_f32_d80=h32_launches["global_attn_f32_d80"],
+                         window_attn_f32_d80=h32_launches["window_attn_f32_d80"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=path_launches[name], **entries[name])
                for name, (src, rep) in meta.items()]

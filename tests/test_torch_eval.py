@@ -240,17 +240,22 @@ def test_best_checkpoint_resolution(tmp_path):
 
 @pytest.mark.parametrize("field", ["refine_box", "visualize"])
 def test_trainer_refuses_unported_options(eval_pair, field):
-    """``visualize`` (ROADMAP A4) raises; ``refine_box`` is ported (A6): the Trainer
-    builds the SAM refiner for its Predictor (tests/test_torch_refine_eval.py)."""
-    root = eval_pair[0]
+    """Both options are ported. ``refine_box`` (A6): the Trainer builds the SAM refiner
+    for its Predictor (tests/test_torch_refine_eval.py). ``visualize`` (A4): ``test()``
+    writes one ``*_triptych.png`` per test image under ``visualizations/test/`` (no PR
+    curves without matplotlib) and returns the metrics a run without it returns."""
+    root, _, params = eval_pair
     cfg = preset("TMR_FSCD147", **_cfg_kw(root, "refuse", 1, 1), **{field: True})
+    model = build_model(cfg, backbone=SamViT(pretrain_img_size=SIZE, **TINY), device="cpu")
+    tr = loop.Trainer(cfg, device="cpu", model=model)
     if field == "refine_box":
-        model = build_model(cfg, backbone=SamViT(pretrain_img_size=SIZE, **TINY),
-                            device="cpu")
-        assert loop.Trainer(cfg, device="cpu", model=model).predictor.refiner is not None
+        assert tr.predictor.refiner is not None
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        loop.Trainer(cfg, device="cpu")
+    got = tr.test(params=params)
+    out = root / "refuse" / "visualizations" / "test"
+    names = sorted(p.name for p in out.glob("*_triptych.png"))
+    assert len(names) == N_TEST, names
+    assert got == _port_trainer(root, "refuse_plain", 1, 1).test(params=params)
 
 
 # ------------------------------------------------------- checkpoint layouts

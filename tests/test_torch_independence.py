@@ -140,13 +140,17 @@ def _pil_imports(node, where="<module>"):
 def test_pil_is_imported_only_in_the_decode_step():
     """PIL may be missing where the port runs: only the decode steps import it, inside
     the function (the datasets' ``_Base.decode`` and the map phase's
-    ``transforms.decode_image``), and the refiner's PNG writer (``save_masks``), so every
-    module imports without it."""
+    ``transforms.decode_image``), the refiner's PNG writer (``save_masks``) and
+    ``--visualize``'s writers (``utils/visualize.py``: the caption, the PNG writer, the
+    triptychs' default image reader), so every module imports without it."""
     where = [(str(p.relative_to(REPO)), fn) for p in _port_files()
              for fn in _pil_imports(ast.parse(p.read_text(), filename=str(p)))]
     assert sorted(where) == [("tmr_tpu_torch/data/datasets.py", "decode"),
                              ("tmr_tpu_torch/data/transforms.py", "decode_image"),
-                             ("tmr_tpu_torch/refine.py", "save_masks")]
+                             ("tmr_tpu_torch/refine.py", "save_masks"),
+                             ("tmr_tpu_torch/utils/visualize.py", "_caption"),
+                             ("tmr_tpu_torch/utils/visualize.py", "_write_png"),
+                             ("tmr_tpu_torch/utils/visualize.py", "save_triptychs")]
 
 
 def test_every_port_module_imports_without_jax():

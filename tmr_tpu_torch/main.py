@@ -21,9 +21,12 @@ the test metrics are printed as one JSON line. ``--device`` defaults to the GPU
 (``cuda``) and raises without one; ``--device cpu`` runs the plain CPU versions.
 ``--refine_box`` refines every eval program's detections with the SAM refiner before NMS
 (``--refiner_checkpoint``: a SAM ``.pth``; without it, seeded weights and a warning).
-``--visualize``, the mesh flags, ``--pp_microbatches`` and ``--autotune`` raise, each
-naming its ROADMAP item; ``--eval_multi_scale`` is accepted and unused, as in
-``main.py``.
+``--compute_dtype float32`` runs the SAM encoder in f32 on the card too (the f32
+attention kernels, ``csrc/attn_f32.cu``). ``--visualize`` writes each eval's triptychs
+(and its PR curves where matplotlib is installed) under ``--logpath``'s
+``visualizations/{stage}/``. The mesh flags, ``--pp_microbatches`` and ``--autotune``
+raise, each naming its ROADMAP item; ``--eval_multi_scale`` is accepted and unused, as
+in ``main.py``.
 """
 
 from __future__ import annotations

@@ -36,6 +36,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tmr_global_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         "tmr_window_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
+    "attn_f32": {
+        "tmr_global_attn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "tmr_window_attn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
     "xcorr": {
         "tmr_xcorr": (_P, _P, _P, _I, _I, _I, _I, _P),
         "tmr_xcorr_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -67,6 +71,8 @@ LAUNCHES: Dict[str, int] = {
     "global_attn": 0, "window_attn": 0, "xcorr": 0, "nms": 0,
     "xcorr_int8": 0, "int8_mm": 0, "int8_conv": 0, "add1": 0,
     "global_attn_d80": 0, "window_attn_d80": 0,
+    "global_attn_f32": 0, "window_attn_f32": 0,
+    "global_attn_f32_d80": 0, "window_attn_f32_d80": 0,
 }
 
 #: nvcc's output (``-Xptxas -v``: registers, shared memory and spills per kernel) of each

@@ -28,12 +28,16 @@ and tables in query bands, as the JAX backward does through
 ``blockwise_decomposed_attention``. The backward is PyTorch on both devices (the JAX
 package's is XLA, not Pallas); it launches no kernel.
 
-What the kernels take: bf16, contiguous, head dim 64 (SAM ViT-B) or 80 (ViT-H; any
-other raises, with no fallback to the plain version); the global kernel takes any token
-count whose projections fit in shared memory
+What the kernels take: bf16 or f32 (``compute_dtype="float32"``), q, k and v of one
+dtype, contiguous, head dim 64 (SAM ViT-B) or 80 (ViT-H; any other dtype or head dim
+raises, with no fallback to the plain version). bf16 goes to ``csrc/attn.cu``: the global
+kernel takes any token count whose projections fit in shared memory
 (:func:`global_geometry`: gh + gw up to ~290 at head dim 64, ~195 at 80); the windowed
 kernel takes rows of up to 64 tokens and a window whose staging fits in 227 KB
-(:func:`window_geometry`).
+(:func:`window_geometry`). f32 goes to ``csrc/attn_f32.cu`` (3xTF32 products on the
+tensor cores, p kept f32 for p.v as the JAX kernels do at f32), whose two entries take any
+grid or window whose projections fit (:func:`geometry_f32`: gh + gw up to ~650), with the
+bias only: the f32 global kernel without it is not ported (SAM always has the bias).
 """
 
 from __future__ import annotations
@@ -199,20 +203,53 @@ def compact_table_grad(d_expanded: torch.Tensor, g: int) -> torch.Tensor:
     return out.index_add_(0, idx, d_expanded.reshape(g * g, -1))
 
 
+#: the dtypes the kernels take: bf16 (``csrc/attn.cu``) and f32 (``csrc/attn_f32.cu``)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check(q, k, v, what: str) -> None:
+    """Raise ``ValueError`` unless q, k and v are contiguous, of one shape and of one
+    dtype the kernels take (bf16 or f32), at head dim 64 or 80; the f32 kernels read
+    16-byte rows, so their operands must be 16-byte aligned."""
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{what}: the kernels take bf16 or f32, got q {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous bf16, got {t.dtype}"
-                             + ("" if t.is_contiguous() else ", not contiguous"))
+        if t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {q.dtype} as q is, got "
+                             f"{t.dtype}" + ("" if t.is_contiguous() else ", not contiguous"))
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
+        if q.dtype == torch.float32 and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernel takes head dim 64 or 80, got {q.shape[-1]}")
 
 
-def _counter(kernel: str, d: int) -> str:
-    """The launch count of a kernel's head dim 64 or 80 instantiation."""
-    return kernel if d == 64 else f"{kernel}_d{d}"
+def _counter(kernel: str, d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The launch count of a kernel's instantiation: ``kernel`` for bf16 at head dim 64,
+    then ``_f32`` for f32 and ``_d80`` for head dim 80 (``global_attn_f32_d80``)."""
+    return kernel + ("_f32" if dtype == torch.float32 else "") + (
+        "" if d == 64 else f"_d{d}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy where a view starts elsewhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def geometry_f32(gh: int, gw: int, d: int = 64) -> int:
+    """Shared bytes of both f32 kernels for a (gh, gw) grid or window at head dim ``d``, as
+    ``csrc/attn_f32.cu`` ``launch`` sets them up: the 64-row Q tile and two stages of
+    32-key K and V tiles in rows of d + 4 floats, and the (64, gh | 1) and (64, gw | 1)
+    f32 projections. Raises ``ValueError`` over 227 KB."""
+    if gh < 1 or gw < 1:
+        raise ValueError(f"attention: empty {gh}x{gw} grid")
+    smem = ((64 + 4 * 32) * (d + 4) + 64 * ((gh | 1) + (gw | 1))) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"attention: a {gh}x{gw} grid needs {smem} B of shared memory in "
+                         f"the f32 kernels, over the {_SMEM_LIMIT} B a block may use")
+    return smem
 
 
 def global_geometry(gh: int, gw: int, has_bias: bool = True, d: int = 64) -> int:
@@ -294,25 +331,34 @@ def _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
         return attention_plain(q, k, v, *rel, grid_hw, scale)
     _check(q, k, v, "global_attention")
     bh, s, d = q.shape
+    f32 = q.dtype == torch.float32
     if s != gh * gw:
         raise ValueError(f"global_attention: S={s} is not the {gh}x{gw} grid's")
-    global_geometry(gh, gw, has_bias, d)
+    if f32 and not has_bias:
+        raise ValueError("global_attention: the f32 kernel takes the rel-pos bias; f32 "
+                         "attention without it is not ported (SAM always has the bias)")
+    if f32:
+        geometry_f32(gh, gw, d)
+    else:
+        global_geometry(gh, gw, has_bias, d)
     if has_bias:
-        rel_pos_h, rel_pos_w = (t.to(q.device, torch.float32).contiguous()
+        rel_pos_h, rel_pos_w = (_aligned(t.to(q.device, torch.float32))
                                 for t in (rel_pos_h, rel_pos_w))
         if rel_pos_h.shape != (2 * gh - 1, d) or rel_pos_w.shape != (2 * gw - 1, d):
             raise ValueError(f"global_attention: tables {tuple(rel_pos_h.shape)} / "
                              f"{tuple(rel_pos_w.shape)} are not the compact tables of a "
                              f"{gh}x{gw} grid")
     out = torch.empty_like(q)
-    _build.launch(
-        _counter("global_attn", d), "attn", "tmr_global_attn",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        rel_pos_h.data_ptr() if has_bias else None,
-        rel_pos_w.data_ptr() if has_bias else None,
-        out.data_ptr(), bh, s, gh, gw, d, float(scale), int(has_bias),
-        _build.stream_of(q),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            rel_pos_h.data_ptr() if has_bias else None,
+            rel_pos_w.data_ptr() if has_bias else None, out.data_ptr())
+    if f32:
+        _build.launch(_counter("global_attn", d, q.dtype), "attn_f32",
+                      "tmr_global_attn_f32", *ptrs, bh, s, gh, gw, d, float(scale),
+                      _build.stream_of(q))
+    else:
+        _build.launch(_counter("global_attn", d, q.dtype), "attn", "tmr_global_attn", *ptrs,
+                      bh, s, gh, gw, d, float(scale), int(has_bias), _build.stream_of(q))
     return out
 
 
@@ -375,16 +421,21 @@ def _window_forward(q, k, v, rh, rw, grid_hw, scale):
     _check(q, k, v, "window_attention")
     bh, s, d = q.shape
     gh, gw = grid_hw
+    f32 = q.dtype == torch.float32
     if s != gh * gw:
         raise ValueError(f"window_attention: S={s} is not the {gh}x{gw} window's")
-    window_geometry(gh, gw, d)
-    rh, rw = (t.to(q.device, torch.float32).contiguous() for t in (rh, rw))
+    if f32:
+        geometry_f32(gh, gw, d)
+    else:
+        window_geometry(gh, gw, d)
+    rh, rw = (_aligned(t.to(q.device, torch.float32)) for t in (rh, rw))
     if rh.shape != (gh, gh, d) or rw.shape != (gw, gw, d):
         raise ValueError(f"window_attention: tables {tuple(rh.shape)} / {tuple(rw.shape)} "
                          f"do not fit a {gh}x{gw} window")
     out = torch.empty_like(q)
+    lib_name, fn = ("attn_f32", "tmr_window_attn_f32") if f32 else ("attn", "tmr_window_attn")
     _build.launch(
-        _counter("window_attn", d), "attn", "tmr_window_attn",
+        _counter("window_attn", d, q.dtype), lib_name, fn,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
         out.data_ptr(), bh, s, gh, gw, d, float(scale), _build.stream_of(q),
     )

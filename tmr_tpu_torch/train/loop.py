@@ -43,7 +43,7 @@ from tmr_tpu_torch.utils.convert import load_matching_net
 from tmr_tpu_torch.utils.metrics import (coco_style_annotation_generator,
                                          del_img_log_path, get_ap_scores, get_mae_rmse,
                                          image_info_collector)
-from tmr_tpu_torch.utils.profiling import log_info
+from tmr_tpu_torch.utils.profiling import log_info, log_warning
 from tmr_tpu_torch.utils.wandb_logger import WandbLogger
 from tmr_tpu_torch.utils.weights import init_params, params_from_jax
 
@@ -119,15 +119,13 @@ class Trainer:
 
     def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None,
                  refiner: Optional[torch.nn.Module] = None):
-        if cfg.visualize:
-            raise NotImplementedError("--visualize: the triptychs and PR curves are not "
-                                      "ported yet (ROADMAP A4)")
         self.cfg = cfg
         if refiner is None and cfg.refine_box:
             refiner = build_refiner(cfg, seed=cfg.seed, device=device)
         self.predictor = Predictor(cfg, device=device, model=model, refiner=refiner)
         self.model = self.predictor.model
         self._shared_loss_fn = None
+        self._eval_reader = None  # the dataset of the eval loop running, for --visualize
         self.logger = CSVLogger(cfg.logpath)
         self.wandb = None
         if not cfg.nowandb and not cfg.eval:
@@ -267,6 +265,7 @@ class Trainer:
         cfg = self.cfg
         if params is not None:
             self._set_params(params)
+        self._eval_reader = getattr(loader, "dataset", None)
         sums: Optional[dict] = None
         n = 0
         pending = None
@@ -324,8 +323,25 @@ class Trainer:
                         f"{stage}/MAE": mae, f"{stage}/RMSE": rmse})
         log_info(f"{stage}/AP: {ap:.2f} | {stage}/AP50: {ap50:.2f} | {stage}/AP75: "
                  f"{ap75:.2f} | {stage}/MAE: {mae:.2f} | {stage}/RMSE: {rmse:.2f}")
+        if cfg.visualize:
+            self._visualize(stage)
         del_img_log_path(cfg.logpath, stage)
         return metrics
+
+    def _visualize(self, stage: str) -> None:
+        """``--visualize``: the triptychs and PR curves of the merged files
+        (log_utils.py:311-377, 447-491; the JAX ``Trainer._finish_eval``), the pixels read
+        by the eval dataset's own reader. Best-effort: a failure is a warning, never a
+        failed eval."""
+        from tmr_tpu_torch.utils.visualize import plot_pr_curves, save_triptychs
+
+        reader = self._eval_reader
+        loader = None if reader is None else (lambda info: reader.decode(info["img_url"]))
+        try:
+            save_triptychs(self.cfg.logpath, stage, image_loader=loader)
+            plot_pr_curves(self.cfg.logpath, stage)
+        except Exception as e:
+            log_warning(f"visualization failed: {e}")
 
     def test(self, params=None) -> Dict[str, float]:
         """The eval entry (reference main.py:122-130): with no ``params``, the

@@ -24,12 +24,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with BH 64, with and without the bias, beside the bound of the products it performs,
    and at 24x40, 5x7 and 7x64; the windowed kernel at 14x14 with BH 1600, 7x7 and 16x16),
    with ``-Xptxas -v`` of every attention instantiation; the f32 attention kernels
-   (``csrc/attn_f32.cu``, 3xTF32) against their plain version in f32 (per element 2e-5 x
-   max|want|) at the main paths' shapes (global 64x64 at BH 48 and, at head dim 80, 64;
-   windowed 14x14 at BH 1200 and 1600), the 1536 bucket's 96^2 tokens (BH 48) and 4 x 49
-   windows, 24x40, 5x7 and 7x64 grids and 7x7 and 16x16 windows at both head dims, each
-   beside SDPA in f32 with the mask precomputed and its bound at a third of the TF32 peak,
-   with ``-Xptxas -v`` of the four instantiations; the f32 correlation at T = 1 to 65
+   (``csrc/attn_f32.cu``, 3xTF32 ``wgmma``) against their plain version in f32 (per
+   element 2e-5 x max|want|) at the main paths' shapes (global 64x64 at BH 48 and, at head
+   dim 80, 64, with and without the bias; windowed 14x14 at BH 1200 and 1600), the 1536
+   bucket's 96^2 tokens (BH 48) and 4 x 49 windows, 24x40, 5x7 and 7x64 grids and 7x7 and
+   16x16 windows at both head dims, and without the bias on 14x14 windows (BH 1200: the
+   windowed blocks of ``Attention(use_rel_pos=False)``), 5x7 and 24x40, each beside SDPA in
+   f32 (with the mask precomputed) and its bound at a third of the TF32 peak; then each of
+   the six main-path instantiations with a NaN in q, an infinity in k and a -infinity in v
+   (no output the plain version makes non-finite may come out finite, the rest within the
+   tier), and ``-Xptxas -v`` of the eight instantiations; the f32 correlation at T = 1 to 65
    on the matcher's map with its 3xTF32 tensor bound and its f32 bound, and on 96^2 and 64^2
    maps, a ragged map, a bf16-valued feature, the multi path's 12 rows and a feature with
    non-finite values planted; the int8 correlation at T = 1 to 65 on the matcher's map,
@@ -226,7 +230,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    28 at head dim 80), one correlation and one NMS, and no bf16 attention kernel; nothing
    may call ``bias_projections``; the keep mask must equal the plain version's; image 0's
    objectness must lie within 2e-2 x max of the f32 CPU run of phase 4 (4c), printed
-   beside the bf16 network's figure. Then ``tmr_tpu_torch.main --eval --compute_dtype
+   beside the bf16 network's figure (``--profile``: a torch.profiler table of ViT-B's third
+   batch). Then one global block (4 x 64^2 tokens) and one windowed block (100 windows of
+   14^2) of ``Attention(use_rel_pos=False)`` at ViT-B's width, in f32 and bf16: exactly 2
+   ``global_attn_f32`` and 2 ``global_attn`` launches (the windowed blocks take the global
+   kernel without tables) and nothing else, image 0 within 1e-4 (f32) or 5e-2 (bf16) x max
+   of an f32 CPU run of the same weights. Then ``tmr_tpu_torch.main --eval --compute_dtype
    float32 --visualize`` in process on phase 5's split from a Lightning checkpoint of
    phase 4's weights: 4 / 8 / 1 / 1 a batch, finite metrics, and a triptych PNG (3 x 512 x
    384) of each of the 12 images. Printed: ms per batch, images/s and peak memory beside
@@ -529,44 +538,57 @@ def check_global_grids(torch, F, cuda_attn, d: int = 64, grids=GLOBAL_GRIDS) -> 
 
 
 #: the f32 attention kernels (``compute_dtype="float32"``) at the main paths' shapes, the
-#: kernels line's entries: (counter, windowed, grid, head dim), at the batch of the ViT
-#: with that head dim (ViT-B BH 48 and 1200, ViT-H 64 and 1600)
-ATTN_F32_MAIN = (("global_attn_f32", False, (64, 64), 64),
-                 ("global_attn_f32_d80", False, (64, 64), 80),
-                 ("window_attn_f32", True, (14, 14), 64),
-                 ("window_attn_f32_d80", True, (14, 14), 80))
-#: and off them, (windowed, grid, BH or None for the ViT's, head dim, plain version's BH
-#: chunk): the 1536 bucket's 96^2 tokens at batch 4 and its 4 x 49 windows, rows that are
-#: not one key tile (24x40), one partial tile (5x7), 64-token rows in an odd count (7x64),
-#: 7x7 and 16x16 windows, at both head dims
-ATTN_F32_GRIDS = ((False, (96, 96), 48, 64, 12), (True, (14, 14), 4 * 12 * 49, 64, None),
-                  (False, (24, 40), 48, 64, None), (False, (5, 7), 48, 64, None),
-                  (False, (7, 64), 48, 64, None), (False, (24, 40), 64, 80, None),
-                  (False, (5, 7), 64, 80, None), (False, (7, 64), 64, 80, None),
-                  (True, (7, 7), None, 64, None), (True, (16, 16), None, 64, None),
-                  (True, (7, 7), None, 80, None), (True, (16, 16), None, 80, None))
+#: kernels line's entries: (counter, windowed, bias, grid, head dim), at the batch of the
+#: ViT with that head dim (ViT-B BH 48 and 1200, ViT-H 64 and 1600); the global kernel
+#: without the bias is ``Attention(use_rel_pos=False)``'s, its launches counted under
+#: ``global_attn_f32`` (``_d80``) as the bf16 ones are under ``global_attn``
+ATTN_F32_MAIN = (("global_attn_f32", False, True, (64, 64), 64),
+                 ("global_attn_nobias_f32", False, False, (64, 64), 64),
+                 ("global_attn_f32_d80", False, True, (64, 64), 80),
+                 ("global_attn_nobias_f32_d80", False, False, (64, 64), 80),
+                 ("window_attn_f32", True, True, (14, 14), 64),
+                 ("window_attn_f32_d80", True, True, (14, 14), 80))
+#: and off them, (windowed, bias, grid, BH or None for the ViT's, head dim, plain
+#: version's BH chunk): the 1536 bucket's 96^2 tokens at batch 4 and its 4 x 49 windows,
+#: rows that are not one key tile (24x40), one partial tile (5x7), 64-token rows in an odd
+#: count (7x64), 7x7 and 16x16 windows, at both head dims; without the bias the windowed
+#: blocks of ``Attention(use_rel_pos=False)`` (14x14 tokens, BH 1200, through the global
+#: kernel), 5x7 and 24x40
+ATTN_F32_GRIDS = ((False, True, (96, 96), 48, 64, 12),
+                  (True, True, (14, 14), 4 * 12 * 49, 64, None),
+                  (False, True, (24, 40), 48, 64, None), (False, True, (5, 7), 48, 64, None),
+                  (False, True, (7, 64), 48, 64, None), (False, True, (24, 40), 64, 80, None),
+                  (False, True, (5, 7), 64, 80, None), (False, True, (7, 64), 64, 80, None),
+                  (True, True, (7, 7), None, 64, None), (True, True, (16, 16), None, 64, None),
+                  (True, True, (7, 7), None, 80, None), (True, True, (16, 16), None, 80, None),
+                  (False, False, (14, 14), 4 * 12 * 25, 64, None),
+                  (False, False, (5, 7), 48, 64, None), (False, False, (24, 40), 64, 80, None))
+#: ``csrc/attn_f32.cu`` instantiations ``attn_f32_kernel<D, BIAS, ROW_TILE>``: no bias,
+#: compact tables on whole-tile grid rows, compact tables elsewhere, expanded tables
+ATTN_F32_INSTANCES = ((0, 0, "no bias"), (1, 1, "compact tables, whole-tile rows"),
+                      (1, 0, "compact tables"), (2, 0, "expanded tables"))
 
 
 def check_attention_f32(torch, F, cuda_attn, _build) -> dict:
     """The f32 attention kernels (``csrc/attn_f32.cu``) against their plain version at
-    :data:`ATTN_F32_MAIN` and :data:`ATTN_F32_GRIDS`, with ``-Xptxas -v`` of each
-    instantiation; returns the kernels line's entries."""
+    :data:`ATTN_F32_MAIN` and :data:`ATTN_F32_GRIDS`, then with non-finite inputs, with
+    ``-Xptxas -v`` of each instantiation; returns the kernels line's entries."""
     entries = {}
     log = _build.LOGS.get("attn_f32")
     for d in (64, 80):
-        for compact in (1, 0):
-            print(f"ptxas attn_f32_kernel<{d}, {'compact' if compact else 'expanded'} "
-                  f"tables>: {ptxas_info(log, f'attn_f32_kernelILi{d}ELb{compact}E')}",
+        for bias, row_tile, what in ATTN_F32_INSTANCES:
+            print(f"ptxas attn_f32_kernel<{d}, {bias}, {bool(row_tile)}> ({what}): "
+                  f"{ptxas_info(log, f'attn_f32_kernelILi{d}ELi{bias}ELb{row_tile}E')}",
                   flush=True)
-    cases = [(name, windowed, grid, None, d, None)
-             for name, windowed, grid, d in ATTN_F32_MAIN]
+    cases = [(name, windowed, bias, grid, None, d, None)
+             for name, windowed, bias, grid, d in ATTN_F32_MAIN]
     cases += [(None, *case) for case in ATTN_F32_GRIDS]
-    for name, windowed, grid, bh, d, chunk in cases:
-        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, True, SEED,
+    for name, windowed, bias, grid, bh, d, chunk in cases:
+        acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, bias, SEED,
                                              grid, bh, d, chunk, f32=True)
-        what = name or (f"{'window' if windowed else 'global'}_attn_f32"
-                        f"{'' if d == 64 else f'_d{d}'} {grid[0]}x{grid[1]} "
-                        f"{'windows' if windowed else 'grid'}"
+        what = name or (f"{'window' if windowed else 'global'}_attn"
+                        f"{'' if bias else '_nobias'}_f32{'' if d == 64 else f'_d{d}'} "
+                        f"{grid[0]}x{grid[1]} {'windows' if windowed else 'grid'}"
                         + (f", BH={bh}" if bh else ""))
         print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
               f"({bby}, 3xTF32 at a third of the TF32 peak)", flush=True)
@@ -577,7 +599,47 @@ def check_attention_f32(torch, F, cuda_attn, _build) -> dict:
                                  plain_ms=t["plain_ms"], bound_ms=bms, bound_by=bby,
                                  library_ms=t["lib_ms"])
         torch.cuda.empty_cache()
+    for name, windowed, bias, grid, d in ATTN_F32_MAIN:
+        check_attention_f32_nonfinite(torch, cuda_attn, name, windowed, bias, grid, d)
     return entries
+
+
+def check_attention_f32_nonfinite(torch, cuda_attn, name, windowed, has_bias, grid, d):
+    """One f32 instantiation with a NaN planted in q, an infinity in k and a -infinity in v
+    (heads 0, 1 and 2 of BH 6): every output the plain version makes non-finite must be
+    non-finite from the kernel too (the 3xTF32 split turns a non-finite word into a NaN lo,
+    so the kernel may make more outputs non-finite: an infinite score the plain softmax
+    drops becomes a NaN), and where both are finite they agree within ATTN_F32_TOL x the
+    finite max."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    gh, gw = grid
+    bh, s, scale = 6, gh * gw, d ** -0.5
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda") for _ in range(3))
+    q[0, 5, 3], k[1, s - 3, d - 1], v[2, s // 2, 0] = math.nan, math.inf, -math.inf
+    tab = (None, None)
+    rel = (None, None)
+    if has_bias and windowed:
+        tab = tuple(torch.randn(g, g, d, generator=gen, device="cuda") * 0.1 for g in grid)
+        rel = cuda_attn.bias_projections(q, *tab, grid)
+    elif has_bias:
+        tab = tuple(torch.randn(2 * g - 1, d, generator=gen, device="cuda") * 0.1
+                    for g in grid)
+        rel = cuda_attn.bias_projections(
+            q, *(cuda_attn.get_rel_pos(g, g, t) for g, t in zip(grid, tab)), grid)
+    fn = cuda_attn.window_attention if windowed else cuda_attn.global_attention
+    got = fn(q, k, v, *tab, grid, scale)
+    want = cuda_attn.attention_plain(q, k, v, *rel, grid, scale)
+    torch.cuda.synchronize()
+    lost = int((~want.isfinite() & got.isfinite()).sum().item())
+    both = got.isfinite() & want.isfinite()
+    err = (got - want)[both].abs().max().item()
+    tol = ATTN_F32_TOL * want[both].abs().max().item()
+    print(f"kernel {name} {gh}x{gw}, BH {bh}, a NaN in q, +inf in k, -inf in v: non-finite "
+          f"outputs {int((~want.isfinite()).sum())} plain, {int((~got.isfinite()).sum())} "
+          f"kernel, {lost} lost (must be 0); max_err where both are finite {err:.3e} tol "
+          f"{tol:.3e}", flush=True)
+    if lost or not err <= tol:
+        fail(f"{name} loses a non-finite output or disagrees beside one")
 
 
 def attn_times(t: dict) -> str:
@@ -2670,7 +2732,8 @@ def check_f32_objectness(torch, name, fpred, imgs, ex, ref_obj, bf16_rel) -> flo
     return diff / scale
 
 
-def check_f32_path(torch, np, pred, batches, multi_batches, caps, ref, card, modules):
+def check_f32_path(torch, np, pred, batches, multi_batches, caps, ref, card, modules,
+                   profile=False):
     """Phase 4f, ViT-B: ``Predictor(preset("TMR_FSCD147", compute_dtype="float32"))`` on
     phase 4's weights over phase 4's 3 batches (buckets 9, 17, 33), then one
     ``predict_multi_batch`` of phase 4d's. Each batch must launch exactly the f32 attention
@@ -2707,6 +2770,8 @@ def check_f32_path(torch, np, pred, batches, multi_batches, caps, ref, card, mod
     check_main_path_nms(torch, lambda: fpred(*batches[0]), cuda_nms, "f32 path batch 0")
     imgs, ex = batches[0]
     rel = check_f32_objectness(torch, "f32 path", fpred, imgs, ex, ref_obj, bf16_rel)
+    if profile:
+        profile_batch(torch, lambda: fpred(*batches[2]), "f32 path")
 
     imgs, ex = multi_batches[0]
     k_real = np.array(MULTI_K_REAL, np.int32)
@@ -2731,6 +2796,84 @@ def check_f32_path(torch, np, pred, batches, multi_batches, caps, ref, card, mod
     torch.cuda.empty_cache()
     return launches, dict(ms=ms, images_per_s=4e3 / ms, peak_gb=peak, obj_rel=rel,
                           bf16_ms=bf16_ms, multi_ms=multi_ms)
+
+
+#: phase 4f, ``Attention(use_rel_pos=False)`` at ViT-B's width (768 channels, 12 heads of
+#: 64) on the card against the f32 CPU run of the same weights, relative to the output's
+#: max: f32 (3xTF32 attention within 2e-5 of its max, the two f32 linears' sums of 768
+#: products in another order) and bf16 (the linears' operands and p rounded to bf16: the
+#: bf16 networks' tier)
+NOBIAS_F32_TOL = 1e-4
+NOBIAS_BF16_TOL = OBJ_REL_TOL
+#: one batch of 4 images through one global block (64^2 tokens) and one windowed block (25
+#: windows of 14^2 an image), in f32 then bf16: the global kernel without tables, counted
+#: under its dtype's global counter (the windowed blocks take it over each window)
+NOBIAS_LAUNCHES = {**{k: 0 for k in EVAL_LAUNCHES}, "global_attn": 2,
+                   "global_attn_f32": 2}
+
+
+def check_nobias_blocks(torch, card, modules):
+    """Phase 4f: one global and one windowed ``models.vit.Attention(use_rel_pos=False)``
+    block at ViT-B's width (seeded weights, the same for both dtypes), on a batch of 4 at
+    1024^2 (4 x 64^2 tokens; 100 windows of 14^2), in f32 and bf16, each once after a
+    warm-up; the launches of those 4 runs must be exactly :data:`NOBIAS_LAUNCHES` (no
+    windowed kernel: a window without the bias is the global function over its tokens),
+    and image 0's outputs must agree with an f32 CPU run of the same weights. Returns the
+    launches and the ms of each run."""
+    from tmr_tpu_torch.models.vit import Attention
+    from tmr_tpu_torch.utils.weights import init_params
+
+    (_build,) = modules
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    inputs = {False: torch.randn(4, 64, 64, 768, generator=gen, device="cuda"),
+              True: torch.randn(100, 14, 14, 768, generator=gen, device="cuda")}
+    blocks = {}
+    for windowed in (False, True):
+        ref = Attention(768, 12, (14, 14) if windowed else (64, 64), windowed,
+                        torch.float32, use_rel_pos=False)
+        init_params(ref, SEED + 12 + windowed)
+        for dt in (torch.float32, torch.bfloat16):
+            blk = Attention(768, 12, (14, 14) if windowed else (64, 64), windowed, dt,
+                            use_rel_pos=False).cuda()
+            blk.load_state_dict(ref.state_dict())
+            blocks[windowed, dt] = blk
+        blocks[windowed, "cpu"] = ref
+    outs, ms = {}, {}
+    with torch.inference_mode():
+        for key, blk in blocks.items():
+            if key[1] != "cpu":
+                blk(inputs[key[0]])  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for key, blk in blocks.items():
+            if key[1] == "cpu":
+                continue
+            t0 = time.perf_counter()
+            outs[key] = blk(inputs[key[0]])
+            torch.cuda.synchronize()
+            ms[key] = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        result = {}
+        for windowed in (False, True):
+            x0 = inputs[windowed][:25 if windowed else 1].cpu()
+            want = blocks[windowed, "cpu"](x0)
+            scale = want.abs().max().item()
+            for dt, tol in ((torch.float32, NOBIAS_F32_TOL), (torch.bfloat16, NOBIAS_BF16_TOL)):
+                got = outs[windowed, dt][:x0.shape[0]].float().cpu()
+                rel = (got - want).abs().max().item() / scale
+                name = (f"Attention(use_rel_pos=False) {'windowed' if windowed else 'global'} "
+                        f"{str(dt).split('.')[-1]}")
+                print(f"{name}: batch of 4 at 1024^2 {ms[windowed, dt]:.3f} ms; image 0 vs "
+                      f"the f32 CPU run {rel:.3e} of the max (tol {tol:g}) [{card}]",
+                      flush=True)
+                if not (torch.isfinite(got).all() and rel <= tol):
+                    fail(f"{name} disagrees with the f32 CPU run: {rel} > {tol}")
+                result[name] = dict(ms=ms[windowed, dt], rel=rel)
+    print(f"Attention(use_rel_pos=False) launches over the 4 runs: {json.dumps(launches)}",
+          flush=True)
+    if launches != NOBIAS_LAUNCHES:
+        fail(f"Attention(use_rel_pos=False) launches {launches}, expected {NOBIAS_LAUNCHES}")
+    return launches, result
 
 
 def check_f32_vit_h(torch, np, hpred, batches, caps, ref, card, modules):
@@ -4419,7 +4562,9 @@ def main(argv=None) -> int:
     # 4f. compute_dtype="float32" on phase 4's weights: its batches, a multi batch and the
     # CLI with --visualize
     f32_launches, f32 = check_f32_path(torch, np, pred, batches, multi_batches, caps,
-                                       phase4_ref, card, (_build, cuda_attn, cuda_nms))
+                                       phase4_ref, card, (_build, cuda_attn, cuda_nms),
+                                       args.profile)
+    nobias_launches, f32["nobias"] = check_nobias_blocks(torch, card, (_build,))
     f32.update(check_f32_cli(torch, np, pred, card, (_build,)))
 
     # 5. eval through Trainer.test on the same weights, both size buckets
@@ -4480,6 +4625,8 @@ def main(argv=None) -> int:
                             "tmr_tpu/ops/pallas_attn.py:350"),
         "global_attn_f32_d80": ("tmr_tpu_torch/csrc/attn_f32.cu",
                                 "tmr_tpu/ops/pallas_attn.py:59"),
+        "global_attn_nobias_f32": ("tmr_tpu_torch/csrc/attn_f32.cu",
+                                   "tmr_tpu/ops/pallas_attn.py:125"),
         "window_attn_f32_d80": ("tmr_tpu_torch/csrc/attn_f32.cu",
                                 "tmr_tpu/ops/pallas_attn.py:350"),
         "xcorr": ("tmr_tpu_torch/csrc/xcorr.cu", "tmr_tpu/ops/pallas_xcorr.py:47"),
@@ -4497,10 +4644,14 @@ def main(argv=None) -> int:
                          global_attn_f32=f32_launches["global_attn_f32"],
                          window_attn_f32=f32_launches["window_attn_f32"],
                          global_attn_f32_d80=h32_launches["global_attn_f32_d80"],
+                         global_attn_nobias_f32=nobias_launches["global_attn_f32"],
                          window_attn_f32_d80=h32_launches["window_attn_f32_d80"])
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=path_launches[name], **entries[name])
                for name, (src, rep) in meta.items()]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        fail(f"kernels of the line launched no time on their paths: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,21 +3,26 @@
 
 Run from the root of a checkout on a machine with a Hopper GPU and the CUDA toolkit:
 
-    python3 scripts/attn_variants.py [window] [global]
+    python3 scripts/attn_variants.py [window] [global] [window_f32] [global_f32]
 
-Builds variants of ``tmr_tpu_torch/csrc/attn.cu`` made by text edits of the source (one
-table per kernel below: phases cut out of a kernel, deeper K/V rings, design
-alternatives), one ``nvcc -Xptxas -v`` each, all started together, into the git-ignored
-``tmr_tpu_torch/_build/variants/``. Prints each variant's registers and spills, times
-the variants in turns over three rounds with CUDA events, and holds each against the
-plain version (the per-element attention tolerance of ``chip_smoke.py``); a variant that
-cuts a phase out computes garbage and is marked so. Shapes, bf16: the windowed kernel on
-SAM ViT-B's 1200 window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim
-80; the global kernel on ViT-B's 48 x 4096 with and without the bias, on the 1536
-bucket's 96x96 grid at one image, and on ViT-H's 64 x 4096 (head dim 80) with and
-without the bias. Prints the card, one line per kernel, shape and variant, and a JSON line of the
-times. ``--src`` compares several versions of the source (for example a parent commit's,
-unpacked beside this one) under every variant, in the same turns.
+Builds variants of ``tmr_tpu_torch/csrc/attn.cu`` (``window``, ``global``: bf16) and
+``csrc/attn_f32.cu`` (``window_f32``, ``global_f32``: f32, ``compute_dtype="float32"``)
+made by text edits of the source (one table per kernel below: phases cut out of a
+kernel, other K/V rings, design alternatives), one ``nvcc -Xptxas -v`` each, all
+started together, into the git-ignored ``tmr_tpu_torch/_build/variants/``. Prints each
+variant's registers and spills, times the variants in turns over three rounds with CUDA
+events, and holds each against the plain version (the per-element tolerances of
+``chip_smoke.py``: the bf16 one, or 2e-5 x max|want| in f32); a variant that cuts a phase
+out computes garbage and is marked so. Shapes: the windowed kernels on SAM ViT-B's 1200
+window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim 80; the global
+kernels on ViT-B's 48 x 4096 with and without the bias, on the 1536 bucket's 96x96 grid
+(bf16: one image; f32: batch 4), and on ViT-H's 64 x 4096 (head dim 80) with and without
+the bias. Prints the card, one line per kernel, shape and variant, and a JSON line of the
+times. ``--src`` compares several versions of the selected kernels' source file (for
+example a parent commit's, unpacked beside this one: ``git show
+<commit>:tmr_tpu_torch/csrc/attn_f32.cu > _archive/attn_f32_parent.cu``) under every
+variant, in the same turns; an f32 source whose global entry takes no ``has_bias`` (the
+first f32 design's) runs the shapes with the bias only.
 
 Imports nothing of JAX or ``tmr_tpu``; exits 2 without a CUDA device.
 """
@@ -38,7 +43,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def _sub(src: str, old: str, new: str) -> str:
     if old not in src:
-        raise SystemExit(f"attn_variants: attn.cu no longer contains {old!r}")
+        raise SystemExit(f"attn_variants: the source no longer contains {old!r}")
     return src.replace(old, new)
 
 
@@ -124,9 +129,9 @@ _G_EDITS = {
 }
 
 
-def global_variants(src: str) -> dict:
+def _edited(src: str, table: dict) -> dict:
     out = {}
-    for name, edits in _G_EDITS.items():
+    for name, edits in table.items():
         text = src
         for old, new in edits:
             text = _sub(text, old, new)
@@ -134,22 +139,106 @@ def global_variants(src: str) -> dict:
     return out
 
 
-#: name -> entry point, its argtypes, the variants, the shapes (gh, gw, batch*heads, bias,
-#: head dim), launches per timing, and the entry's arguments before the stream for inputs x
+def global_variants(src: str) -> dict:
+    return _edited(src, _G_EDITS)
+
+
+_F_QK = ("          wgmma_n32(sc, ql[kk], bhi, kk > 0);\n"
+         "          wgmma_n32(sc, qh[kk], blo, 1);\n"
+         "          wgmma_n32(sc, qh[kk], bhi, 1);\n")
+_F_PV = ("            wgmma_pv<PV_N>(acc, pl[j], bhi, j > 0);\n"
+         "            wgmma_pv<PV_N>(acc, ph[j], blo, 1);\n"
+         "            wgmma_pv<PV_N>(acc, ph[j], bhi, 1);\n")
+#: f32 kernels (csrc/attn_f32.cu, one kernel function for both entries): name -> text edits
+_F_EDITS = {
+    "full": (),
+    # the ring's depth fixed (shipped: the deepest of 4, 3, 2 stages that fits)
+    "stages2": (("  int ns = 4;\n", "  int ns = 2;\n"),),
+    "stages3": (("  int ns = 4;\n", "  int ns = 3;\n"),),
+    # the key loop without its products (the softmax runs on stale scores)
+    "no_mma": ((_F_QK, ""), (_F_PV, "")),
+    # no split: the consumers read the raw K tile and unwritten V^T planes; or no V^T
+    # only (the p.v operands left unwritten)
+    "no_split": (("        split_stage<D>(stages + (size_t)s * G::STAGE, sid);\n", ""),),
+    "no_vt": (("      split_tf32(xs[i], vt[wd], vtlo[wd]);\n", ""),),
+    # no bias projections (the bias reads unset shared memory)
+    "no_projections": (("      projections<D, BIAS>(qb, th, tw, sRh, sRw, q0, S, gh, gw, sth, "
+                        "stw, inv_gw,\n                           threadIdx.x - 128);\n", ""),),
+    # K's hi not written: the tensor cores read the raw word as a truncated hi, and lo is
+    # x - trunc(x) (right only if the tensor cores truncate the low 13 bits)
+    "k_truncated_hi": (
+        ("// K's 16 bytes at k: hi over the raw words, lo into klo\n",
+         "__device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo) {\n"
+         "  hi = __float_as_uint(x) & 0xFFFFE000u;\n"
+         "  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));\n}\n"),
+        ("  split_tf32(__uint_as_float(x.x), h.x, l.x);\n"
+         "  split_tf32(__uint_as_float(x.y), h.y, l.y);\n"
+         "  split_tf32(__uint_as_float(x.z), h.z, l.z);\n"
+         "  split_tf32(__uint_as_float(x.w), h.w, l.w);\n"
+         "  *k = h;\n",
+         "  split_trunc(__uint_as_float(x.x), h.x, l.x);\n"
+         "  split_trunc(__uint_as_float(x.y), h.y, l.y);\n"
+         "  split_trunc(__uint_as_float(x.z), h.z, l.z);\n"
+         "  split_trunc(__uint_as_float(x.w), h.w, l.w);\n")),
+    # the registers handed over: 72 for the loading warpgroup and 216 for each consumer
+    # thread (shipped: 56 / 224)
+    "regs72": (("setmaxnreg.dec.sync.aligned.u32 56", "setmaxnreg.dec.sync.aligned.u32 72"),
+               ("setmaxnreg.inc.sync.aligned.u32 224", "setmaxnreg.inc.sync.aligned.u32 216")),
+    # the softmax without its exponentials of p (p is the biased scores)
+    "no_exp": (("const float p0 = ex2(sc[4 * j] - mx0), p1 = ex2(sc[4 * j + 1] - mx0);",
+                "const float p0 = sc[4 * j], p1 = sc[4 * j + 1];"),
+               ("const float p2 = ex2(sc[4 * j + 2] - mx1), p3 = ex2(sc[4 * j + 3] - mx1);",
+                "const float p2 = sc[4 * j + 2], p3 = sc[4 * j + 3];")),
+}
+
+
+def f32_variants(src: str) -> dict:
+    """The f32 edits apply to this design's source; another design (``--src``) runs as it
+    is, under the name ``full``."""
+    return _edited(src, _F_EDITS) if "split_stage<D>" in src else {"full": src}
+
+
+def _has_bias_arg(src: str) -> bool:
+    """Whether an attn_f32.cu source's global entry takes ``has_bias`` (the first f32
+    design's does not)."""
+    return "float scale, int has_bias, void* stream" in src
+
+
+#: name -> source file, dtype, entry point, its argtypes, the variants, the shapes (gh, gw,
+#: batch*heads, bias, head dim), launches per timing, and the entry's arguments before the
+#: stream for inputs x
 KERNELS = {
     "window": SimpleNamespace(
+        source="attn.cu", f32=False,
         entry="tmr_window_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, P],
         variants=window_variants,
         shapes=((14, 14, 4 * 25 * 12, True, 64), (14, 14, 4 * 25 * 16, True, 80),
                 (7, 7, 4 * 25 * 16, True, 80), (16, 16, 4 * 25 * 16, True, 80)), reps=50,
         args=lambda x: (*x.qkv, *x.expanded, x.out, x.bh, x.s, x.gh, x.gw, x.d, x.scale)),
     "global": SimpleNamespace(
+        source="attn.cu", f32=False,
         entry="tmr_global_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, I, P],
         variants=global_variants,
         shapes=((64, 64, 48, True, 64), (64, 64, 48, False, 64), (96, 96, 12, True, 64),
                 (64, 64, 64, True, 80), (64, 64, 64, False, 80)), reps=20,
         args=lambda x: (*x.qkv, *(x.compact if x.bias else (None, None)), x.out, x.bh, x.s,
                         x.gh, x.gw, x.d, x.scale, int(x.bias))),
+    "window_f32": SimpleNamespace(
+        source="attn_f32.cu", f32=True,
+        entry="tmr_window_attn_f32", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, P],
+        variants=f32_variants,
+        shapes=((14, 14, 4 * 25 * 12, True, 64), (14, 14, 4 * 25 * 16, True, 80)), reps=20,
+        args=lambda x: (*x.qkv, *x.expanded, x.out, x.bh, x.s, x.gh, x.gw, x.d, x.scale)),
+    "global_f32": SimpleNamespace(
+        source="attn_f32.cu", f32=True,
+        entry="tmr_global_attn_f32", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, I, P],
+        old_argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, P],
+        variants=f32_variants,
+        shapes=((64, 64, 48, True, 64), (64, 64, 48, False, 64), (96, 96, 48, True, 64),
+                (64, 64, 64, True, 80), (64, 64, 64, False, 80)), reps=5,
+        args=lambda x: (*x.qkv, *(x.compact if x.bias else (None, None)), x.out, x.bh, x.s,
+                        x.gh, x.gw, x.d, x.scale) + ((int(x.bias),) if x.has_bias_arg
+                                                     else ())),
 }
 
 
@@ -167,18 +256,21 @@ def build(sources: dict, out: Path, flags) -> dict:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for (kernel, name), (stem, proc) in procs.items():
+        text = sources[kernel, name]
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for the {kernel} {name} variant:\n{log}")
         lines = log.splitlines()
-        tag = f"{kernel}_attn_kernel"
+        spec = KERNELS[kernel]
+        tag = "attn_f32_kernel" if spec.f32 else f"{kernel}_attn_kernel"
         for i, line in enumerate(lines):  # this kernel's entries: spills, registers
             if "Compiling entry function" in line and tag in line:
                 stats = " | ".join(x.strip() for x in lines[i + 2:i + 4])
                 print(f"ptxas {kernel} {name} {line.split(tag)[1][:18]}: {stats}", flush=True)
         lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
-        spec = KERNELS[kernel]
-        getattr(lib, spec.entry).argtypes = spec.argtypes
+        lib.has_bias_arg = not spec.f32 or _has_bias_arg(text)
+        getattr(lib, spec.entry).argtypes = (
+            spec.argtypes if lib.has_bias_arg else getattr(spec, "old_argtypes", spec.argtypes))
         libs[kernel, name] = lib
     return libs
 
@@ -190,8 +282,9 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", nargs="+",
                     help="variant names to build (default: every variant of each kernel)")
     ap.add_argument("--src", nargs="+", type=Path,
-                    help="attn.cu sources to compare, each under every variant (default: "
-                         "this checkout's); variants of the i-th are named i/<variant>")
+                    help="sources of the selected kernels' file (attn.cu or attn_f32.cu) to "
+                         "compare, each under every variant (default: this checkout's); "
+                         "variants of the i-th are named i/<variant>")
     args = ap.parse_args(argv)
     if set(args.kernels) - set(KERNELS):
         ap.error(f"unknown kernels {sorted(set(args.kernels) - set(KERNELS))}")
@@ -207,11 +300,11 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    srcs = args.src or [_build.CSRC / "attn.cu"]
     sources = {}
-    for i, src in enumerate(srcs):
-        print(f"source {i}: {src}", flush=True)
-        for kernel in args.kernels:
+    for kernel in args.kernels:
+        srcs = args.src or [_build.CSRC / KERNELS[kernel].source]
+        for i, src in enumerate(srcs):
+            print(f"{kernel} source {i}: {src}", flush=True)
             for name, text in KERNELS[kernel].variants(src.read_text()).items():
                 if args.variants is None or name in args.variants:
                     sources[kernel, f"{i}/{name}" if len(srcs) > 1 else name] = text
@@ -227,36 +320,47 @@ def main(argv=None) -> int:
         for gh, gw, bh, bias, d in spec.shapes:
             gen = torch.Generator(device="cuda").manual_seed(0)
             s, scale = gh * gw, d ** -0.5
-            q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+            dtype = torch.float32 if spec.f32 else torch.bfloat16
+            q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             compact = (torch.randn(2 * gh - 1, d, generator=gen, device="cuda") * 0.1,
                        torch.randn(2 * gw - 1, d, generator=gen, device="cuda") * 0.1)
             expanded = tuple(cuda_attn.get_rel_pos(g, g, t) for g, t in zip((gh, gw), compact))
             rel = cuda_attn.bias_projections(q, *expanded, (gh, gw)) if bias else (None, None)
             with chip_smoke.exact_f32(torch):
-                want = cuda_attn.attention_plain(q, k, v, *rel, (gh, gw), scale).float()
-            limit = (chip_smoke.ATTN_REL_TOL * want.abs()
-                     + chip_smoke.ATTN_ABS_TOL * want.abs().max())
+                # in BH chunks of 12: a 96x96 grid's dense f32 scores at BH 48 take 16 GB
+                want = torch.cat([cuda_attn.attention_plain(
+                    q[i:i + 12], k[i:i + 12], v[i:i + 12],
+                    *(None if r is None else r[i:i + 12] for r in rel), (gh, gw),
+                    scale).float() for i in range(0, bh, 12)])
+            if spec.f32:
+                limit = chip_smoke.ATTN_F32_TOL * want.abs().max()
+            else:
+                limit = (chip_smoke.ATTN_REL_TOL * want.abs()
+                         + chip_smoke.ATTN_ABS_TOL * want.abs().max())
             out = torch.empty_like(q)
-            x = SimpleNamespace(
-                qkv=(q.data_ptr(), k.data_ptr(), v.data_ptr()), out=out.data_ptr(),
-                compact=tuple(t.data_ptr() for t in compact),
-                expanded=tuple(t.data_ptr() for t in expanded),
-                bh=bh, s=s, gh=gh, gw=gw, d=d, scale=scale, bias=bias)
+            runs = {name: fn for name, fn in mine.items()
+                    if bias or libs[kernel, name].has_bias_arg}
 
-            def launch(fn):
+            def launch(name, fn):
+                x = SimpleNamespace(
+                    qkv=(q.data_ptr(), k.data_ptr(), v.data_ptr()), out=out.data_ptr(),
+                    compact=tuple(t.data_ptr() for t in compact),
+                    expanded=tuple(t.data_ptr() for t in expanded),
+                    bh=bh, s=s, gh=gh, gw=gw, d=d, scale=scale, bias=bias,
+                    has_bias_arg=libs[kernel, name].has_bias_arg)
                 rc = fn(*spec.args(x), stream)
                 if rc:
-                    raise SystemExit(f"attn_variants: {kernel} error {rc} at launch")
+                    raise SystemExit(f"attn_variants: {kernel} {name} error {rc} at launch")
 
             key = f"{kernel} d={d} {gh}x{gw} BH={bh} {'bias' if bias else 'no bias'}"
-            times[key] = {name: [] for name in mine}
+            times[key] = {name: [] for name in runs}
             for _ in range(3):
-                for name, fn in mine.items():
+                for name, fn in runs.items():
                     times[key][name].append(
-                        chip_smoke.cuda_ms(lambda: launch(fn), spec.reps, 3))
-            for name, fn in mine.items():
-                launch(fn)
+                        chip_smoke.cuda_ms(lambda: launch(name, fn), spec.reps, 3))
+            for name, fn in runs.items():
+                launch(name, fn)
                 torch.cuda.synchronize()
                 worst = ((out.float() - want).abs() / limit).max().item()
                 ms = " ".join(f"{t:.4f}" for t in times[key][name])

@@ -9,7 +9,11 @@ Toeplitz expansion the kernel makes itself; windowed blocks call
 ``ops.cuda_attn.window_attention`` with the ``(g, g, D)`` tables that
 :func:`get_rel_pos` looks up. Both at every grid size, and at the head dims of both SAM
 encoders the port builds: ViT-B (768 over 12 heads of 64) and ViT-H (1280 over 16 heads
-of 80), each a kernel instantiation of its own on the card. LayerNorms run in f32; the
+of 80), each a kernel instantiation of its own on the card.
+``Attention(use_rel_pos=False)`` (the JAX option; no preset, ``Block`` or ``SamViT``
+passes it, as in the JAX package) has no tables, and both of its paths take
+``global_attention`` without them: on the card the global kernel's no-bias
+instantiation, over each window's tokens for windowed blocks. LayerNorms run in f32; the
 linears and convs in the model's compute dtype. Both attention calls carry gradients
 (``ops.cuda_attn``'s autograd Functions). With ``remat`` each block is recomputed on the
 backward pass (``torch.utils.checkpoint``, the counterpart of ``nn.remat(Block)``):
@@ -54,18 +58,25 @@ def window_unpartition(windows: torch.Tensor, window: int, pad_hw: Tuple[int, in
 
 
 class Attention(nn.Module):
-    """Multi-head attention with the decomposed rel-pos bias."""
+    """Multi-head attention with the decomposed rel-pos bias, or none with
+    ``use_rel_pos=False`` (the JAX ``Attention`` option: no ``rel_pos_h`` / ``rel_pos_w``
+    parameters, and scores without the bias). Without the bias the attention does not
+    depend on the token grid, so windowed blocks take :func:`global_attention` over each
+    window's tokens: on the card the global kernel's no-bias instantiation."""
 
     def __init__(self, dim: int, num_heads: int, rel_pos_size: Tuple[int, int],
-                 windowed: bool, dtype: torch.dtype = torch.float32):
+                 windowed: bool, dtype: torch.dtype = torch.float32,
+                 use_rel_pos: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.windowed = windowed
+        self.use_rel_pos = use_rel_pos
         head_dim = dim // num_heads
         self.qkv = Linear(dim, dim * 3, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
-        self.rel_pos_h = nn.Parameter(torch.zeros(2 * rel_pos_size[0] - 1, head_dim))
-        self.rel_pos_w = nn.Parameter(torch.zeros(2 * rel_pos_size[1] - 1, head_dim))
+        if use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * rel_pos_size[0] - 1, head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * rel_pos_size[1] - 1, head_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, dim = x.shape
@@ -74,7 +85,9 @@ class Attention(nn.Module):
         qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd).permute(2, 0, 3, 1, 4)
         # at b = 1 the reshape is a strided view, not a copy: the kernels take dense rows
         q, k, v = (t.reshape(b * heads, h * w, hd).contiguous() for t in qkv)
-        if self.windowed:
+        if not self.use_rel_pos:
+            o = global_attention(q, k, v, None, None, (h, w), hd ** -0.5)
+        elif self.windowed:
             o = window_attention(q, k, v, get_rel_pos(h, h, self.rel_pos_h),
                                  get_rel_pos(w, w, self.rel_pos_w), (h, w), hd ** -0.5)
         else:  # the compact tables: the kernel expands them itself

@@ -37,7 +37,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tmr_window_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "attn_f32": {
-        "tmr_global_attn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "tmr_global_attn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         "tmr_window_attn_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "xcorr": {

@@ -34,10 +34,12 @@ raises, with no fallback to the plain version). bf16 goes to ``csrc/attn.cu``: t
 kernel takes any token count whose projections fit in shared memory
 (:func:`global_geometry`: gh + gw up to ~290 at head dim 64, ~195 at 80); the windowed
 kernel takes rows of up to 64 tokens and a window whose staging fits in 227 KB
-(:func:`window_geometry`). f32 goes to ``csrc/attn_f32.cu`` (3xTF32 products on the
-tensor cores, p kept f32 for p.v as the JAX kernels do at f32), whose two entries take any
-grid or window whose projections fit (:func:`geometry_f32`: gh + gw up to ~650), with the
-bias only: the f32 global kernel without it is not ported (SAM always has the bias).
+(:func:`window_geometry`). f32 goes to ``csrc/attn_f32.cu`` (3xTF32 ``wgmma`` products, p
+kept f32 for p.v as the JAX kernels do at f32), whose two entries take any grid or window
+whose ring of K/V stages and projections fit (:func:`geometry_f32`: gh + gw up to ~290 at
+head dim 64, ~226 at 80), the global entry with or without the bias. Without the bias the
+function does not depend on the grid: ``models.vit.Attention(use_rel_pos=False)`` sends
+its windowed blocks to :func:`global_attention` over each window's tokens.
 """
 
 from __future__ import annotations
@@ -238,18 +240,29 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def geometry_f32(gh: int, gw: int, d: int = 64) -> int:
-    """Shared bytes of both f32 kernels for a (gh, gw) grid or window at head dim ``d``, as
-    ``csrc/attn_f32.cu`` ``launch`` sets them up: the 64-row Q tile and two stages of
-    32-key K and V tiles in rows of d + 4 floats, and the (64, gh | 1) and (64, gw | 1)
-    f32 projections. Raises ``ValueError`` over 227 KB."""
+def geometry_f32(gh: int, gw: int, d: int = 64, has_bias: bool = True,
+                 windowed: bool = False) -> int:
+    """Shared bytes of the f32 kernels for a (gh, gw) grid or window at head dim ``d``, as
+    ``csrc/attn_f32.cu`` ``launch`` sets them up: alignment slack, the deepest ring of 4, 3
+    or 2 stages of 32 keys that fits (a stage: K, K lo and raw V in ceil(d / 32) panels of
+    32 x 128 bytes, V^T hi and lo in d rows of 128 bytes), 12 mbarriers and, with the bias,
+    the (128, gh | 1) rel-h and (128, stw) rel-w f32 projections: stw = gw + 8 where the
+    global kernel's tiles are whole grid rows (gw a multiple of 32), else gw | 1. Raises
+    ``ValueError`` when no ring fits 227 KB."""
     if gh < 1 or gw < 1:
         raise ValueError(f"attention: empty {gh}x{gw} grid")
-    smem = ((64 + 4 * 32) * (d + 4) + 64 * ((gh | 1) + (gw | 1))) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"attention: a {gh}x{gw} grid needs {smem} B of shared memory in "
-                         f"the f32 kernels, over the {_SMEM_LIMIT} B a block may use")
-    return smem
+    panels = -(-d // 32)
+    stage = 3 * panels * 32 * 128 + 2 * d * 128
+    sth = stw = 0
+    if has_bias:
+        sth = gh | 1
+        stw = gw + 8 if gw % 32 == 0 and not windowed else gw | 1
+    for stages in (4, 3, 2):
+        smem = 1024 + stages * stage + 96 + 128 * (sth + stw) * 4
+        if smem <= _SMEM_LIMIT:
+            return smem
+    raise ValueError(f"attention: a {gh}x{gw} grid needs {smem} B of shared memory in the "
+                     f"f32 kernels, over the {_SMEM_LIMIT} B a block may use")
 
 
 def global_geometry(gh: int, gw: int, has_bias: bool = True, d: int = 64) -> int:
@@ -334,11 +347,8 @@ def _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
     f32 = q.dtype == torch.float32
     if s != gh * gw:
         raise ValueError(f"global_attention: S={s} is not the {gh}x{gw} grid's")
-    if f32 and not has_bias:
-        raise ValueError("global_attention: the f32 kernel takes the rel-pos bias; f32 "
-                         "attention without it is not ported (SAM always has the bias)")
     if f32:
-        geometry_f32(gh, gw, d)
+        geometry_f32(gh, gw, d, has_bias)
     else:
         global_geometry(gh, gw, has_bias, d)
     if has_bias:
@@ -352,13 +362,10 @@ def _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rel_pos_h.data_ptr() if has_bias else None,
             rel_pos_w.data_ptr() if has_bias else None, out.data_ptr())
-    if f32:
-        _build.launch(_counter("global_attn", d, q.dtype), "attn_f32",
-                      "tmr_global_attn_f32", *ptrs, bh, s, gh, gw, d, float(scale),
-                      _build.stream_of(q))
-    else:
-        _build.launch(_counter("global_attn", d, q.dtype), "attn", "tmr_global_attn", *ptrs,
-                      bh, s, gh, gw, d, float(scale), int(has_bias), _build.stream_of(q))
+    lib_name, fn = (("attn_f32", "tmr_global_attn_f32") if f32
+                    else ("attn", "tmr_global_attn"))
+    _build.launch(_counter("global_attn", d, q.dtype), lib_name, fn, *ptrs, bh, s, gh, gw, d,
+                  float(scale), int(has_bias), _build.stream_of(q))
     return out
 
 
@@ -425,7 +432,7 @@ def _window_forward(q, k, v, rh, rw, grid_hw, scale):
     if s != gh * gw:
         raise ValueError(f"window_attention: S={s} is not the {gh}x{gw} window's")
     if f32:
-        geometry_f32(gh, gw, d)
+        geometry_f32(gh, gw, d, windowed=True)
     else:
         window_geometry(gh, gw, d)
     rh, rw = (_aligned(t.to(q.device, torch.float32)) for t in (rh, rw))

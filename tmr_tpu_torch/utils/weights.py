@@ -7,6 +7,8 @@ package's ``state_dict``. The port's modules carry the flax names, so the mappin
 mechanical: conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), the fused
 ``qkv`` stays one linear, flax LayerNorm ``scale`` -> ``weight``, ``blocks_<i>`` ->
 ``blocks.<i>``; everything else is copied (``pos_embed`` keeps its (1, g, g, C) layout).
+An ``Attention(use_rel_pos=False)`` tree has no ``rel_pos_h`` / ``rel_pos_w`` and maps to
+the port's module of that option, which has none either.
 The SAM prompt encoder and mask decoder (a JAX ``{"prompt_encoder", "mask_decoder"}``
 refiner tree, or the ``Sam`` tree with its ``image_encoder``) take the same rules: their
 raw parameters (the gaussian matrix, the point, mask and output tokens) are copied, the

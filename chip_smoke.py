@@ -52,9 +52,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    3x3 layer at the int8 tail's shape, a ragged one and the multi path's 12 rows, timed in
    turns with the per-tap composition it replaces, beside the bare ``torch._int_mm`` of the
    im2col'd product and its ``-Xptxas -v``; and the 1536 bucket's shapes: the global
-   kernel on 96^2 tokens at batch 4 (BH 48, the plain version in chunks), the windowed
-   kernel on 4 x 49 windows, the f32 correlation on 4 x 512 x 192^2 at T = 9, 17, 33 and
-   on the multi path's 3 x 512 x 192^2 at T = 9, each beside its bound and library call;
+   kernel on 96^2 tokens at batch 4 (BH 48, the plain version in chunks; one 96-key tile
+   a grid row) and at head dim 80 (ViT-H's BH 64), the windowed kernel on 4 x 49
+   windows, the f32 correlation on 4 x 512 x 192^2 at T = 9, 17, 33 and on the multi
+   path's 3 x 512 x 192^2 at T = 9, each beside its bound and library call;
    the f32 correlation on the default detector's 4 x 512 x 64^2 map at T = 1 (prototype
    templates), 9, 17 and 33, each beside its bound and the grouped ``F.conv2d``; and its
    backward (``cuda_xcorr.xcorr_backward``, one more launch of the kernel for d_feature)
@@ -264,8 +265,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the Function's gradients at the step's own inputs equal to ``torch.autograd`` through
    ``xcorr_plain`` in f32 within 2e-5 x each gradient's max. Printed: ms per step, peak
    device memory, and a ``{"default": ...}`` JSON line;
-6. a ``{"kernels": [...]}`` JSON line, then the card line, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. a ``{"kernels": [...]}`` JSON line (``global_attn_1536``: kernel 1 on the 1536 bucket's
+   96^2 tokens, phase 3's numbers and phase 5's launches), then the card line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or ``tmr_tpu``. Exits non-zero without a result when there is
 no CUDA device or when the port's sources are not beside this file.
@@ -721,28 +723,37 @@ def check_xcorr_maps(torch, F, cuda_xcorr) -> None:
 
 
 #: the 1536 bucket (phase 5's test images with objects under 25 px): the global kernel
-#: on 96^2 tokens at batch 4 (BH 48; the plain version in chunks of BH 12), the windowed
-#: kernel on 4 x 49 windows (96 tokens padded to 98) of 12 heads, and the correlation on
-#: 192^2 maps, at 4 images and at the multi path's 3 rows of one image, for the bucket
-#: phase 5's 1536 images take (:data:`EVAL_1536_BUCKETS`) and, for the band maths at
-#: W = 192, the larger ones of the direct path
-ATTN_1536 = (("global_attn", False, (96, 96), 48, 12),
-             ("window_attn", True, (14, 14), 4 * 12 * 49, None))
+#: on 96^2 tokens at batch 4 (BH 48; the plain version in chunks of BH 12), its one
+#: 96-key tile a grid row, and again at head dim 80 (ViT-H's BH 64, in chunks of 16), the
+#: windowed kernel on 4 x 49 windows (96 tokens padded to 98) of 12 heads, and the
+#: correlation on 192^2 maps, at 4 images and at the multi path's 3 rows of one image, for
+#: the bucket phase 5's 1536 images take (:data:`EVAL_1536_BUCKETS`) and, for the band
+#: maths at W = 192, the larger ones of the direct path. (name, windowed, grid, BH, chunk,
+#: head dim)
+ATTN_1536 = (("global_attn", False, (96, 96), 48, 12, 64),
+             ("global_attn_d80", False, (96, 96), 64, 16, 80),
+             ("window_attn", True, (14, 14), 4 * 12 * 49, None, 64))
 XCORR_1536 = (((4, 512, 192, 192), (9, 17, 33)), ((3, 512, 192, 192), (9,)))
 
 
-def check_1536(torch, F, cuda_attn, cuda_xcorr) -> None:
-    """Kernels 1, 4 and 5 at the 1536 bucket's shapes against their plain versions, each
-    beside its bound and the library call."""
-    for name, windowed, grid, bh, chunk in ATTN_1536:
+def check_1536(torch, F, cuda_attn, cuda_xcorr) -> dict:
+    """Kernels 1, 1-H, 4 and 5 at the 1536 bucket's shapes against their plain versions,
+    each beside its bound and the library call; returns the kernels line's entry of kernel
+    1 there (``global_attn_1536``)."""
+    entries = {}
+    for name, windowed, grid, bh, chunk, d in ATTN_1536:
         acc, t, (bms, bby) = check_attention(torch, F, cuda_attn, windowed, True, SEED,
-                                             grid, bh, chunk=chunk)
+                                             grid, bh, d, chunk)
         what = (f"{name} 1536 bucket, {grid[0]}x{grid[1]} "
                 f"{'windows' if windowed else 'grid'}, BH={bh}")
         print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f} "
               f"({bby})", flush=True)
         if not acc["ok"]:
             fail(f"{what} disagrees with its plain version: {acc}")
+        if name == "global_attn":
+            entries["global_attn_1536"] = dict(
+                max_abs_err=acc["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bms, bound_by=bby, library_ms=t["lib_ms"])
         torch.cuda.empty_cache()
     for shape, ts in XCORR_1536:
         for t in ts:
@@ -755,6 +766,7 @@ def check_1536(torch, F, cuda_attn, cuda_xcorr) -> None:
                   f"3xTF32 at the TF32 peak) f32_bound_ms {f32ms:.4f} ({f32by})", flush=True)
             if not r["err"] <= r["tol"]:
                 fail(f"{what} disagrees with its plain version: {r['err']} > {r['tol']}")
+    return entries
 
 
 def check_xcorr_64(torch, F, cuda_xcorr) -> None:
@@ -1299,13 +1311,13 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                   flush=True)
             if not acc["ok"]:
                 fail(f"{what} disagrees with its plain version: {acc}")
-    # -Xptxas -v of every attention instantiation: registers and spills
+    # -Xptxas -v of every attention instantiation <D, BK, bias, GW>: registers and spills
     log = _build.LOGS.get("attn")
     for d in (64, 80):
         bk = 128 if d == 64 else 64
-        for bias, row_tile, tiles in ((1, 1, bk), (1, 0, 64), (0, 0, 64)):
-            inst = f"global_attn_kernelILi{d}ELi{tiles}ELb{bias}ELb{row_tile}E"
-            print(f"ptxas global_attn_kernel<{d}, {tiles}, {bool(bias)}, {bool(row_tile)}>: "
+        for bias, gw, tiles in ((1, 64, bk), (1, 96, 96), (1, 0, 64), (0, 0, 64)):
+            inst = f"global_attn_kernelILi{d}ELi{tiles}ELb{bias}ELi{gw}E"
+            print(f"ptxas global_attn_kernel<{d}, {tiles}, {bool(bias)}, {gw}>: "
                   f"{ptxas_info(log, inst)}", flush=True)
         for ntw in (1, 2, 4, 8):
             print(f"ptxas window_attn_kernel<{d}, {ntw}>: "
@@ -1324,7 +1336,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                     plain_ms=r["plain_ms"], bound_ms=bms, bound_by=bby,
                                     library_ms=r["lib_ms"])
     check_xcorr_maps(torch, F, cuda_xcorr)
-    check_1536(torch, F, cuda_attn, cuda_xcorr)
+    entries.update(check_1536(torch, F, cuda_attn, cuda_xcorr))
     check_xcorr_64(torch, F, cuda_xcorr)
     print(f"ptxas nms_mask_kernel: {ptxas_info(_build.LOGS.get('nms'), 'nms_mask_kernel')}",
           flush=True)
@@ -1971,7 +1983,8 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
     ``profile``, a torch.profiler breakdown of the 1536 batch's program. Then one run at
     ``compute_dtype="float32"`` (num_exemplars 1, both buckets) with the same checks and
     the f32 kernels' launches. Returns the warm runs' images/s end to end by
-    num_exemplars, and the f32 run's under ``"f32"``."""
+    num_exemplars, and the f32 run's under ``"f32"``; and the global kernel's launches in
+    the warm num_exemplars=1 run's 1536 batches (its 96-token-row instantiation)."""
     import dataclasses
     import os
     import tempfile
@@ -2023,6 +2036,8 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
                 if k == 1:  # the 1536 batch of 4, for the objectness check below
                     big = next(r["batch"] for r in records
                                if r["batch"]["image"].shape[1] == 1536)
+                    launches_1536 = sum(r["launches"]["global_attn"] for r in records
+                                        if r["batch"]["image"].shape[1] == 1536)
                     if profile and run == "warm":
                         profile_batch(torch, lambda: Trainer._eval_batch(tr, big),
                                       "eval 1536 bucket", "one batch of 4 with its losses, "
@@ -2046,7 +2061,7 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
             torch.cuda.empty_cache()
     # the 1536 bucket's objectness against an f32 CPU run (phase 4's measure)
     check_1536_objectness(torch, pred, Predictor, big["image"], big["exemplars"])
-    return rates
+    return rates, launches_1536
 
 
 def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms, card,
@@ -4568,8 +4583,9 @@ def main(argv=None) -> int:
     f32.update(check_f32_cli(torch, np, pred, card, (_build,)))
 
     # 5. eval through Trainer.test on the same weights, both size buckets
-    eval_rates = check_eval_path(torch, np, pred, card, sum(times) / len(times),
-                                 (_build,), args.profile)
+    eval_rates, launches_1536 = check_eval_path(torch, np, pred, card,
+                                                sum(times) / len(times), (_build,),
+                                                args.profile)
     # 5b. training: the attention backward at main-path shapes, then Trainer.fit from the
     # same weights
     backward = check_backward_kernels(torch, cuda_attn, card)
@@ -4616,6 +4632,7 @@ def main(argv=None) -> int:
     # 6. the kernels line
     meta = {
         "global_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
+        "global_attn_1536": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
         "window_attn": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
         "global_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:59"),
         "window_attn_d80": ("tmr_tpu_torch/csrc/attn.cu", "tmr_tpu/ops/pallas_attn.py:350"),
@@ -4638,7 +4655,7 @@ def main(argv=None) -> int:
     }
     path_launches = dict(launches, xcorr_int8=qlaunches["xcorr_int8"],
                          int8_mm=qlaunches["int8_mm"], int8_conv=qlaunches["int8_conv"],
-                         add1=probe_launches,
+                         add1=probe_launches, global_attn_1536=launches_1536,
                          global_attn_d80=hlaunches["global_attn_d80"],
                          window_attn_d80=hlaunches["window_attn_d80"],
                          global_attn_f32=f32_launches["global_attn_f32"],

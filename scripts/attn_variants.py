@@ -16,13 +16,15 @@ events, and holds each against the plain version (the per-element tolerances of
 out computes garbage and is marked so. Shapes: the windowed kernels on SAM ViT-B's 1200
 window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim 80; the global
 kernels on ViT-B's 48 x 4096 with and without the bias, on the 1536 bucket's 96x96 grid
-(bf16: one image; f32: batch 4), and on ViT-H's 64 x 4096 (head dim 80) with and without
-the bias. Prints the card, one line per kernel, shape and variant, and a JSON line of the
-times. ``--src`` compares several versions of the selected kernels' source file (for
-example a parent commit's, unpacked beside this one: ``git show
-<commit>:tmr_tpu_torch/csrc/attn_f32.cu > _archive/attn_f32_parent.cu``) under every
-variant, in the same turns; an f32 source whose global entry takes no ``has_bias`` (the
-first f32 design's) runs the shapes with the bias only.
+(bf16: one image and the eval batch of 4, and ViT-H's batch of 4 at head dim 80; f32:
+batch 4), and on ViT-H's 64 x 4096 (head dim 80) with and without the bias. Prints the
+card, one line per kernel, shape and variant, and a JSON line of the times. ``--src``
+compares several versions of the selected kernels' source file (for example a parent
+commit's, unpacked beside this one: ``git show <commit>:tmr_tpu_torch/csrc/attn.cu >
+_archive/attn_parent.cu``) under every variant, in the same turns; a source of another
+design than this one's runs as it is, under the name ``full``, and an f32 source whose
+global entry takes no ``has_bias`` (the first f32 design's) runs the shapes with the bias
+only.
 
 Imports nothing of JAX or ``tmr_tpu``; exits 2 without a CUDA device.
 """
@@ -88,27 +90,49 @@ def window_variants(src: str) -> dict:
     }
 
 
-_G_SOFTMAX = "global_softmax<BK, HAS_BIAS, ROW_TILE, {}>(s, m, l, a, rw0, rw1, rows, kt);"
-_G_STAGES = "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 3;"
-_G_BK = "constexpr int BK = HAS_BIAS && ROW_TILE && D == 64 ? 128 : 64;"
+_G_SOFTMAX = "global_softmax<BK, HAS_BIAS, GW, {}>(s, m, l, a, rw0, rw1, rows, kt);"
+_G_STAGES = ("static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 128 ? 3 : 4) : "
+             "(BK == 96 ? 2 : 3);")
+_G_BK = "constexpr int BK = GW == 96 ? 96 : GW == 64 && D == 64 ? 128 : 64;"
+_G_ROW96 = "  if (gw == 96 && global_smem<D, 96, true>(gh, gw) <= G_SMEM_LIMIT)"
+_G_RW = ("        v0 = fmaf(s[4 * j + e], rows.scale_log2, rw0[j % JG][e]);\n"
+         "        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rw1[j % JG][e]);\n")
+
+
+def _stages(one_panel: str, two_panels: str = "(BK == 96 ? 2 : 3)") -> tuple:
+    """The K/V ring's depth edited: at one panel (head dim 64) and at two (80)."""
+    return (_G_STAGES, f"static constexpr int NS = GPanels<D>::NP == 1 ? {one_panel} : "
+                       f"{two_panels};")
+
+
 #: global kernel: name -> text edits
 _G_EDITS = {
     "full": (),
-    # deeper K/V rings at head dim 64: 4 stages of 128 keys on the main path (128 KB) in
+    # deeper K/V rings at head dim 64: 4 stages of 128 keys on 64-token rows (128 KB) in
     # place of 3, and 6 stages of 64 keys elsewhere (96 KB) in place of 4
-    "stages4_128": ((_G_STAGES, "static constexpr int NS = GPanels<D>::NP == 1 ? 4 : 3;"),),
-    "stages6_64": ((_G_STAGES,
-                    "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 6 : 3) : 3;"),),
-    # 64-key tiles on the main path in place of 128 at head dim 64
-    "bk64": ((_G_BK, "constexpr int BK = 64;"),),
+    "stages4_128": (_stages("4"),),
+    "stages6_64": (_stages("(BK == 64 ? 6 : BK == 128 ? 3 : 4)"),),
+    # 96-token rows (the 1536 bucket) at head dim 64: 3 stages of 96-key tiles (72 KB) in
+    # place of 4
+    "row96_stages3": (_stages("(BK == 64 ? 4 : 3)"),),
+    # row tiles reading each key's rel-w term from shared memory (one read per 8-key
+    # group and query row, no (ky, kx) division) in place of the registers held for the
+    # whole loop
+    "rw_shared": ((_G_RW,
+                   "        v0 = fmaf(s[4 * j + e], rows.scale_log2,\n"
+                   "                  rows.rw0[8 * (j % JG) + 2 * t + e]);\n"
+                   "        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2,\n"
+                   "                  rows.rw1[8 * (j % JG) + 2 * t + e]);\n"),),
+    # 96-token rows on the general bias path (64-key tiles, (ky, kx) per key), both head
+    # dims: the route before the row tiles
+    "row96_general": ((_G_ROW96, "  if (false)"),),
+    # 64-key tiles on 64-token rows in place of 128 at head dim 64
+    "bk64": ((_G_BK, "constexpr int BK = GW == 96 ? 96 : 64;"),),
     # head dim 80 (two panels): 4 stages of 64 keys (128 KB; 231,496 B with the 64x64
     # projections) in place of 3, or 2 stages of 128-key tiles on 64-token grid rows
-    "d80_stages4": ((_G_STAGES,
-                     "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 4;"),),
-    "d80_bk128": ((_G_STAGES,
-                   "static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) "
-                   ": (BK == 64 ? 3 : 2);"),
-                  (_G_BK, "constexpr int BK = HAS_BIAS && ROW_TILE ? 128 : 64;")),
+    "d80_stages4": (_stages("(BK == 128 ? 3 : 4)", "(BK == 96 ? 2 : 4)"),),
+    "d80_bk128": (_stages("(BK == 128 ? 3 : 4)", "(BK == 64 ? 3 : 2)"),
+                  (_G_BK, "constexpr int BK = GW == 96 ? 96 : GW == 64 ? 128 : 64;")),
     # the consumer warpgroups' turn-taking flipped: none with the bias, turns without it
     "turns_flipped": (("constexpr bool TURNS = HAS_BIAS;",
                        "constexpr bool TURNS = !HAS_BIAS;"),),
@@ -140,7 +164,10 @@ def _edited(src: str, table: dict) -> dict:
 
 
 def global_variants(src: str) -> dict:
-    return _edited(src, _G_EDITS)
+    """The global edits apply to this design's source (row tiles of GW-token grid rows);
+    another design (``--src``, the general path's on 96-token rows) runs as it is, under
+    the name ``full``."""
+    return _edited(src, _G_EDITS) if "RW_GROUPS<GW>" in src else {"full": src}
 
 
 _F_QK = ("          wgmma_n32(sc, ql[kk], bhi, kk > 0);\n"
@@ -220,7 +247,8 @@ KERNELS = {
         entry="tmr_global_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, I, P],
         variants=global_variants,
         shapes=((64, 64, 48, True, 64), (64, 64, 48, False, 64), (96, 96, 12, True, 64),
-                (64, 64, 64, True, 80), (64, 64, 64, False, 80)), reps=20,
+                (96, 96, 48, True, 64), (64, 64, 64, True, 80), (64, 64, 64, False, 80),
+                (96, 96, 64, True, 80)), reps=20,
         args=lambda x: (*x.qkv, *(x.compact if x.bias else (None, None)), x.out, x.bh, x.s,
                         x.gh, x.gw, x.d, x.scale, int(x.bias))),
     "window_f32": SimpleNamespace(
@@ -342,18 +370,28 @@ def main(argv=None) -> int:
             runs = {name: fn for name, fn in mine.items()
                     if bias or libs[kernel, name].has_bias_arg}
 
-            def launch(name, fn):
+            def call(name, fn) -> int:
                 x = SimpleNamespace(
                     qkv=(q.data_ptr(), k.data_ptr(), v.data_ptr()), out=out.data_ptr(),
                     compact=tuple(t.data_ptr() for t in compact),
                     expanded=tuple(t.data_ptr() for t in expanded),
                     bh=bh, s=s, gh=gh, gw=gw, d=d, scale=scale, bias=bias,
                     has_bias_arg=libs[kernel, name].has_bias_arg)
-                rc = fn(*spec.args(x), stream)
+                return fn(*spec.args(x), stream)
+
+            def launch(name, fn):
+                rc = call(name, fn)
                 if rc:
                     raise SystemExit(f"attn_variants: {kernel} {name} error {rc} at launch")
 
             key = f"{kernel} d={d} {gh}x{gw} BH={bh} {'bias' if bias else 'no bias'}"
+            # a variant whose ring and projections do not fit this shape's shared memory
+            # is refused at launch (the entry's return code): it sits this shape out
+            for name, fn in list(runs.items()):
+                rc = call(name, fn)
+                if rc:
+                    print(f"{key:36s} {name:22s} not run: error {rc} at launch", flush=True)
+                    del runs[name]
             times[key] = {name: [] for name in runs}
             for _ in range(3):
                 for name, fn in runs.items():

@@ -11,6 +11,8 @@ of at most 2^-8 of the mean output (both sides round p and the output to bf16, a
 different points of the softmax; the floor covers the noise of p's rounding on outputs
 that cancel to near zero)."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -297,6 +299,76 @@ def test_global_attention_head_dim_80_matches_jax(grid, jax_fn, bias, dtype):
     _assert_close(got, want, dtype)
 
 
+# 96-token grid rows (the 1536 bucket's 96x96 grid, cut to 4 rows: S = 384 has the
+# power-of-two block the Pallas kernel needs) against the Pallas kernel in interpret
+# mode, and 2 rows (S = 192, which the Pallas kernel refuses) against the blockwise
+# attention the JAX ViT runs there
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grid,jax_fn", [
+    ((4, 96), pallas_decomposed_attention), ((2, 96), blockwise_decomposed_attention)],
+    ids=["4x96-decomposed", "2x96-blockwise"])
+def test_global_attention_96_token_rows_match_jax(grid, jax_fn, dtype):
+    q, k, v, rph, rpw = _global_inputs(13, 1, 2, *grid, 64)
+    rh, rw = _expand(rph, rpw, grid)
+    scale = 64 ** -0.5
+    jd, td = _DTYPES[dtype]
+    want = _jax(jax_fn, q, k, v, rh, rw, grid, scale, jd)
+    got = _port(cuda_attn.global_attention, q, k, v, rph, rpw, grid, scale, td)
+    _assert_close(got, want, dtype)
+
+
+def _row_tile_model(q, k, v, rel_h, rel_w, grid, scale, bk):
+    """csrc/attn.cu's global kernel on row tiles (global_softmax with GW = gw), in f32: the
+    keys in tiles of bk / gw whole grid rows (a row past the grid, the half-empty last tile
+    of an odd row count at bk 128, has rel-h -inf and zero K and V, as TMA fills them);
+    each query row's rel-w terms fixed for the whole loop and folded into the score,
+    s' = q.k scale log2(e) + rel_w log2(e); each key row's rel-h term h folded into the
+    tile's row max, max(s') + h, and into the exponent, p = 2^(s' - (m - h)); the online
+    softmax in base 2, the projections scaled by log2(e) as the kernel stores them."""
+    gh, gw = grid
+    nu = bk // gw
+    log2e = 1.0 / math.log(2.0)
+    rw, rh = rel_w * log2e, rel_h * log2e
+    bh, s, d = q.shape
+    m = torch.full((bh, s), -math.inf)
+    l, o = torch.zeros(bh, s), torch.zeros(bh, s, d)
+    for kt in range(-(-gh // nu)):
+        parts, tile_max = [], torch.full((bh, s), -math.inf)
+        for u in range(nu):
+            ky = kt * nu + u
+            keys = slice(ky * gw, (ky + 1) * gw)
+            kk, vv = (k[:, keys], v[:, keys]) if ky < gh else (torch.zeros(bh, gw, d),) * 2
+            h = rh[..., ky] if ky < gh else torch.full((bh, s), -math.inf)
+            sp = torch.matmul(q, kk.transpose(1, 2)) * (scale * log2e) + rw
+            tile_max = torch.maximum(tile_max, sp.amax(-1) + h)
+            parts.append((sp, h, vv))
+        mn = torch.maximum(m, tile_max)
+        a = torch.exp2(m - mn)
+        l, o = l * a, o * a[..., None]
+        for sp, h, vv in parts:
+            p = torch.exp2(sp - (mn - h)[..., None])
+            l = l + p.sum(-1)
+            o = o + torch.matmul(p, vv)
+        m = mn
+    return o / l[..., None]
+
+
+# one 96-key tile a grid row (2 and 3 rows), two 64-token rows a 128-key tile, and an odd
+# row count whose last 128-key tile is half empty
+@pytest.mark.parametrize("grid,bk", [((2, 96), 96), ((3, 96), 96), ((4, 64), 128),
+                                     ((3, 64), 128)])
+def test_row_tile_softmax_model_matches_plain(grid, bk):
+    q, k, v, rph, rpw = (torch.from_numpy(a) for a in _global_inputs(14, 1, 2, *grid, 64))
+    q, k, v = q[0], k[0], v[0]
+    scale = 64 ** -0.5
+    rel = cuda_attn.bias_projections(
+        q, *(cuda_attn.get_rel_pos(g, g, t) for g, t in zip(grid, (rph, rpw))), grid)
+    want = cuda_attn.attention_plain(q, k, v, *rel, grid, scale)
+    got = _row_tile_model(q, k, v, *rel, grid, scale, bk)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
 # SAM's 14x14 windows (208 query rows, 14 key rows of 16 slots) and 7x7 (8-slot key rows, a
 # pad key row) at head dim 80
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -326,15 +398,25 @@ def test_kernels_take_head_dims_64_and_80_only(d, ok):
 
 
 def _global_smem_mirror(gh, gw, has_bias, d):
-    """csrc/attn.cu launch_global's shared bytes: 1024 alignment slack, the Q tile of 128
-    rows in 64-column panels, the K/V ring of NS stages of BK keys (GStages, BK in
-    launch_global), NS full + NS empty + 1 mbarriers, and the (128, gh | 1) + (128, gw | 1)
-    f32 projections."""
+    """csrc/attn.cu launch_global's shared bytes (global_smem): 1024 alignment slack, the
+    Q tile of 128 rows in 64-column panels, the K/V ring of NS stages of BK keys (GStages,
+    BK in launch_global), NS full + NS empty + 1 mbarriers, and the (128, gh | 1) +
+    (128, gw | 1) f32 projections. global_entry's route with the bias: 96-key tiles (one
+    grid row each) on 96-token rows where they fit in 227 KB, 128-key tiles on 64-token
+    rows at head dim 64, else 64-key tiles."""
     np_ = (d + 63) // 64
-    bk = 128 if has_bias and gw == 64 and d == 64 else 64
-    ns = (4 if bk == 64 else 3) if np_ == 1 else 3
-    fixed = 1024 + np_ * 128 * 128 + ns * 2 * np_ * bk * 128 + (1 + 2 * ns) * 8
-    return fixed + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0)
+
+    def smem(bk):
+        ns = (3 if bk == 128 else 4) if np_ == 1 else (2 if bk == 96 else 3)
+        fixed = 1024 + np_ * 128 * 128 + ns * 2 * np_ * bk * 128 + (1 + 2 * ns) * 8
+        return fixed + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0)
+
+    bk = 64
+    if has_bias and d == 64 and gw == 64:
+        bk = 128
+    elif has_bias and gw == 96 and smem(96) <= 227 * 1024:
+        bk = 96
+    return smem(bk)
 
 
 def _window_smem_mirror(gh, gw, d):
@@ -350,10 +432,22 @@ def test_geometry_mirrors_the_c_side(d):
     """global_geometry and window_geometry equal the C side's formulas at both head dims, and
     ViT-H's shapes (a 64x64 grid, 14x14 windows) fit the 227 KB a block may use."""
     limit = 227 * 1024
-    for gh, gw in ((64, 64), (24, 40), (5, 7), (7, 64), (96, 96), (1, 1)):
+    tall = ((129, 96), (130, 96)) if d == 64 else ()  # over 227 KB at head dim 80
+    for gh, gw in ((64, 64), (24, 40), (5, 7), (7, 64), (96, 96), (1, 1), (2, 96), *tall):
         for has_bias in (True, False):
             assert (cuda_attn.global_geometry(gh, gw, has_bias, d)
                     == _global_smem_mirror(gh, gw, has_bias, d))
+    # the 1536 bucket's 96x96 grid: 4 stages of 96-key tiles (24,576 B each) at head dim
+    # 64 and 2 of twice that at 80, beside the (128, 97) + (128, 97) projections; at head
+    # dim 64 a grid of 130 such rows leaves them no room and takes 64-key tiles
+    if d == 64:
+        assert cuda_attn.global_geometry(96, 96, True, d) == (
+            1024 + 16384 + 4 * 24576 + 72 + 128 * (97 + 97) * 4) == 215112
+        assert cuda_attn.global_geometry(130, 96, True, d) == (
+            1024 + 16384 + 4 * 16384 + 72 + 128 * (131 + 97) * 4)
+    else:
+        assert cuda_attn.global_geometry(96, 96, True, d) == (
+            1024 + 2 * 16384 + 2 * 49152 + 40 + 128 * (97 + 97) * 4) == 231464
     for gh, gw in ((14, 14), (7, 7), (16, 16), (1, 64), (13, 13)):
         assert cuda_attn.window_geometry(gh, gw, d) == _window_smem_mirror(gh, gw, d)
     assert cuda_attn.global_geometry(64, 64, True, d) <= limit

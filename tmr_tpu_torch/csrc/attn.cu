@@ -57,19 +57,27 @@
 // instruction; on the main path a key row past the grid has rel-h -inf); pad query rows
 // are never stored. When a grid row is 64 tokens (the main path) a lane's rel-w terms are
 // 16 registers for the whole loop and its rel-h terms one shared read per key row and
-// tile; other grids (24x40, 96x96, 20x20, ...) derive each column's (ky, kx) once per tile
-// by a reciprocal multiply and read both terms from shared memory. The head dim is a
-// template parameter (64-column panels; 64 and 80 instantiated).
+// tile. So too when a grid row is 96 tokens (the 1536 bucket's 96x96 grid): each K/V tile
+// is one grid row of 96 keys (q.k one m64n96k16 wgmma a k-step, p.v six k16 steps, no pad
+// key since S = 96 gh), a lane's rel-w terms are 24 registers and its rel-h term one shared
+// read a tile; measured in turns (scripts/attn_variants.py, PERF.md) 2.5x faster than the
+// general path below at BH 48 and 1.6x at head dim 80, and rel-w read from shared memory
+// per 8-key group 1.8x slower than from registers. Other grids (24x40, 20x20, ...) derive
+// each column's (ky, kx) once per tile by a reciprocal multiply and read both terms from
+// shared memory. The head dim is a template parameter (64-column panels; 64 and 80
+// instantiated).
 // Head dim 80 (SAM ViT-H: 4 blocks of 64 x 4096 x 80 per batch of 4; 4 S^2 D BH = 344
 // GFLOP, 0.347 ms at the bf16 peak): q.k takes 5 k-steps; Q, K and V take two panels, the
 // second zero-filled by TMA past column 80, so p.v performs 128 / 80 of the products it
 // needs (0.452 ms at the peak). With two panels a ring of 128-key tiles and the 64x64
-// projections fits only 2 stages, so every D = 80 instantiation takes 3 stages of 64 keys
-// (a 96x96 grid's projections still fit). Measured in turns (scripts/attn_variants.py,
-// PERF.md): 4 stages of 64 keys 2-4% slower, 2 stages of 128 keys ~45% slower.
-// nvcc 12.9 -Xptxas -v (sm_90a), each of <64, 128, bias, row tile>,
-// <64, 64, bias, general>, <64, 64, no bias> and <80, 64, *, *>: 168 registers (the
-// launch bound's share of 384 threads), 0 bytes stack frame, 0 spills.
+// projections fits only 2 stages, so the D = 80 instantiations on 64-key tiles take 3
+// stages (a 96x96 grid's projections still fit), and on 96-token rows 2 stages of 96 keys.
+// Measured in turns (scripts/attn_variants.py, PERF.md): 4 stages of 64 keys 2-4% slower,
+// 2 stages of 128 keys ~45% slower.
+// nvcc 12.9 -Xptxas -v (sm_90a), each of <64, 128, bias, 64>, <64, 96, bias, 96>,
+// <64, 64, bias, 0>, <64, 64, no bias, 0>, <80, 64, *, 64 or 0> and <80, 96, bias, 96>
+// (<D, BK, bias, GW>): 168 registers (the launch bound's share of 384 threads), 0 bytes
+// stack frame, 0 spills.
 //
 // Windowed kernel (SAM: 14x14 windows, S = 196, BH = 4 * 25 * 12 = 1200 per block). Its
 // bound is bytes: q, k, v in and out, bf16, 120 MB per call, 0.036 ms at 3.35 TB/s; its
@@ -527,12 +535,14 @@ struct GPanels {
   static constexpr int NP = (D + 63) / 64;  // panels per row
   static constexpr int KS = (D + 15) / 16;  // 16-wide k-steps of q.k
 };
-// K/V ring depth. One panel (D = 64): 4 stages of 64-key tiles (64 KB) or 3 of 128-key
-// tiles (96 KB). Two panels (D = 80): 3 stages of 64-key tiles (96 KB): with the
-// projections of a 96x96 grid that is 231,480 B, within the 232,448 a block may use.
+// K/V ring depth. One panel (D = 64): 4 stages of 64-key tiles (64 KB), 3 of 128-key tiles
+// (96 KB), or 4 of 96-key tiles (96 KB; with the 96x96 grid's projections 215,112 B).
+// Two panels (D = 80): 3 stages of 64-key tiles (96 KB), or 2 of 96-key tiles (96 KB);
+// with the projections of a 96x96 grid 231,480 and 231,464 B, within the 232,448 a block
+// may use.
 template <int D, int BK>
 struct GStages {
-  static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 64 ? 4 : 3) : 3;
+  static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 128 ? 3 : 4) : (BK == 96 ? 2 : 3);
 };
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -646,6 +656,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 96, f32) (+)= A (64 x 16, bf16 registers) . B (16 x 96, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+      "%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,"
+      "%44,%45,%46,%47}, {%48,%49,%50,%51}, %52, p, 1, 1, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC8(32), WG_ACC8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // A warp's 16 query rows (CTA-local rows lr0..lr0+15 of the swizzled Q tile) as the A
 // fragments of mma.sync m16n8k16, which are also a warp's share of a wgmma A operand.
 template <int D>
@@ -739,29 +762,37 @@ struct GRows {
 // scale and the bias in one FFMA (the projections carry LOG2E), then the running max, the
 // rescale of o and l, exp2 by ex2.approx, and p packed as the bf16 A fragments of the p.v
 // wgmma.
-// ROW_TILE (gw == 64): the tile's key rows are whole grid rows, so a key's rel-w term is
-// the register rw[j % 8][e] for the whole loop, folded into the FFMA, and the rel-h term h
-// of key row u is one shared read per tile that never touches a score: the row max of
-// key row u is max(s') + h, and p = ex2(s' - (m - h)). A key row past the grid (the
-// half-empty last tile when BK = 128) has h = -inf. Otherwise each column's (ky, kx) is
-// derived once per tile by a reciprocal multiply and both terms are shared reads; MASK
-// (the last tile when S % BK != 0) sets pad keys to -inf. This part leaves the
-// probabilities in s and returns the rescale factors of o and l in a; global_finish
-// rescales o and packs p once the p.v product of the previous tile no longer writes o.
-template <int BK, bool HAS_BIAS, bool ROW_TILE, bool MASK>
+// Row tiles (GW > 0, a grid of gw == GW): each tile is BK / GW whole grid rows (GW 64: two
+// rows of 64 keys at BK 128, or one at BK 64 for head dim 80; GW 96: one row of 96 keys),
+// so a key's rel-w term is the register rw[j % (GW / 8)][e] for the whole loop, folded into
+// the FFMA, and the rel-h term h of key row u is one shared read per tile that never
+// touches a score: the row max of key row u is max(s') + h, and p = ex2(s' - (m - h)). A
+// key row past the grid (the half-empty last tile when BK = 128) has h = -inf. Otherwise
+// (GW = 0) each column's (ky, kx) is derived once per tile by a reciprocal multiply and
+// both terms are shared reads; MASK (the last tile when S % BK != 0) sets pad keys to
+// -inf. This part leaves the probabilities in s and returns the rescale factors of o and l
+// in a; global_finish rescales o and packs p once the p.v product of the previous tile no
+// longer writes o.
+template <int GW>
+constexpr int RW_GROUPS = GW > 0 ? GW / 8 : 1;  // a row's 8-key groups (rel-w registers)
+
+template <int BK, bool HAS_BIAS, int GW, bool MASK>
 __device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2],
                                                float (&l)[2], float (&a)[2],
-                                               const float (&rw0)[8][2],
-                                               const float (&rw1)[8][2], const GRows& rows,
-                                               int kt) {
-  constexpr int NU = BK / 64;  // 64-key parts of the tile (one grid row each with ROW_TILE)
+                                               const float (&rw0)[RW_GROUPS<GW>][2],
+                                               const float (&rw1)[RW_GROUPS<GW>][2],
+                                               const GRows& rows, int kt) {
+  static_assert(GW == 0 || BK % GW == 0, "a row tile holds whole grid rows");
+  constexpr bool ROW = GW > 0;
+  constexpr int NU = ROW ? BK / GW : 1;          // grid rows of the tile (parts)
+  constexpr int JG = ROW ? GW / 8 : BK / 8;      // 8-key groups a part
   const int t = threadIdx.x & 3;
   float h0[NU], h1[NU], mx0[NU], mx1[NU];
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     h0[u] = h1[u] = 0.f;
     mx0[u] = mx1[u] = -INFINITY;
-    if (HAS_BIAS && ROW_TILE) {
+    if (HAS_BIAS && ROW) {
       const int ky = kt * NU + u;
       h0[u] = ky < rows.gh ? rows.rh0[ky] : -INFINITY;
       h1[u] = ky < rows.gh ? rows.rh1[ky] : -INFINITY;
@@ -773,9 +804,9 @@ __device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2]
     for (int e = 0; e < 2; ++e) {
       float v0, v1;
       const int key = kt * BK + 8 * j + 2 * t + e;
-      if (HAS_BIAS && ROW_TILE) {
-        v0 = fmaf(s[4 * j + e], rows.scale_log2, rw0[j % 8][e]);
-        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rw1[j % 8][e]);
+      if (HAS_BIAS && ROW) {
+        v0 = fmaf(s[4 * j + e], rows.scale_log2, rw0[j % JG][e]);
+        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rw1[j % JG][e]);
       } else if (HAS_BIAS) {
         int ky = __float2int_rz(__fmul_rn((float)key + 0.5f, rows.inv_gw));
         const int kx = key - ky * rows.gw;
@@ -789,8 +820,8 @@ __device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2]
       if (MASK && key >= rows.S) v0 = v1 = -INFINITY;
       s[4 * j + e] = v0;
       s[4 * j + 2 + e] = v1;
-      mx0[j / 8] = fmaxf(mx0[j / 8], v0);
-      mx1[j / 8] = fmaxf(mx1[j / 8], v1);
+      mx0[j / JG] = fmaxf(mx0[j / JG], v0);
+      mx1[j / JG] = fmaxf(mx1[j / JG], v1);
     }
   }
   float tm0 = -INFINITY, tm1 = -INFINITY;  // the tile's row maxima, rel-h included
@@ -810,7 +841,7 @@ __device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2]
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    const float c0 = mn0 - h0[j / 8], c1 = mn1 - h1[j / 8];  // folded per part
+    const float c0 = mn0 - h0[j / JG], c1 = mn1 - h1[j / JG];  // folded per part
     s[4 * j] = ex2(s[4 * j] - c0);
     s[4 * j + 1] = ex2(s[4 * j + 1] - c0);
     s[4 * j + 2] = ex2(s[4 * j + 2] - c1);
@@ -858,6 +889,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
     const uint64_t b = sw128_desc(sK + (kk >> 2) * BK * 128) + (kk & 3) * 2;
     if constexpr (BK == 64)
       wgmma_rs_n64<0>(s, qa[kk], b, kk > 0);
+    else if constexpr (BK == 96)
+      wgmma_rs_n96(s, qa[kk], b, kk > 0);
     else
       wgmma_rs_n128(s, qa[kk], b, kk > 0);
   }
@@ -876,11 +909,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[GPanels<D>::NP][32],
   }
 }
 
-template <int D, int BK>
-__host__ __device__ constexpr size_t global_smem_fixed() {
+// Dynamic shared memory of the global kernel: alignment slack, Q, the K/V ring, its
+// mbarriers and, with the bias, the (GQ, gh | 1) and (GQ, gw | 1) f32 projections.
+template <int D, int BK, bool HAS_BIAS>
+size_t global_smem(int gh, int gw) {
   return 1024 + (size_t)GPanels<D>::NP * GQ * 128 +
          (size_t)GStages<D, BK>::NS * 2 * GPanels<D>::NP * BK * 128 +
-         (size_t)(1 + 2 * GStages<D, BK>::NS) * 8;
+         (size_t)(1 + 2 * GStages<D, BK>::NS) * 8 +
+         (HAS_BIAS ? (size_t)GQ * ((gh | 1) + (gw | 1)) * 4 : 0);
 }
 
 // One CTA per (128 query rows, batch*head): q/k/v/out (BH, S, D) bf16, S = gh * gw; rph
@@ -890,8 +926,9 @@ __host__ __device__ constexpr size_t global_smem_fixed() {
 // bias projections in shared memory while the first tiles land, then run q.k (wgmma),
 // the softmax, and p.v (wgmma) per tile; with the bias they take turns at the tensor cores
 // through two named barriers (one issues q.k of tile kt and p.v of tile kt-1 while the
-// other runs its softmax).
-template <int D, int BK, bool HAS_BIAS, bool ROW_TILE>
+// other runs its softmax). GW > 0: the grid's rows are GW tokens and each tile is whole
+// rows of it (global_softmax); GW = 0: any grid.
+template <int D, int BK, bool HAS_BIAS, int GW>
 __global__ void __launch_bounds__(G_THREADS, 1)
     global_attn_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -949,7 +986,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
     mbar_wait(qfull, 0);
     uint32_t qa[GPanels<D>::KS][4];  // this warp's 16 Q rows as wgmma A fragments
     load_q_fragments<D>(sQ, lr0, qa);
-    float rw0[8][2], rw1[8][2];
+    float rw0[RW_GROUPS<GW>][2], rw1[RW_GROUPS<GW>][2];
     GRows rows{sRh + r0 * sth, sRh + r1 * sth, sRw + r0 * stw, sRw + r1 * stw, S, gh, gw,
                1.f / (float)gw, scale_log2};
     if (HAS_BIAS) {
@@ -964,9 +1001,9 @@ __global__ void __launch_bounds__(G_THREADS, 1)
                            one_row ? tf - yf * gw : 0, one_row ? tl - yl * gw : gw - 1, sRw,
                            stw);
       __syncwarp();
-      if (ROW_TILE) {
+      if (GW > 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < RW_GROUPS<GW>; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             rw0[j][e] = rows.rw0[8 * j + 2 * t + e];
@@ -994,10 +1031,10 @@ __global__ void __launch_bounds__(G_THREADS, 1)
     named_arrive<TURNS>(other);
     wg_wait<0>();
     fence_regs(s);
-    if (0 < nfull || ROW_TILE)
-      global_softmax<BK, HAS_BIAS, ROW_TILE, false>(s, m, l, a, rw0, rw1, rows, 0);
+    if (0 < nfull || GW > 0)
+      global_softmax<BK, HAS_BIAS, GW, false>(s, m, l, a, rw0, rw1, rows, 0);
     else
-      global_softmax<BK, HAS_BIAS, ROW_TILE, true>(s, m, l, a, rw0, rw1, rows, 0);
+      global_softmax<BK, HAS_BIAS, GW, true>(s, m, l, a, rw0, rw1, rows, 0);
     global_finish<D, BK>(s, o, p, a);
     for (int kt = 1; kt < nk; ++kt) {
       const int st = kt % NS, prev = (kt - 1) % NS;
@@ -1012,10 +1049,10 @@ __global__ void __launch_bounds__(G_THREADS, 1)
       named_arrive<TURNS>(other);
       wg_wait<1>();
       fence_regs(s);
-      if (kt < nfull || ROW_TILE)
-        global_softmax<BK, HAS_BIAS, ROW_TILE, false>(s, m, l, a, rw0, rw1, rows, kt);
+      if (kt < nfull || GW > 0)
+        global_softmax<BK, HAS_BIAS, GW, false>(s, m, l, a, rw0, rw1, rows, kt);
       else
-        global_softmax<BK, HAS_BIAS, ROW_TILE, true>(s, m, l, a, rw0, rw1, rows, kt);
+        global_softmax<BK, HAS_BIAS, GW, true>(s, m, l, a, rw0, rw1, rows, kt);
       wg_wait<0>();
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
@@ -1069,6 +1106,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 constexpr int ERR_TENSOR_MAP = 1000;  // + the CUresult; 1000 alone: no driver entry point
 constexpr int ERR_ARGUMENT = 2000;    // an argument the kernels do not take (_build.launch)
+constexpr size_t G_SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 
 // cuTensorMapEncodeTiled from the driver the runtime has loaded (no link against libcuda)
 EncodeTiledFn encode_tiled() {
@@ -1101,29 +1139,33 @@ int launch_prep(K kernel, size_t smem) {
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // reported here: not again by the next launch's check
+      return (int)e;
+    }
   }
   return 0;
 }
 
-template <int D, bool HAS_BIAS, bool ROW_TILE>
+template <int D, bool HAS_BIAS, int GW>
 int launch_global(const void* q, const void* k, const void* v, const void* rph,
                   const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
                   cudaStream_t st) {
   // geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py global_geometry: 128-key tiles
-  // on the main path at D = 64 (64-key tiles measured slower there); without the bias 128
+  // on 64-token grid rows at D = 64 (64-key tiles measured slower there), one 96-key tile
+  // a grid row on 96-token rows (the 1536 bucket, both head dims); without the bias 128
   // measured slower, and the general bias path's per-column (ky, kx) does not fit the
   // registers; at D = 80 a ring of 128-key tiles with the 64x64 projections fits only 2
   // stages, and the second output panel leaves the registers no room for 64 scores
-  constexpr int BK = HAS_BIAS && ROW_TILE && D == 64 ? 128 : 64;
+  constexpr int BK = GW == 96 ? 96 : GW == 64 && D == 64 ? 128 : 64;
   CUtensorMap tq, tk, tv;
   int e;
   if ((e = bf16_map(&tq, q, D, S, BH, GQ)) || (e = bf16_map(&tk, k, D, S, BH, BK)) ||
       (e = bf16_map(&tv, v, D, S, BH, BK)))
     return e;
   const int sth = HAS_BIAS ? gh | 1 : 0, stw = HAS_BIAS ? gw | 1 : 0;
-  const size_t smem = global_smem_fixed<D, BK>() + (size_t)GQ * (sth + stw) * 4;
-  auto kernel = global_attn_kernel<D, BK, HAS_BIAS, ROW_TILE>;
+  const size_t smem = global_smem<D, BK, HAS_BIAS>(gh, gw);
+  auto kernel = global_attn_kernel<D, BK, HAS_BIAS, GW>;
   if ((e = launch_prep(kernel, smem))) return e;
   kernel<<<dim3((S + GQ - 1) / GQ, BH), G_THREADS, smem, st>>>(
       tq, tk, tv, (const float*)rph, (const float*)rpw, (__nv_bfloat16*)out, S, gh, gw, sth,
@@ -1152,11 +1194,15 @@ int global_entry(const void* q, const void* k, const void* v, const void* rph, c
                  void* out, int BH, int S, int gh, int gw, float scale, int has_bias,
                  cudaStream_t st) {
   if (!has_bias)
-    return launch_global<D, false, false>(q, k, v, nullptr, nullptr, out, BH, S, gh, gw,
-                                          scale, st);
+    return launch_global<D, false, 0>(q, k, v, nullptr, nullptr, out, BH, S, gh, gw, scale,
+                                      st);
   if (gw == 64)
-    return launch_global<D, true, true>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
-  return launch_global<D, true, false>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+    return launch_global<D, true, 64>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+  // 96-key row tiles where the projections leave them room (gh up to 129 at D = 64; at
+  // D = 80 up to 97, as on the general path)
+  if (gw == 96 && global_smem<D, 96, true>(gh, gw) <= G_SMEM_LIMIT)
+    return launch_global<D, true, 96>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
+  return launch_global<D, true, 0>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
 }
 
 template <int D>

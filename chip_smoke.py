@@ -171,6 +171,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    loader's host ms per image (decode, resize), images/s, the encoder's device ms per
    batch of 8, the device's busy share (events around each batch over the wall) and
    ``extract_feature``'s ms, with the card, and a ``{"map": ...}`` JSON line;
+5g. the elastic map phase (run after 5c, on phase 4's encoder saved as 5c saves it):
+   8 synthetic tar shards of 10 PNGs of 480 x 640 (Easy, Normal, Hard; 5c's writer); the
+   single-host ``mapreduce map | reduce`` CLI over them is the reference table and feature
+   tree. The worker payload (``utils/package.py``) is zipped, unpacked into a temporary
+   directory and its ``attn.cu`` built from its own ``csrc`` beside the reference run.
+   Clean run: ``ElasticCoordinator`` in this process; two ``python -m
+   tmr_tpu_torch.elastic_map worker --device cuda`` processes on the card, one from the
+   unpacked payload; once both said hello, a third worker as a thread of this process,
+   whose every batch of 8 must launch exactly global 4 and window 8 and nothing else
+   (launch counts zeroed before the run, read after); every worker must commit a shard.
+   Fault run (TTL 3 s; the worker processes paced by ``TMR_FAULTS=tar.open:latency=1.0``):
+   once both worker processes hold fresh leases, the one holding the lower shard is
+   kill -9'd (a ``worker_exit`` reassignment) and the other SIGSTOPped until its lease is
+   revoked as ``stale_heartbeat``, then SIGCONTed (at least one fenced rejection); a
+   thread worker finishes the run. Resume: the coordinator CLI is kill -9'd once 3 shards
+   hold a valid marker, then ``--resume`` with one worker must fold exactly the marked
+   shards and re-encode only the others. Each run's table (its records) and feature tree
+   must equal the reference byte for byte and its ``elastic_report/v1`` validate, with a
+   cause from the closed list on every reassignment. Every wait and process is bounded
+   (180 s). Printed: images/s of the reference and of the clean run, each shard's seconds
+   by worker, shards committed per worker, reassignments by cause, fenced rejections, the
+   phase's wall seconds with the card, and an ``{"elastic": ...}`` JSON line;
 5d. SAM box refinement (run after 5c, on phase 4's weights and ``build_refiner`` with
    seed 0; the refiner is f32 PyTorch and launches none of the port's kernels): batch 2
    of phase 4 (bucket 33) through ``Predictor.__call__`` with ``refine_box`` must launch
@@ -3005,20 +3027,11 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def write_png(np, path, img) -> None:
-    """An 8-bit RGB PNG (every row filter 0) made with ``zlib`` and ``struct`` alone."""
-    import struct
-    import zlib
+    """An 8-bit RGB PNG (every row filter 0), made with ``zlib`` and ``struct`` alone
+    (``tmr_tpu_torch.chaos_probe.png_bytes``)."""
+    from tmr_tpu_torch.chaos_probe import png_bytes
 
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
-
-    Path(path).write_bytes(
-        PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+    Path(path).write_bytes(png_bytes(img))
 
 
 def read_png(data: bytes):
@@ -3074,14 +3087,15 @@ def has_pil() -> bool:
     return importlib.util.find_spec("PIL") is not None
 
 
-def map_shards(np, root: Path, rng) -> list:
-    """Phase 5c's shards under ``root``: smooth colour fields with noise, as PNGs."""
+def map_shards(np, root: Path, rng, names=MAP_SHARDS, corrupt: bool = True) -> list:
+    """Phase 5c's shards under ``root`` (phase 5g's with its ``names`` and no corrupt
+    tar): smooth colour fields with noise, as PNGs."""
     import io
     import tarfile
 
     paths = []
     yy, xx = np.mgrid[0:MAP_HW[0], 0:MAP_HW[1]].astype(np.float32)
-    for name in MAP_SHARDS:
+    for name in names:
         path = root / f"{name}.tar"
         with tarfile.open(path, "w") as tar:
             for i in range(MAP_IMAGES):
@@ -3091,6 +3105,8 @@ def map_shards(np, root: Path, rng) -> list:
                 write_png(np, root / "img.png", img)
                 tar.add(root / "img.png", arcname=f"{name.lower()}_{i}.png")
         paths.append(path)
+    if not corrupt:
+        return paths
     # a tar cut inside its first member: tarfile and the native reader both fail it
     whole = io.BytesIO()
     with tarfile.open(fileobj=whole, mode="w") as tar:
@@ -3114,9 +3130,10 @@ def sam_checkpoint(torch, backbone, path) -> None:
     torch.save(sd, path)
 
 
-def map_cli(root: Path, tmp: Path, tag: str, extra=(), env=None):
+def map_cli(root: Path, tmp: Path, tag: str, extra=(), env=None, names=None):
     """``map ... | tee records | reduce`` in a subprocess, as a user runs it (with the
-    PNG reader swapped in where PIL is missing). Returns (popen, paths)."""
+    PNG reader swapped in where PIL is missing), over phase 5c's shards or ``names``.
+    Returns (popen, paths)."""
     import os
     import shlex
 
@@ -3130,8 +3147,9 @@ def map_cli(root: Path, tmp: Path, tag: str, extra=(), env=None):
                    "--features_out", str(feats), "--report_out", str(out["report"]),
                    "--image_size", str(MAP_SIZE), "--backoff_base", "0.05", *extra]
     reduce = prog + ["reduce"]
-    cmd = (f"set -o pipefail; printf '%s\\n' {' '.join(p + '.tar' for p in MAP_SHARDS)} "
-           f"corrupt.tar | {shlex.join(argv)} 2>{shlex.quote(str(out['stderr']))} "
+    names = names or [p + ".tar" for p in MAP_SHARDS] + ["corrupt.tar"]
+    cmd = (f"set -o pipefail; printf '%s\\n' {' '.join(names)} "
+           f"| {shlex.join(argv)} 2>{shlex.quote(str(out['stderr']))} "
            f"| tee {shlex.quote(str(out['records']))} | {shlex.join(reduce)} "
            f"> {shlex.quote(str(out['table']))}")
     proc = subprocess.Popen(["bash", "-c", cmd], cwd=root,
@@ -3396,6 +3414,451 @@ def check_map_path(torch, np, pred, card, modules) -> dict:
             fail("extract_feature disagrees with the attention_plain run")
         out.update(extract_ms=times, extract_vs_plain=err)
     torch.cuda.empty_cache()
+    return out
+
+
+#: phase 5g, the elastic map phase: 8 synthetic shards (the JAX elastic gauntlet's count)
+#: of 10 PNGs of 480 x 640, leased to workers that encode them at batch 8 on the card
+ELASTIC_SHARDS = ("Easy_0", "Easy_1", "Easy_2", "Normal_0", "Normal_1", "Normal_2",
+                  "Hard_0", "Hard_1")
+#: lease knobs of the clean and resume runs (no straggler duplicates: a real encoder's
+#: shard times spread with the host's load) and of the fault run (a TTL short enough that
+#: a SIGSTOPped worker's lease goes stale within seconds)
+ELASTIC_CLEAN = dict(lease_ttl_s=10.0, hb_interval_s=0.5, check_interval_s=0.1,
+                     straggler_factor=0.0)
+ELASTIC_FAULT = dict(ELASTIC_CLEAN, lease_ttl_s=3.0)
+#: the fault run's subprocess workers pace each shard by 1 s at ``tar.open`` (a drill's
+#: latency: no value changes), so that a lease picked while fresh is still held when the
+#: signal lands
+ELASTIC_PACE = "tar.open:latency=1.0"
+#: a fresh lease: at most this many heartbeats in (0.5 s apart)
+ELASTIC_FRESH_HB = 1
+#: the resume run's coordinator is cut once this many shards hold a valid marker
+ELASTIC_CUT_AFTER = 3
+ELASTIC_WAIT_S = 180.0  # the bound of every wait of phase 5g
+
+
+def log_tail(path: Path, n: int = 3000) -> str:
+    return path.read_text(errors="replace")[-n:] if path.exists() else "(no log)"
+
+
+def elastic_prog(root: Path, module: str) -> list:
+    """``python -m module``, with the PNG reader swapped in where PIL is missing (the
+    repo's root is appended to sys.path, so a payload on PYTHONPATH still wins)."""
+    if has_pil():
+        return [sys.executable, "-m", module]
+    return [sys.executable, "-c", "import runpy, sys; sys.path.append(sys.argv.pop(1)); "
+            "import chip_smoke; chip_smoke.use_png_reader(); runpy.run_module("
+            f"{module!r}, run_name='__main__')", str(root)]
+
+
+def elastic_worker(root: Path, address, wid: str, ckpt: Path, log: Path, pythonpath,
+                   faults_spec: str = ""):
+    """``python -m tmr_tpu_torch.elastic_map worker --device cuda`` in a subprocess, its
+    output into ``log``; run from ``pythonpath`` (the checkout or an unpacked payload)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(pythonpath))
+    env.pop("TMR_FAULTS", None)
+    if faults_spec:
+        env["TMR_FAULTS"] = faults_spec
+    argv = elastic_prog(root, "tmr_tpu_torch.elastic_map") + [
+        "worker", "--coordinator", f"{address[0]}:{address[1]}", "--worker_id", wid,
+        "--checkpoint", str(ckpt), "--device", "cuda", "--max_idle_s", "120"]
+    with open(log, "w") as f:
+        return subprocess.Popen(argv, cwd=str(pythonpath), env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def elastic_coordinator_cli(root: Path, tmp: Path, features: Path, tag: str,
+                            extra=()) -> tuple:
+    """``python -m tmr_tpu_torch.elastic_map coordinator`` in a subprocess, the shard
+    names on its stdin; returns (popen, address, stdout path, stderr path) once it says
+    where it listens."""
+    import os
+
+    from tmr_tpu_torch.chaos_probe import poll
+
+    names = tmp / "elastic_shards.txt"
+    names.write_text("".join(f"{n}.tar\n" for n in ELASTIC_SHARDS))
+    out, err = tmp / f"{tag}.records", tmp / f"{tag}.stderr"
+    argv = elastic_prog(root, "tmr_tpu_torch.elastic_map") + [
+        "coordinator", "--data_dir", str(tmp), "--features_out", str(features),
+        "--image_size", str(MAP_SIZE), "--batch_size", str(MAP_BATCH), "--report_out",
+        str(tmp / f"{tag}.report"), "--wait_timeout_s", str(ELASTIC_WAIT_S), *extra]
+    env = dict(os.environ, PYTHONPATH=str(root), TMR_ELASTIC_TTL_S="10",
+               TMR_ELASTIC_HB_S="0.5", TMR_ELASTIC_CHECK_S="0.1",
+               TMR_ELASTIC_STRAGGLER_FACTOR="0")
+    env.pop("TMR_FAULTS", None)
+    with open(names) as stdin, open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(argv, cwd=str(root), env=env, stdin=stdin, stdout=fo,
+                                stderr=fe)
+    pattern = re.compile(r"shards at ([\d.]+):(\d+)")
+    found = poll(lambda: pattern.search(err.read_text()) or proc.poll() is not None,
+                 ELASTIC_WAIT_S, 0.05)
+    if not isinstance(found, re.Match):
+        proc.kill()
+        fail(f"elastic {tag}: the coordinator CLI never said where it listens:\n"
+             f"{log_tail(err)}")
+    return proc, (found.group(1), int(found.group(2))), out, err
+
+
+def elastic_thread(run_worker, address, wid: str, fn, retry, results: dict):
+    """``run_worker`` on a thread of this process; its summary (or exception) lands in
+    ``results[wid]``."""
+    import threading
+
+    def body():
+        try:
+            results[wid] = run_worker(address, wid, fn, retry=retry, max_idle_s=120.0)
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            results[wid] = e
+
+    t = threading.Thread(target=body, name=f"elastic-{wid}", daemon=True)
+    t.start()
+    return t
+
+
+def join_thread(t, results: dict, wid: str) -> dict:
+    t.join(timeout=ELASTIC_WAIT_S)
+    got = results.get(wid)
+    if t.is_alive() or not isinstance(got, dict):
+        fail(f"elastic worker thread {wid} did not finish cleanly: "
+             f"{'still running' if t.is_alive() else repr(got)}")
+    return got
+
+
+def wait_proc(proc, what: str, log: Path, want_rc=0) -> int:
+    try:
+        rc = proc.wait(timeout=ELASTIC_WAIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{what} did not exit within {ELASTIC_WAIT_S} s:\n{log_tail(log)}")
+    if want_rc is not None and rc != want_rc:
+        fail(f"{what} exited with {rc}, expected {want_rc}:\n{log_tail(log)}")
+    return rc
+
+
+def elastic_records(mr, table) -> str:
+    acc = mr.StatAccumulator()
+    acc.table = table
+    return "".join(line + "\n" for line in acc.emit_lines())
+
+
+def check_elastic_doc(validate, doc: dict, tag: str, causes) -> None:
+    problems = validate(doc)
+    if problems:
+        fail(f"elastic {tag}: elastic_report/v1 does not validate: {problems}")
+    t = doc["totals"]
+    if t["committed"] + t["resumed"] != len(ELASTIC_SHARDS) or t["quarantined"]:
+        fail(f"elastic {tag}: not every shard committed or resumed: {t}")
+    bad = [r for r in doc["reassignments"] if r.get("cause") not in causes]
+    if bad:
+        fail(f"elastic {tag}: reassignments without a cause of the closed list: {bad}")
+
+
+def check_elastic_path(torch, np, pred, card, modules) -> dict:
+    """Phase 5g: the elastic map phase on phase 4's ViT-B weights (the SAM checkpoint
+    phase 5c writes), bf16, 1024^2, batch 8, over 8 synthetic shards: the single-host
+    CLI's table and feature tree first, then a clean run (the coordinator and one worker
+    in this process, two worker processes, one of them from the payload zip), a fault
+    run (kill -9 and SIGSTOP) and a resume after a cut coordinator. Returns the numbers
+    PERF.md keeps."""
+    import contextlib as ctx
+    import os
+    import signal
+    import tempfile
+
+    from tmr_tpu_torch.chaos_probe import held_leases, poll
+    from tmr_tpu_torch.chaos_probe import manifest as tree_digests
+    from tmr_tpu_torch.data import transforms
+    from tmr_tpu_torch.diagnostics import MAP_REASSIGN_CAUSES, validate_elastic_report
+    from tmr_tpu_torch.models import build_sam_encoder
+    from tmr_tpu_torch.parallel import mapreduce as mr
+    from tmr_tpu_torch.parallel.elastic import ElasticCoordinator, ElasticPolicy, run_worker
+    from tmr_tpu_torch.parallel.journal import ShardJournal
+    from tmr_tpu_torch.utils.package import package_modules, payload_members, unpack_payload
+
+    (_build,) = modules
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = {"shards": len(ELASTIC_SHARDS), "images_per_shard": MAP_IMAGES}
+    procs = []  # every process this phase starts, stopped in the finally
+    with tempfile.TemporaryDirectory() as tmpdir, ctx.ExitStack() as stack:
+        tmp = Path(tmpdir)
+        if not has_pil():
+            stack.enter_context(swapped(transforms, "decode_image", read_png))
+        try:
+            # the payload zip, unpacked; its kernels built from its own csrc beside the
+            # shards and the reference run
+            zip_path = Path(package_modules(str(tmp / "Package_Modules.zip")))
+            payload = Path(unpack_payload(str(zip_path), str(tmp / "payload")))
+            build_log = tmp / "payload_build.log"
+            with open(build_log, "w") as f:
+                payload_build = subprocess.Popen(
+                    [sys.executable, "-c", "from tmr_tpu_torch.ops import _build; "
+                     "print(_build.build(('attn',)), _build.BUILD_DIR)"],
+                    cwd=str(payload), env=dict(os.environ, PYTHONPATH=str(payload)),
+                    stdout=f, stderr=subprocess.STDOUT)
+            procs.append(payload_build)
+            paths = [str(p) for p in map_shards(np, tmp, np.random.default_rng(SEED + 80),
+                                                ELASTIC_SHARDS, corrupt=False)]
+            ckpt = tmp / "vit_b.pth"
+            sam_checkpoint(torch, pred.model.backbone, ckpt)
+
+            # the reference: the single-host CLI over the same shards
+            ref_proc, ref_out = map_cli(root, tmp, "single",
+                                        names=[f"{n}.tar" for n in ELASTIC_SHARDS])
+            procs.append(ref_proc)
+            wait_cli(ref_proc, ref_out, "single", timeout=ELASTIC_WAIT_S)
+            ref_records = ref_out["records"].read_text()
+            ref_report = json.loads(ref_out["report"].read_text())
+            ref_tree = tree_digests(ref_out["features"])
+            ref_images = int(ref_report["totals"]["images"])
+            if (ref_report["totals"]["ok"] != len(ELASTIC_SHARDS)
+                    or ref_images != len(ELASTIC_SHARDS) * MAP_IMAGES
+                    or len(ref_tree) != ref_images
+                    or mr.format_stats_table(mr.reduce_lines(ref_records.splitlines()))
+                    + "\n" != ref_out["table"].read_text()):
+                fail(f"elastic path: the single-host reference run is not whole: "
+                     f"{ref_report['totals']}, {len(ref_tree)} feature files")
+            single_s = sum(r["wall_s"] for r in ref_report["shards"])
+            wait_proc(payload_build, "the payload's kernel build", build_log)
+            built = build_log.read_text().split()
+            out["payload"] = dict(files=len(payload_members()),
+                                  zip_kb=zip_path.stat().st_size / 1e3,
+                                  attn_build_s=float(built[0]))
+            print(f"elastic map path: payload zip {out['payload']['files']} files, "
+                  f"{out['payload']['zip_kb']:.0f} kB, unpacked; attn.cu built from the "
+                  f"payload's csrc into {built[1]} in {float(built[0]):.1f} s (beside the "
+                  f"single-host run)", flush=True)
+
+            # this process's worker: the checkpoint's encoder, each batch's launches
+            enc = mr.make_encode_stats_fn(build_sam_encoder("vit_b", str(ckpt),
+                                                            device="cuda"))
+            batch_launches = []
+
+            def counted(images):
+                before = dict(_build.LAUNCHES)
+                res = enc(images)
+                batch_launches.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+                return res
+
+            results = {}
+
+            # ---- clean run: the coordinator and a worker here, two worker processes
+            feats = tmp / "clean" / "features"
+            coord = ElasticCoordinator(paths, str(feats / "_journal"), features_out=str(feats),
+                                       image_size=MAP_SIZE, batch_size=MAP_BATCH,
+                                       policy=ElasticPolicy(**ELASTIC_CLEAN))
+            address = coord.start()
+            logs = {w: tmp / f"{w}.log" for w in ("sub0", "payload1")}
+            subs = {"sub0": elastic_worker(root, address, "sub0", ckpt, logs["sub0"], root),
+                    "payload1": elastic_worker(root, address, "payload1", ckpt,
+                                               logs["payload1"], payload)}
+            procs.extend(subs.values())
+            if not poll(lambda: set(subs) <= set(coord.state()["workers"]), ELASTIC_WAIT_S,
+                        0.05):
+                fail("elastic clean run: the worker processes never said hello:\n"
+                     + "\n".join(f"{w}: {log_tail(p)}" for w, p in logs.items()))
+            _build.reset_launches()
+            t = elastic_thread(run_worker, address, "thread", counted, mr.RetryPolicy(),
+                               results)
+            if not coord.wait(timeout=ELASTIC_WAIT_S):
+                fail(f"elastic clean run did not settle: {coord.state()}")
+            t_settle = time.monotonic()
+            torch.cuda.synchronize()
+            clean_launches = dict(_build.LAUNCHES)
+            summary = join_thread(t, results, "thread")
+            for w, p in subs.items():
+                wait_proc(p, f"elastic clean run worker {w}", logs[w])
+            doc = coord.report()
+            table = coord.table()
+            first = min(s.first_granted_at for s in coord._shards if s.first_granted_at)
+            coord.stop()
+            check_elastic_doc(validate_elastic_report, doc, "clean run", MAP_REASSIGN_CAUSES)
+            committed = {w: r["committed"] for w, r in doc["workers"].items()}
+            walls = {w: [round(r["wall_s"], 3) for r in doc["shards"] if r["worker"] == w]
+                     for w in committed}
+            images = int(table[:, 4].sum())
+            clean_s = t_settle - first
+            print(f"elastic map path: single-host map (CLI, native loader, 4 feeder "
+                  f"threads) {ref_images} images in {single_s:.3f} s of shard time = "
+                  f"{ref_images / single_s:.2f} images/s; elastic clean run (3 workers: "
+                  f"one thread here, sub0, payload1 from the payload zip; tarfile loader, "
+                  f"one feeder each) {images} images in {clean_s:.3f} s from the first grant "
+                  f"to the last commit = {images / clean_s:.2f} images/s [{card}]",
+                  flush=True)
+            print(f"elastic clean run: shards committed per worker {json.dumps(committed)}, "
+                  f"each shard's s from grant to commit {json.dumps(walls)}; "
+                  f"reassignments {len(doc['reassignments'])}; this process's worker "
+                  f"launched {json.dumps(clean_launches)} over {len(batch_launches)} "
+                  f"batches of {MAP_BATCH} (per batch expected "
+                  f"{json.dumps(MAP_BATCH_LAUNCHES)})", flush=True)
+            wrong = [b for b in batch_launches if b != MAP_BATCH_LAUNCHES]
+            if (wrong or not batch_launches or len(batch_launches) != 2 * summary["leases"]
+                    or clean_launches["global_attn"] <= 0
+                    or clean_launches["window_attn"] <= 0):
+                fail(f"elastic clean run: this process's worker launched {wrong or clean_launches} "
+                     f"over {len(batch_launches)} batches for {summary['leases']} leases")
+            idle = [w for w in ("thread", *subs) if committed.get(w, 0) < 1]
+            if idle:
+                fail(f"elastic clean run: workers {idle} committed no shard: {committed}")
+            if elastic_records(mr, table) != ref_records:
+                fail("elastic clean run: the table differs from the single-host table")
+            if tree_digests(feats) != ref_tree:
+                fail("elastic clean run: the feature tree differs from the single-host one")
+            out["single_host"] = dict(images=ref_images, shard_s=single_s,
+                                      images_per_s=ref_images / single_s)
+            out["clean"] = dict(images=images, seconds=clean_s, images_per_s=images / clean_s,
+                                committed=committed, shard_s=walls, launches=clean_launches,
+                                batches=len(batch_launches),
+                                reassignments=len(doc["reassignments"]))
+            print("elastic clean run: the table and the feature tree equal the single-host "
+                  "run's byte for byte; elastic_report/v1 valid", flush=True)
+
+            # ---- fault run: kill -9 one worker process, SIGSTOP the other past the TTL
+            feats = tmp / "fault" / "features"
+            coord = ElasticCoordinator(paths, str(feats / "_journal"), features_out=str(feats),
+                                       image_size=MAP_SIZE, batch_size=MAP_BATCH,
+                                       policy=ElasticPolicy(**ELASTIC_FAULT))
+            address = coord.start()
+            flogs = {w: tmp / f"{w}.log" for w in ("fault0", "fault1")}
+            fsubs = {w: elastic_worker(root, address, w, ckpt, flogs[w], root, ELASTIC_PACE)
+                     for w in flogs}
+            procs.extend(fsubs.values())
+
+            def both_fresh():
+                held = held_leases(coord)
+                return held if all(w in held and held[w][2] <= ELASTIC_FRESH_HB
+                                   for w in fsubs) else None
+
+            held = poll(both_fresh, ELASTIC_WAIT_S)
+            if not held:
+                fail("elastic fault run: the two worker processes never held fresh leases "
+                     "at once:\n" + "\n".join(f"{w}: {log_tail(p)}" for w, p in flogs.items()))
+            # the victims by the leases they hold: the lower shard index is killed
+            kill_wid, stop_wid = sorted(fsubs, key=lambda w: held[w][0])
+            os.kill(fsubs[kill_wid].pid, signal.SIGKILL)
+            os.kill(fsubs[stop_wid].pid, signal.SIGSTOP)
+            t_stop = time.monotonic()
+            t = elastic_thread(run_worker, address, "thread_f", enc, mr.RetryPolicy(),
+                               results)
+
+            def cause_for(index, cause, wid):
+                return lambda: any(r["index"] == index and r["cause"] == cause
+                                   and r["worker"] == wid
+                                   for r in coord.state()["reassignments"])
+
+            if not poll(cause_for(held[kill_wid][0], "worker_exit", kill_wid),
+                        ELASTIC_WAIT_S):
+                fail(f"elastic fault run: kill -9 of {kill_wid} brought no worker_exit "
+                     f"reassignment: {coord.state()['reassignments']}")
+            if not poll(cause_for(held[stop_wid][0], "stale_heartbeat", stop_wid),
+                        ELASTIC_WAIT_S):
+                fail(f"elastic fault run: the SIGSTOPped {stop_wid}'s lease was not revoked "
+                     f"as stale_heartbeat: {coord.state()['reassignments']}")
+            stopped_s = time.monotonic() - t_stop
+            os.kill(fsubs[stop_wid].pid, signal.SIGCONT)
+            if not poll(lambda: coord.state()["fenced_rejections"], ELASTIC_WAIT_S):
+                fail(f"elastic fault run: the resumed {stop_wid} was never fenced:\n"
+                     f"{log_tail(flogs[stop_wid])}")
+            if not coord.wait(timeout=ELASTIC_WAIT_S):
+                fail(f"elastic fault run did not settle: {coord.state()}")
+            join_thread(t, results, "thread_f")
+            wait_proc(fsubs[kill_wid], f"the killed {kill_wid}", flogs[kill_wid],
+                      want_rc=-signal.SIGKILL)
+            wait_proc(fsubs[stop_wid], f"the resumed {stop_wid}", flogs[stop_wid])
+            doc = coord.report()
+            table = coord.table()
+            coord.stop()
+            check_elastic_doc(validate_elastic_report, doc, "fault run", MAP_REASSIGN_CAUSES)
+            causes = {}
+            for r in doc["reassignments"]:
+                causes[r["cause"]] = causes.get(r["cause"], 0) + 1
+            fenced = doc["fenced_rejections"]
+            committed = {w: r["committed"] for w, r in doc["workers"].items()}
+            killed_rec = doc["shards"][held[kill_wid][0]]
+            print(f"elastic fault run: kill -9 {kill_wid} holding shard {held[kill_wid][0]} "
+                  f"(epoch {held[kill_wid][1]}); SIGSTOP {stop_wid} holding shard "
+                  f"{held[stop_wid][0]} for {stopped_s:.2f} s (TTL "
+                  f"{ELASTIC_FAULT['lease_ttl_s']} s), then SIGCONT; reassignments by cause "
+                  f"{json.dumps(causes)}; fenced rejections {len(fenced)} "
+                  f"{json.dumps([(r['worker'], r['shard'], r['epoch'], r['op']) for r in fenced])}; "
+                  f"shards committed per worker {json.dumps(committed)}; the killed "
+                  f"worker's shard committed by {killed_rec['worker']} at epoch "
+                  f"{killed_rec['epoch']}", flush=True)
+            if not fenced or killed_rec["worker"] == kill_wid \
+                    or killed_rec["status"] != "committed":
+                fail("elastic fault run: no fenced rejection, or the killed worker's shard "
+                     "was not committed by another worker")
+            if elastic_records(mr, table) != ref_records:
+                fail("elastic fault run: the table differs from the single-host table")
+            if tree_digests(feats) != ref_tree:
+                fail("elastic fault run: the feature tree differs from the single-host one")
+            out["fault"] = dict(reassignments=causes, fenced=len(fenced), committed=committed,
+                                stopped_s=stopped_s, killed=kill_wid, stopped=stop_wid)
+            print("elastic fault run: the table and the feature tree equal the single-host "
+                  "run's byte for byte; every reassignment carries a cause", flush=True)
+
+            # ---- resume: a coordinator CLI cut (kill -9) after some commits, then
+            # --resume with one worker
+            feats = tmp / "resume" / "features"
+            journal = ShardJournal(str(feats / "_journal"))
+            cproc, address, _, cerr = elastic_coordinator_cli(root, tmp, feats, "cut")
+            procs.append(cproc)
+            t = elastic_thread(run_worker, address, "thread_r1", enc,
+                               mr.RetryPolicy(max_attempts=1), results)
+            if not poll(lambda: len(journal.load_all()) >= ELASTIC_CUT_AFTER,
+                        ELASTIC_WAIT_S):
+                fail(f"elastic resume: no {ELASTIC_CUT_AFTER} markers before the cut:\n"
+                     f"{log_tail(cerr)}")
+            os.kill(cproc.pid, signal.SIGKILL)
+            wait_proc(cproc, "the cut coordinator", cerr, want_rc=-signal.SIGKILL)
+            join_thread(t, results, "thread_r1")
+            marked = sorted(journal.load_all())
+            if not ELASTIC_CUT_AFTER <= len(marked) < len(ELASTIC_SHARDS):
+                fail(f"elastic resume: {len(marked)} shards marked at the cut")
+            seen = set()
+
+            def recorded(images):  # run_worker sets recorded.context to the leased shard
+                seen.add(recorded.context)
+                return enc(images)
+
+            recorded.context = ""
+            rproc, address, records, rerr = elastic_coordinator_cli(root, tmp, feats,
+                                                                     "resume", ["--resume"])
+            procs.append(rproc)
+            t = elastic_thread(run_worker, address, "thread_r2", recorded, mr.RetryPolicy(),
+                               results)
+            wait_proc(rproc, "the resumed coordinator", rerr)
+            join_thread(t, results, "thread_r2")
+            rdoc = json.loads((tmp / "resume.report").read_text())
+            check_elastic_doc(validate_elastic_report, rdoc, "resume", MAP_REASSIGN_CAUSES)
+            unmarked = sorted({f"{n}.tar" for n in ELASTIC_SHARDS} - set(marked))
+            print(f"elastic resume: coordinator cut (kill -9) with {len(marked)} shards "
+                  f"marked {marked}; --resume with one worker: resumed "
+                  f"{rdoc['resumed']}, re-encoded {sorted(seen)}", flush=True)
+            if sorted(rdoc["resumed"]) != marked or sorted(seen) != unmarked:
+                fail(f"elastic resume: resumed {rdoc['resumed']} and re-encoded "
+                     f"{sorted(seen)}; expected {marked} and {unmarked}")
+            if records.read_text() != ref_records:
+                fail("elastic resume: the records differ from the single-host run's")
+            if tree_digests(feats) != ref_tree:
+                fail("elastic resume: the feature tree differs from the single-host one")
+            out["resume"] = dict(marked=len(marked), reencoded=len(seen))
+            print("elastic resume: the records and the feature tree equal the single-host "
+                  "run's byte for byte", flush=True)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    with ctx.suppress(OSError):
+                        os.kill(p.pid, signal.SIGCONT)
+                    p.kill()
+                    p.wait(timeout=30)
+    del enc
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"elastic map path: phase wall {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -4595,6 +5058,9 @@ def main(argv=None) -> int:
     # 5c. the map phase and extract_feature on phase 4's encoder
     mapped = check_map_path(torch, np, pred, card, (_build, cuda_attn))
     print(json.dumps({"map": mapped}), flush=True)
+    # 5g. the elastic map phase on the same weights (the checkpoint 5c writes)
+    elastic = check_elastic_path(torch, np, pred, card, (_build,))
+    print(json.dumps({"elastic": elastic}), flush=True)
     # 5d. SAM box refinement and the segment-anything surface on phase 4's weights
     refined = check_refine_path(torch, np, pred, batches, multi_batches, card,
                                 sum(times) / len(times), eval_rates, (_build, cuda_nms),

@@ -274,3 +274,24 @@ def test_serve_engine_runs_on_its_predictors_device():
             eng.close(timeout=10)
     with pytest.raises(ValueError, match="predictor's device"):
         ServeEngine(_Pred("cuda"), devices=["cpu"])
+
+
+@pytest.mark.parametrize("mod", ["parallel/leases.py", "parallel/elastic.py",
+                                 "elastic_map.py", "chaos_probe.py", "utils/package.py"])
+def test_scan_covers_the_elastic_map_modules(mod):
+    """The elastic map phase, its CLI, its gauntlet and the worker payload: each the
+    port's own module (the lease service and most of the coordinator are copies of
+    JAX-free JAX-package modules), with no import of JAX, ``tmr_tpu``, ``tests``, cv2 or
+    PIL, and none of torch at module level in the lease service and the coordinator's
+    module, so that a coordinator runs without a CUDA stack."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots
+                if _forbidden(n) or n.split(".")[0] in ("tests", "PIL")], mod
+    if mod in ("parallel/leases.py", "parallel/elastic.py"):
+        tree = ast.parse((PORT / mod).read_text())
+        top = [n for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))
+               for n in ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])]
+        assert not [n for n in top if n.split(".")[0] == "torch"], top

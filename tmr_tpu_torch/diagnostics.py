@@ -10,6 +10,12 @@ port's map phase is not instrumented until the port has the measurement plane (R
 A8), and :func:`validate_map_report` refuses both by name when they are present rather
 than passing them unchecked.
 
+``elastic_report/v1`` is the elastic map phase's run document
+(``parallel/elastic.ElasticCoordinator.report``): per-shard final status and winning
+worker/epoch, per-worker tallies, every reassignment with a cause from a closed list,
+every fenced commit, totals that reconcile exactly, and the ``obs`` registry's snapshot
+under ``metrics`` (:func:`validate_elastic_report`, the JAX package's rules).
+
 ``metrics_report/v1`` is a metrics-registry snapshot (``obs/metrics.py``) and
 ``health_report/v1`` the serving engine's health document (``ServeEngine.health()``):
 queue depths, per-device batches, cache stats, compile-event tallies (the port's are
@@ -225,4 +231,138 @@ def validate_health_report(doc: dict) -> List[str]:
     if not isinstance(deg, dict) or not isinstance(deg.get("level"), int) \
             or not isinstance(deg.get("steps"), list):
         problems.append("degrade: missing level/steps")
+    return problems
+
+
+#: schema tag of the elastic map phase's run document: per-shard final status + winning
+#: worker/epoch, per-worker commit/failure tallies with drain flags, every lease
+#: reassignment with a closed-vocab cause, every fenced (stale-epoch) commit rejection,
+#: and totals that must reconcile exactly — shards = committed + resumed + quarantined,
+#: with reassigned shards counted once under whoever finally committed them
+ELASTIC_REPORT_SCHEMA = "elastic_report/v1"
+
+#: closed reassignment-cause vocabulary shared by the lease-service clients:
+#: stale_heartbeat = the lease's heartbeat went stale past the TTL (dead or paused
+#: worker); worker_exit = the worker left while it held the lease (a dropped control
+#: connection: kill -9 / crash); straggler = a speculative duplicate lease was issued
+#: because the shard's runtime exceeded the rolling-median-based bound; poison_worker =
+#: the worker reported the resource failed (after N distinct such failures the worker is
+#: drained); scale_out = a resource moved to a newly recruited worker (the JAX serving
+#: fleet's rebalance, never emitted by the map client)
+ELASTIC_REASSIGN_CAUSES = (
+    "stale_heartbeat", "worker_exit", "straggler", "poison_worker", "scale_out",
+)
+
+#: the map client's subset: a map-shard reassignment tagged scale_out is a drift
+MAP_REASSIGN_CAUSES = ("stale_heartbeat", "worker_exit", "straggler", "poison_worker")
+
+#: closed final per-shard status vocabulary in an elastic_report/v1
+ELASTIC_SHARD_STATUSES = ("committed", "resumed", "quarantined")
+
+#: closed fence-op vocabulary: where a stale-epoch writer was rejected ("precommit" =
+#: before its marker was written, the normal path; "commit" = at result submission, the
+#: narrow in-flight race window)
+ELASTIC_FENCE_OPS = ("precommit", "commit")
+
+
+def validate_elastic_report(doc: dict) -> List[str]:
+    """Structural + reconciliation check of an elastic_report/v1 document; returns the
+    problems (empty: valid). Dependency-free like the other validators."""
+    if not isinstance(doc, dict):
+        return [f"not a dict: {type(doc).__name__}"]
+    problems: List[str] = [f"metrics: {p}" for p in
+                           validate_metrics_report(doc["metrics"])] if "metrics" in doc else []
+    if doc.get("schema") != ELASTIC_REPORT_SCHEMA:
+        problems.append(f"schema != {ELASTIC_REPORT_SCHEMA}: {doc.get('schema')!r}")
+    shards = doc.get("shards")
+    if not isinstance(shards, list):
+        problems.append("shards: not a list")
+        shards = []
+    by_status = {s: 0 for s in ELASTIC_SHARD_STATUSES}
+    for i, rec in enumerate(shards):
+        where = f"shards[{i}]"
+        if not isinstance(rec, dict):
+            problems.append(f"{where}: not a dict")
+            continue
+        for key in ("index", "shard", "status", "worker", "epoch", "assignments",
+                    "failures", "images", "wall_s"):
+            if key not in rec:
+                problems.append(f"{where}: missing {key!r}")
+        status = rec.get("status")
+        if status not in ELASTIC_SHARD_STATUSES:
+            problems.append(f"{where}: bad status {status!r}")
+        else:
+            by_status[status] += 1
+        if status == "committed" and not rec.get("worker"):
+            problems.append(f"{where}: committed without a worker")
+        fails = rec.get("failures", ())
+        if not isinstance(fails, (list, tuple)):
+            problems.append(f"{where}.failures: not a list")
+            fails = ()
+        for j, f in enumerate(fails):
+            if not isinstance(f, dict) or "worker" not in f:
+                problems.append(f"{where}.failures[{j}]: missing worker")
+    workers = doc.get("workers")
+    if not isinstance(workers, dict):
+        problems.append("workers: not a dict")
+        workers = {}
+    for wid, w in workers.items():
+        if not isinstance(w, dict) or not all(
+                k in w for k in ("committed", "failed_shards", "drained")):
+            problems.append(f"workers[{wid!r}]: missing committed/failed_shards/drained")
+    reassignments = doc.get("reassignments")
+    if not isinstance(reassignments, list):
+        problems.append("reassignments: not a list")
+        reassignments = []
+    for i, r in enumerate(reassignments):
+        where = f"reassignments[{i}]"
+        if not isinstance(r, dict):
+            problems.append(f"{where}: not a dict")
+            continue
+        for key in ("shard", "worker", "epoch", "cause"):
+            if key not in r:
+                problems.append(f"{where}: missing {key!r}")
+        if r.get("cause") not in MAP_REASSIGN_CAUSES:
+            problems.append(f"{where}: bad cause {r.get('cause')!r}")
+    fenced = doc.get("fenced_rejections")
+    if not isinstance(fenced, list):
+        problems.append("fenced_rejections: not a list")
+        fenced = []
+    for i, r in enumerate(fenced):
+        where = f"fenced_rejections[{i}]"
+        if not isinstance(r, dict):
+            problems.append(f"{where}: not a dict")
+            continue
+        for key in ("shard", "worker", "epoch", "op"):
+            if key not in r:
+                problems.append(f"{where}: missing {key!r}")
+        if r.get("op") not in ELASTIC_FENCE_OPS:
+            problems.append(f"{where}: bad op {r.get('op')!r}")
+    for key in ("quarantined", "resumed"):
+        if not isinstance(doc.get(key), list):
+            problems.append(f"{key}: not a list")
+    totals = doc.get("totals")
+    if not isinstance(totals, dict):
+        problems.append("totals: not a dict")
+    else:
+        for key in ("shards", "committed", "resumed", "quarantined", "reassignments",
+                    "fenced_rejections", "workers", "drained_workers", "wall_s"):
+            if key not in totals:
+                problems.append(f"totals: missing {key!r}")
+        # exact reconciliation: every shard settled exactly once, and the totals agree
+        # with the per-shard records and event lists — a reassigned-and-committed shard
+        # counts once, under its winner
+        if isinstance(shards, list) and shards and not problems:
+            if totals.get("shards") != len(shards):
+                problems.append("totals.shards != len(shards)")
+            for status in ELASTIC_SHARD_STATUSES:
+                if totals.get(status) != by_status[status]:
+                    problems.append(f"totals.{status} != per-shard {status} count")
+            if (totals.get("committed", 0) + totals.get("resumed", 0)
+                    + totals.get("quarantined", 0)) != len(shards):
+                problems.append("totals: committed + resumed + quarantined != shards")
+            if totals.get("reassignments") != len(reassignments):
+                problems.append("totals.reassignments != len(reassignments)")
+            if totals.get("fenced_rejections") != len(fenced):
+                problems.append("totals.fenced_rejections != len(fenced_rejections)")
     return problems

@@ -9,7 +9,8 @@ recorded as a compile event (``obs/compile.py``: kind ``nvcc <name>.cu``, key th
 library's file name, its wall seconds).
 
 Nothing here runs at import: the CPU tests import every module of the port on
-machines without ``nvcc``.
+machines without ``nvcc``. Builds need the package unpacked in a directory: imported
+from a zip (the worker payload of ``utils/package.py``), a build raises and says so.
 """
 
 from __future__ import annotations
@@ -107,12 +108,24 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _require_unpacked() -> None:
+    """``nvcc`` reads ``csrc/`` and the libraries go to ``_build/``, both beside the
+    package: raise, before any compiler runs, when the package was imported from a zip."""
+    if not CSRC.is_dir():
+        raise RuntimeError(
+            f"cannot build the CUDA kernels: {CSRC} is not a directory (the package was "
+            "imported from a zip, such as the worker payload of "
+            "tmr_tpu_torch/utils/package.py); unpack the payload and put the unpacked "
+            "directory on PYTHONPATH")
+
+
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> float:
     """Compile every named source that has no current library, all ``nvcc`` runs
     started together, and record each finished build as a compile event. Returns the
     wall seconds spent. Raises with the compiler's output when a build fails."""
     from tmr_tpu_torch.obs.compile import record_compile_event
 
+    _require_unpacked()
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not _lib_path(n).exists()]

@@ -11,11 +11,13 @@ The marker's bytes are the JAX package's: the same fields, the same digest, the 
 ``map_journal/v1`` tag, so either package resumes from the other's journal.
 
 Layout: ``<features_out>/_journal/<shard-stem>.json`` (``--journal_dir`` overrides).
-Order is the contract: features first, marker last. The JAX package's elastic map phase
-also writes ``worker`` / ``epoch`` fields (outside the digest, so the port reads such
-markers) and fences a commit by lease epoch; that waits for the port's elastic map
-phase (ROADMAP A5). :class:`StaleLeaseError` is here because the map executor treats it
-as a failure that retrying cannot heal.
+Order is the contract: features first, marker last. The elastic map phase
+(``parallel/elastic.py``) also writes ``worker`` / ``epoch`` fields (outside the digest,
+so markers with and without them read alike in both packages) and fences each commit on
+the worker's current lease epoch: ``record(fence=...)`` runs the fence after the
+``journal`` fault point and before any marker byte touches disk, and a fence that raises
+:class:`StaleLeaseError` leaves no marker. The map executor treats that error as a
+failure that retrying cannot heal.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 from tmr_tpu_torch.utils import faults
 from tmr_tpu_torch.utils.atomicio import atomic_write
@@ -84,11 +86,19 @@ class ShardJournal:
         nonfinite_images: int = 0,
         attempts: int = 1,
         wall_s: float = 0.0,
+        worker: Optional[str] = None,
+        epoch: Optional[int] = None,
+        fence: Optional[Callable[[], None]] = None,
     ) -> dict:
         """Atomically commit the done-marker for one shard. The ``journal``
         fault point fires before anything touches disk, so an injected
-        journal failure leaves no marker at all (the shard re-runs)."""
+        journal failure leaves no marker at all (the shard re-runs).
+        ``fence`` (when given) runs after the fault point and before the
+        write: raising (StaleLeaseError) aborts the commit marker-less —
+        the stale-epoch rejection the elastic coordinator counts."""
         faults.fire("journal")
+        if fence is not None:
+            fence()
         entry = {
             "schema": MAP_JOURNAL_SCHEMA,
             "shard": shard_name,
@@ -101,6 +111,10 @@ class ShardJournal:
             "attempts": int(attempts),
             "wall_s": float(wall_s),
         }
+        if worker is not None:
+            entry["worker"] = str(worker)
+        if epoch is not None:
+            entry["epoch"] = int(epoch)
         entry["digest"] = _digest(entry)
         atomic_write(self._path(shard_name), lambda f: json.dump(entry, f))
         return entry

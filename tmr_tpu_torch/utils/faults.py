@@ -17,10 +17,19 @@ Injection points (``POINTS``), and where the port fires them:
                 .npy is about to be written
     journal     parallel/journal: a shard's done-marker is
                 about to be committed
+    lease       parallel/elastic: the coordinator is about
+                to grant a shard lease (a raise re-queues
+                the shard; the attempt key is the epoch)
+    heartbeat   parallel/elastic: a worker's lease beat is
+                about to be sent (a latency stalls beats
+                as a SIGSTOP would)
+    steal       parallel/elastic: the coordinator elected a
+                straggler for a duplicate lease (a raise
+                vetoes the election)
 
-The other names (``lease``, ``heartbeat``, ``steal``, ``fleet.*``, ``serve.link``,
-``gallery.*``) belong to the elastic map phase and the serving fleet, which the port
-does not have yet; a schedule naming them parses and never fires.
+The other names (``fleet.route``, ``fleet.commit``, ``fleet.recruit``, ``serve.link``,
+``gallery.replica``, ``gallery.beat``) belong to the serving fleet and the gallery, which
+the port does not have yet (ROADMAP A7); a schedule naming them parses and never fires.
 
 A schedule is a ``;``-separated list of specs, each ``point[:key=value]*``, installed
 from the ``TMR_FAULTS`` env var (``install_from_env``, seed ``TMR_FAULTS_SEED``) or by

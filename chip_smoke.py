@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, compiled from ``tmr_tpu_torch/csrc``; then the
    toolchain probe ``add1`` runs, before any other kernel, and its event-bracketed time
-   is printed beside its profiled device time and the host's cost per launch;
+   is printed beside its profiled device time and the host's cost per launch (through
+   the registered op ``tmr::add1``, its CUDA kernel called bare, and the bare launch);
 3. kernels: each kernel at the main path's shapes against its plain PyTorch version on
    the same inputs, with the tolerance stated, timed beside its plain version, a
    PyTorch library call computing the same function (timed here, never used by the
@@ -178,7 +179,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    directory and its ``attn.cu`` built from its own ``csrc`` beside the reference run.
    Clean run: ``ElasticCoordinator`` in this process; two ``python -m
    tmr_tpu_torch.elastic_map worker --device cuda`` processes on the card, one from the
-   unpacked payload; once both said hello, a third worker as a thread of this process,
+   unpacked payload with phase 5h's encoder artifact (``--artifact``) in place of the
+   checkpoint; once both said hello, a third worker as a thread of this process,
    whose every batch of 8 must launch exactly global 4 and window 8 and nothing else
    (launch counts zeroed before the run, read after); every worker must commit a shard.
    Fault run (TTL 3 s; the worker processes paced by ``TMR_FAULTS=tar.open:latency=1.0``):
@@ -193,6 +195,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (180 s). Printed: images/s of the reference and of the clean run, each shard's seconds
    by worker, shards committed per worker, reassignments by cause, fenced rejections, the
    phase's wall seconds with the card, and an ``{"elastic": ...}`` JSON line;
+5h. the ``torch.export`` artifacts (run after 5c and before 5g, on phase 4's weights;
+   ``tmr_tpu_torch/utils/export.py``, every kernel wrapper a registered ``tmr::`` op): the
+   bf16 ViT-B encoder traced on the card with a symbolic batch, saved and loaded back
+   (seconds of each step and the file's MB printed); at batch 8 on 5c's images its
+   features and statistics against ``make_encode_stats_fn``, and at batches 1 and 3
+   against the eager encoder; the same encoder traced on the CPU (fake tensors) and
+   loaded onto the card (``move_to_device_pass``) against the card's export; ``map
+   --artifact`` (CLI, no checkpoint read) on 5c's shards against 5c's in-process records,
+   and the same map through the artifact in this process, timed (images/s beside 5c's);
+   ``extract_feature --artifact`` at batch 1 against the run without it; the detector
+   artifact at batch 4 and capacity 33 on phase 4's bucket-33 batch against
+   ``Predictor.__call__`` (ms per batch beside the eager call's and phase 4's); a
+   multi-exemplar artifact of 3 rows on phase 4d's image 0 at k_real 3 (against
+   ``predict_multi_exemplar``) and 2 (against ``predict_multi_batch`` at the same bucket,
+   and ``predict_multi_exemplar``'s lists); phase 4b's int8 predictor at batch 4 and
+   capacity 33 against its eager call; ``export_sam_decoder`` on seeded ``Sam`` weights at
+   1 and 5 prompts against ``SamDeployDecoder.__call__``; and ``torch.library.opcheck`` of
+   every ``tmr::`` op on the card. Every comparison is bit for bit; each encoder batch of
+   8 launches exactly global 4 and window 8, each detector call 4 / 8 / 1 / 1 and the int8
+   one global 4, window 8, xcorr_int8 1, int8_mm 1, int8_conv 1, nms 1. Printed: the
+   phase's wall seconds and an ``{"export": ...}`` JSON line;
 5d. SAM box refinement (run after 5c, on phase 4's weights and ``build_refiner`` with
    seed 0; the refiner is f32 PyTorch and launches none of the port's kernels): batch 2
    of phase 4 (bucket 33) through ``Predictor.__call__`` with ``refine_box`` must launch
@@ -304,6 +327,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1531,9 +1555,12 @@ def run_probe(torch, probe, _build) -> dict:
         _build._FNS.clear()
         probe.add1(x)
 
-    # host cost per call, in turns over 3 rounds (median): the wrapper, the wrapper with
-    # the lookup of the C function each launch, torch.add, and the wrapper's parts
+    # host cost per call, in turns over 3 rounds (median): the wrapper (through the
+    # registered op tmr::add1 and the dispatcher), the wrapper with the lookup of the C
+    # function each launch, the op's CUDA kernel called bare (no dispatch), torch.add, and
+    # the kernel's parts
     calls = {"wrapper": lambda: probe.add1(x), "wrapper_lookup_each": unbound,
+             "op_kernel_bare": lambda: probe._add1_cuda(x),
              "torch_add": lambda: torch.add(x, 1.0),
              "stream_lookup": lambda: _build.stream_of(x),
              "empty_like": lambda: torch.empty_like(x),
@@ -1553,6 +1580,9 @@ def run_probe(torch, probe, _build) -> dict:
           flush=True)
     print("probe host_us per call (median of 3 rounds in turns): "
           + ", ".join(f"{name} {us:.2f}" for name, us in host.items()), flush=True)
+    print(f"probe: the op dispatch (wrapper through tmr::add1 less the bare CUDA kernel) "
+          f"{host['wrapper'] - host['op_kernel_bare']:.2f} us per call; the bare launch "
+          f"(c_call) {host['c_call']:.2f} us", flush=True)
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bby, library_ms=lib_ms)
 
@@ -3194,10 +3224,10 @@ def feature_files(np, root: Path) -> dict:
     return {str(p.relative_to(root)): np.load(p) for p in sorted(root.rglob("*.npy"))}
 
 
-def check_map_path(torch, np, pred, card, modules) -> dict:
+def check_map_path(torch, np, pred, card, modules) -> tuple:
     """Phase 5c: the map phase (``tmr_tpu_torch.parallel.mapreduce``) and
     ``extract_feature`` on phase 4's ViT-B weights (bf16, 1024^2, batch 8). Returns the
-    numbers PERF.md keeps."""
+    numbers PERF.md keeps and the in-process run's records (phase 5h's reference)."""
     import contextlib as ctx
     import io
     import tempfile
@@ -3414,6 +3444,376 @@ def check_map_path(torch, np, pred, card, modules) -> dict:
             fail("extract_feature disagrees with the attention_plain run")
         out.update(extract_ms=times, extract_vs_plain=err)
     torch.cuda.empty_cache()
+    return out, timed_acc.emit_lines()
+
+
+#: phase 5h: each artifact call of the detector launches what one eval batch does; the
+#: int8 artifact's the int8 path's batch (QUANT_LAUNCHES over its 3 batches, a third)
+EXPORT_INT8_LAUNCHES = dict(EVAL_LAUNCHES, xcorr=0, xcorr_int8=1, int8_mm=1, int8_conv=1)
+#: the SAM decoder artifact's prompt counts and the original size its masks take
+EXPORT_DECODER_PROMPTS = (1, 5)
+EXPORT_DECODER_HW = (720, 1280)
+
+
+def export_op_samples(torch) -> dict:
+    """One CUDA sample per ``tmr::`` op at a small shape its kernel takes (nothing
+    requires grad), for ``torch.library.opcheck``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+
+    def f32(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    bf = torch.bfloat16
+    corner = f32(2, 40, 2).abs() * 4
+    boxes = torch.cat([corner, corner + f32(2, 40, 2).abs() + 0.5], dim=-1)
+    boxes = boxes[:, torch.argsort(f32(40))]
+    return {
+        "global_attn": (f32(4, 35, 64, dtype=bf), f32(4, 35, 64, dtype=bf),
+                        f32(4, 35, 64, dtype=bf), f32(9, 64), f32(13, 64), 5, 7, 0.125),
+        "window_attn": (f32(4, 49, 64, dtype=bf), f32(4, 49, 64, dtype=bf),
+                        f32(4, 49, 64, dtype=bf), f32(7, 7, 64), f32(7, 7, 64), 7, 7,
+                        0.125),
+        "xcorr": (f32(2, 3, 24, 20), f32(2, 3, 5, 5)),
+        "xcorr_int8": (i8(2, 3, 24, 20), i8(2, 3, 5, 5), f32(2, 3, 1, 1).abs() * 0.01,
+                       f32(2, 3, 1, 1).abs() * 0.01),
+        "nms": (boxes.contiguous(), torch.rand(2, 40, generator=gen, device="cuda") < 0.8,
+                0.5),
+        "int8_mm": (i8(6, 32), i8(5, 32), f32(6).abs(), f32(5).abs()),
+        "int8_conv3x3": (i8(1, 5, 4, 16), f32(1).abs(), i8(3, 3, 6, 16),
+                         f32(3, 3, 6).abs(), f32(6), 0.01),
+        "add1": (f32(8, 8),),
+    }
+
+
+def timed_launches(torch, _build, fn, *args):
+    """(output, ms of the call, launches of the call), the call bracketed by a
+    synchronize."""
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+
+
+def all_equal(torch, got, want) -> bool:
+    return len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip(got, want))
+
+
+def check_export_path(torch, np, pred, batches, multi_batches, map_records, phase4_ms,
+                      card, modules, export_dir: Path) -> dict:
+    """Phase 5h: the port's ``torch.export`` artifacts (``utils/export.py``) on phase 4's
+    weights. The encoder artifact (bf16 ViT-B, symbolic batch) traced on the card, saved
+    and loaded back, against ``make_encode_stats_fn`` at batch 8 and the eager encoder at
+    batches 1 and 3, and against the same encoder traced on the CPU and moved to the card;
+    ``map --artifact`` (CLI) on phase 5c's shards against 5c's in-process records and the
+    same map in this process timed; ``extract_feature --artifact``; the detector at batch
+    4 and capacity 33, the multi-exemplar program (3 rows) on phase 4d's image 0 and the
+    int8 detector, each against its eager call; the SAM decoder at 1 and 5 prompts; and
+    ``torch.library.opcheck`` of every ``tmr::`` op on the card. Every comparison is bit
+    for bit. The encoder artifact stays in ``export_dir`` for phase 5g's payload worker.
+    Returns the numbers PERF.md keeps."""
+    import contextlib as ctx
+    import copy
+    import io
+    import os
+    import tempfile
+
+    from tmr_tpu_torch import extract_feature
+    from tmr_tpu_torch.config import preset
+    from tmr_tpu_torch.data import transforms
+    from tmr_tpu_torch.inference import Predictor, detections_to_numpy
+    from tmr_tpu_torch.models.vit import nhwc_features
+    from tmr_tpu_torch.parallel import mapreduce as mr
+    from tmr_tpu_torch.sam import Sam, SamDeployDecoder
+    from tmr_tpu_torch.utils import export as ex
+
+    (_build,) = modules
+    t_phase = time.perf_counter()
+    backbone = pred.model.backbone.eval()
+    out = {}
+    artifact = export_dir / "sam_vit_b_encoder.pt2"
+
+    # ---- the encoder: traced on the card, saved, loaded back
+    t0 = time.perf_counter()
+    program = ex.export_encoder(backbone, image_size=MAP_SIZE)
+    t1 = time.perf_counter()
+    ex.save_exported(program, str(artifact))
+    t2 = time.perf_counter()
+    encode = ex.load_exported(str(artifact), "cuda")
+    t3 = time.perf_counter()
+    del program
+    spec = ex.exported_input_spec(str(artifact))
+    out["encoder"] = dict(export_s=t1 - t0, save_s=t2 - t1, load_s=t3 - t2,
+                          mb=artifact.stat().st_size / 1e6)
+    print(f"export path: encoder artifact (bf16 ViT-B, input {spec}) traced in "
+          f"{t1 - t0:.1f} s, saved in {t2 - t1:.1f} s ({out['encoder']['mb']:.1f} MB), "
+          f"loaded in {t3 - t2:.1f} s [{card}]", flush=True)
+    if spec != (("b", MAP_SIZE, MAP_SIZE, 3), torch.float32):
+        fail(f"the encoder artifact's input spec is {spec}")
+
+    with tempfile.TemporaryDirectory() as tmpdir, ctx.ExitStack() as stack:
+        tmp = Path(tmpdir)
+        if not has_pil():
+            stack.enter_context(swapped(transforms, "decode_image", read_png))
+        shards = map_shards(np, tmp, np.random.default_rng(SEED + 71))
+        payloads = _tar_payloads(shards[0])
+        images = np.stack([mr.preprocess_image(d, MAP_SIZE) for d in payloads[:MAP_BATCH]])
+        art_fn = mr.make_encode_stats_fn_from_artifact(str(artifact), "cuda")
+        enc_fn = mr.make_encode_stats_fn(backbone)
+        enc_fn(images)
+        got, ms, launches = timed_launches(torch, _build, art_fn, images)
+        want = enc_fn(images)
+        print(f"export path: encoder artifact at batch {MAP_BATCH} on 5c's images vs "
+              f"make_encode_stats_fn: features and statistics "
+              f"{'equal' if all_equal(torch, got, want) else 'DIFFER'} bit for bit; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+        if not all_equal(torch, got, want):
+            fail("the encoder artifact's features or statistics differ from "
+                 "make_encode_stats_fn's")
+        if launches != MAP_BATCH_LAUNCHES:
+            fail(f"the encoder artifact launched {launches}, expected {MAP_BATCH_LAUNCHES}")
+        for b in (1, 3):
+            x = torch.from_numpy(images[:b]).cuda().float() / 255.0
+            with torch.inference_mode():
+                eager = nhwc_features(backbone, x)
+            same = torch.equal(encode(x), eager)
+            print(f"export path: encoder artifact at batch {b} vs the eager encoder: "
+                  f"{'equal' if same else 'DIFFER'} bit for bit", flush=True)
+            if not same:
+                fail(f"the encoder artifact differs from the eager encoder at batch {b}")
+
+        # the same encoder traced on the CPU (fake tensors: no CPU arithmetic), moved
+        t0 = time.perf_counter()
+        cpu_program = ex.export_encoder(copy.deepcopy(backbone).cpu(), image_size=MAP_SIZE)
+        cpu_s = time.perf_counter() - t0
+        ex.save_exported(cpu_program, str(tmp / "encoder_cpu.pt2"))
+        del cpu_program
+        t0 = time.perf_counter()
+        moved = ex.load_exported(str(tmp / "encoder_cpu.pt2"), "cuda")
+        move_s = time.perf_counter() - t0
+        x = torch.from_numpy(images).cuda().float() / 255.0
+        same = torch.equal(moved(x), encode(x))
+        print(f"export path: the encoder traced on the CPU in {cpu_s:.1f} s, loaded onto the "
+              f"card in {move_s:.1f} s (move_to_device_pass): batch {MAP_BATCH} features "
+              f"{'equal' if same else 'DIFFER from'} the card export's, bit for bit",
+              flush=True)
+        if not same:
+            fail("the encoder traced on the CPU and moved gives other features")
+        out["encoder"].update(cpu_export_s=cpu_s, cpu_load_move_s=move_s)
+        del moved, x
+
+        # map --artifact: the CLI (no checkpoint is read: the path holds none)
+        t0 = time.perf_counter()
+        proc, outs = map_cli(Path(__file__).resolve().parent, tmp, "artifact",
+                             ["--artifact", str(artifact)])
+        wait_cli(proc, outs, "artifact")
+        cli_s = time.perf_counter() - t0
+        res = cli_result(np, outs, "artifact")
+        same = res["records"].splitlines() == map_records
+        print(f"export path: map --artifact (CLI, {cli_s:.1f} s) records "
+              f"{'equal' if same else 'DIFFER from'} phase 5c's in-process run's, byte for "
+              f"byte", flush=True)
+        if not same:
+            fail(f"map --artifact records differ: {res['records']!r} vs {map_records!r}")
+        # ... and in this process, timed as 5c times it
+        dev = []
+
+        def timed(images):
+            before = dict(_build.LAUNCHES)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = art_fn(images)
+            end.record()
+            dev.append((start, end, {k: v - before[k] for k, v in _build.LAUNCHES.items()}))
+            return res
+
+        save, cleanup, sync = mr.make_feature_sinks(str(tmp / "features_artifact"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = mr.run_stream_native([str(p) for p in shards], timed, MAP_BATCH, MAP_SIZE,
+                                   save, 4, retry=mr.RetryPolicy(),
+                                   cleanup_features=cleanup, sync_features=sync)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = int(acc.table[:, 4].sum())
+        dms = [a.elapsed_time(b) for a, b, _ in dev]
+        wrong = [d for _, _, d in dev if d != MAP_BATCH_LAUNCHES]
+        out["map"] = dict(images=n, wall_s=wall, images_per_s=n / wall,
+                          device_ms_per_batch=sum(dms) / len(dms), cli_s=cli_s)
+        print(f"export path: map through the artifact in this process (native loader, 4 "
+              f"feeder threads, features saved): {n} images in {wall:.3f} s = "
+              f"{n / wall:.2f} images/s; device ms per batch of {MAP_BATCH} "
+              f"{', '.join(f'{v:.2f}' for v in dms)} [{card}]", flush=True)
+        if wrong or acc.emit_lines() != map_records:
+            fail(f"map through the artifact: launches {wrong}, records "
+                 f"{acc.emit_lines()} vs {map_records}")
+
+        # extract_feature --artifact at batch 1
+        write_png(np, tmp / "wide.png", np.random.default_rng(SEED + 72).integers(
+            0, 256, EXTRACT_HW + (3,), np.uint8))
+        runs = {}
+        for tag, kw in (("model", dict(model=backbone)), ("artifact", dict(
+                artifact=str(artifact), device="cuda"))):
+            with ctx.redirect_stdout(io.StringIO()):
+                stats, ms, launches = timed_launches(
+                    torch, _build, lambda: extract_feature.run_extraction_and_analyze(
+                        str(tmp / "wide.png"), str(tmp / f"extract_{tag}"),
+                        image_size=MAP_SIZE, **kw))
+            runs[tag] = (stats, np.load(stats["save_path"]), launches, ms)
+        same = (np.array_equal(runs["model"][1], runs["artifact"][1])
+                and all(runs["model"][0][k] == runs["artifact"][0][k]
+                        for k in ("mean", "std", "max", "sparsity")))
+        print(f"export path: extract_feature --artifact (batch 1, {runs['artifact'][3]:.1f} "
+              f"ms with the load) dump and statistics "
+              f"{'equal' if same else 'DIFFER from'} the run without it, bit for bit; "
+              f"launches {json.dumps({k: v for k, v in runs['artifact'][2].items() if v})}",
+              flush=True)
+        if not same or runs["artifact"][2] != MAP_BATCH_LAUNCHES:
+            fail("extract_feature --artifact differs from the run without it")
+    del encode, art_fn, enc_fn
+    torch.cuda.empty_cache()
+
+    # ---- the detector at batch 4, capacity 33, on phase 4's bucket-33 batch
+    imgs, exs = batches[2]
+    cap = pred.pick_capacity(exs, MAP_SIZE)
+    t0 = time.perf_counter()
+    det_path = export_dir / "detector.pt2"
+    ex.save_exported(ex.export_detector(pred, cap, image_size=MAP_SIZE, batch=4),
+                     str(det_path))
+    det = ex.load_exported_detector(str(det_path), "cuda")
+    det_s = time.perf_counter() - t0
+    ti, te = torch.from_numpy(imgs).cuda(), torch.from_numpy(exs).cuda()
+    det(ti, te)  # warm
+    got, ms, launches = timed_launches(torch, _build, det, ti, te)
+    want = pred(imgs, exs)
+    same = all_equal(torch, got, [want[k] for k in ("boxes", "scores", "valid")])
+    # in turns, both on the same device tensors (the eager call from numpy would time
+    # its 50 MB upload too)
+    times, eager = [], []
+    for _ in range(3):
+        times.append(timed_launches(torch, _build, det, ti, te)[1])
+        eager.append(timed_launches(torch, _build, pred, ti, te)[1])
+    out["detector"] = dict(capacity=cap, export_save_load_s=det_s,
+                           mb=det_path.stat().st_size / 1e6, ms=times, eager_ms=eager,
+                           launches=launches)
+    print(f"export path: detector artifact (batch 4, capacity {cap}; traced, saved "
+          f"{out['detector']['mb']:.1f} MB and loaded in {det_s:.1f} s): boxes, scores, valid "
+          f"{'equal' if same else 'DIFFER from'} Predictor.__call__ bit for bit; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; ms per batch "
+          f"{', '.join(f'{v:.1f}' for v in times)} beside the eager call's on the same device "
+          f"tensors, in turns, {', '.join(f'{v:.1f}' for v in eager)} and phase 4's (from "
+          f"numpy) {phase4_ms:.1f} [{card}]",
+          flush=True)
+    if not same or launches != EVAL_LAUNCHES or cap != 33:
+        fail(f"the detector artifact differs from Predictor.__call__ or launched {launches}")
+    det_path.unlink()
+    del det
+
+    # ---- the multi-exemplar program: 3 rows on phase 4d's image 0, k_real 3 and 2
+    image0 = multi_batches[0][0][:1]
+    rows = multi_batches[0][1][0]
+    mcap = pred.pick_capacity(rows, MAP_SIZE)
+    if pred.pick_capacity(rows[:2], MAP_SIZE) != mcap:
+        fail("phase 4d's image 0 rows pick other buckets at 2 and 3 rows")
+    mpath = export_dir / "detector_multi.pt2"
+    ex.save_exported(ex.export_detector(pred, mcap, image_size=MAP_SIZE, n_exemplars=3),
+                     str(mpath))
+    mdet = ex.load_exported_detector(str(mpath), "cuda")
+    for k in (3, 2):
+        padded = np.concatenate([rows[:k], np.repeat(rows[k - 1:k], 3 - k, 0)])
+        got, _, launches = timed_launches(
+            torch, _build, mdet, torch.from_numpy(image0).cuda(),
+            torch.from_numpy(padded).cuda(), torch.tensor(k, dtype=torch.int32,
+                                                          device="cuda"))
+        live = pred.predict_multi_exemplar(image0, padded, k_real=k)
+        slot = live if k == 3 else pred.predict_multi_batch(image0, padded[None], [k])
+        same = all_equal(torch, got, [slot[n] for n in ("boxes", "scores", "valid")])
+        lists = detections_to_numpy({"boxes": got[0], "scores": got[1], "valid": got[2],
+                                     "refs": slot["refs"]})
+        same_lists = lists_equal(np, lists, detections_to_numpy(live))
+        print(f"export path: multi-exemplar artifact (3 rows, capacity {mcap}) at k_real {k}: "
+              f"{'equal' if same else 'DIFFERS from'} "
+              f"{'predict_multi_exemplar' if k == 3 else 'predict_multi_batch at the same bucket'}"
+              f" bit for bit, its lists {'equal' if same_lists else 'DIFFER from'} "
+              f"predict_multi_exemplar's; launches "
+              f"{json.dumps({n: v for n, v in launches.items() if v})}", flush=True)
+        if not (same and same_lists) or launches != EVAL_LAUNCHES:
+            fail(f"the multi-exemplar artifact differs at k_real {k}")
+    mpath.unlink()
+    del mdet
+
+    # ---- the int8 detector (phase 4b's predictor on phase 4's weights)
+    qpred = Predictor(preset("TMR_FSCD147", quant="int8", quant_storage="int8",
+                             quant_kernel="int8"), device="cuda")
+    qpred.load_state_dict(pred.model.state_dict())
+    qpath = export_dir / "detector_int8.pt2"
+    ex.save_exported(ex.export_detector(qpred, cap, image_size=MAP_SIZE, batch=4),
+                     str(qpath))
+    qdet = ex.load_exported_detector(str(qpath), "cuda")
+    qdet(ti, te)
+    got, _, launches = timed_launches(torch, _build, qdet, ti, te)
+    want = qpred(imgs, exs)
+    same = all_equal(torch, got, [want[k] for k in ("boxes", "scores", "valid")])
+    qtimes, qeager = [], []
+    for _ in range(3):
+        qtimes.append(timed_launches(torch, _build, qdet, ti, te)[1])
+        qeager.append(timed_launches(torch, _build, qpred, ti, te)[1])
+    out["int8_detector"] = dict(ms=qtimes, eager_ms=qeager, mb=qpath.stat().st_size / 1e6,
+                                launches=launches)
+    print(f"export path: int8 detector artifact (batch 4, capacity {cap}, "
+          f"{out['int8_detector']['mb']:.1f} MB): {'equal' if same else 'DIFFERS from'} its "
+          f"eager call bit for bit; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; ms per batch "
+          f"{', '.join(f'{v:.1f}' for v in qtimes)} beside the eager call's in turns "
+          f"{', '.join(f'{v:.1f}' for v in qeager)} [{card}]", flush=True)
+    if not same or launches != EXPORT_INT8_LAUNCHES:
+        fail(f"the int8 detector artifact differs from its eager call or launched {launches}")
+    qpath.unlink()
+    del qdet, qpred
+    torch.cuda.empty_cache()
+
+    # ---- the SAM decoder on seeded Sam weights, n symbolic
+    sam = Sam("vit_b", device="cuda").init_random(SEED)
+    deploy = SamDeployDecoder(sam, return_single_mask=True)
+    dpath = export_dir / "sam_decoder.pt2"
+    ex.save_exported(ex.export_sam_decoder(deploy, (64, 64), num_points=2,
+                                           orig_im_size=EXPORT_DECODER_HW), str(dpath))
+    dec = ex.load_exported_decoder(str(dpath), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    emb = torch.randn(1, 64, 64, 256, generator=gen, device="cuda")
+    for n in EXPORT_DECODER_PROMPTS:
+        pts = torch.rand(n, 2, 2, generator=gen, device="cuda") * MAP_SIZE
+        labels = torch.tensor([[1, -1]] * n, dtype=torch.int32, device="cuda")
+        mask_in = torch.randn(n, 256, 256, 1, generator=gen, device="cuda")
+        has = (torch.arange(n, device="cuda") % 2).float()
+        got = dec(emb, pts, labels, mask_in, has)
+        want = deploy(emb, pts, labels, mask_in, has, EXPORT_DECODER_HW)
+        same = all_equal(torch, got, want)
+        print(f"export path: SAM decoder artifact at {n} prompt(s): "
+              f"{'equal' if same else 'DIFFERS from'} SamDeployDecoder.__call__ bit for bit "
+              f"(masks {tuple(got[0].shape)})", flush=True)
+        if not same:
+            fail(f"the SAM decoder artifact differs at {n} prompts")
+    dpath.unlink()
+    del dec, deploy, sam
+
+    # ---- opcheck of every tmr:: op on the card
+    checked = []
+    for name, args in export_op_samples(torch).items():
+        torch.library.opcheck(getattr(torch.ops.tmr, name).default, args)
+        checked.append(name)
+    print(f"export path: torch.library.opcheck passed on the card for {checked}", flush=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"export path: phase wall {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -3453,9 +3853,11 @@ def elastic_prog(root: Path, module: str) -> list:
 
 
 def elastic_worker(root: Path, address, wid: str, ckpt: Path, log: Path, pythonpath,
-                   faults_spec: str = ""):
+                   faults_spec: str = "", artifact: Path = None):
     """``python -m tmr_tpu_torch.elastic_map worker --device cuda`` in a subprocess, its
-    output into ``log``; run from ``pythonpath`` (the checkout or an unpacked payload)."""
+    output into ``log``; run from ``pythonpath`` (the checkout or an unpacked payload),
+    with the checkpoint's weights or, given ``artifact``, the exported encoder in their
+    place."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(pythonpath))
@@ -3464,7 +3866,8 @@ def elastic_worker(root: Path, address, wid: str, ckpt: Path, log: Path, pythonp
         env["TMR_FAULTS"] = faults_spec
     argv = elastic_prog(root, "tmr_tpu_torch.elastic_map") + [
         "worker", "--coordinator", f"{address[0]}:{address[1]}", "--worker_id", wid,
-        "--checkpoint", str(ckpt), "--device", "cuda", "--max_idle_s", "120"]
+        *(["--artifact", str(artifact)] if artifact else ["--checkpoint", str(ckpt)]),
+        "--device", "cuda", "--max_idle_s", "120"]
     with open(log, "w") as f:
         return subprocess.Popen(argv, cwd=str(pythonpath), env=env, stdout=f,
                                 stderr=subprocess.STDOUT)
@@ -3556,13 +3959,13 @@ def check_elastic_doc(validate, doc: dict, tag: str, causes) -> None:
         fail(f"elastic {tag}: reassignments without a cause of the closed list: {bad}")
 
 
-def check_elastic_path(torch, np, pred, card, modules) -> dict:
+def check_elastic_path(torch, np, pred, card, modules, artifact: Path) -> dict:
     """Phase 5g: the elastic map phase on phase 4's ViT-B weights (the SAM checkpoint
     phase 5c writes), bf16, 1024^2, batch 8, over 8 synthetic shards: the single-host
     CLI's table and feature tree first, then a clean run (the coordinator and one worker
-    in this process, two worker processes, one of them from the payload zip), a fault
-    run (kill -9 and SIGSTOP) and a resume after a cut coordinator. Returns the numbers
-    PERF.md keeps."""
+    in this process, two worker processes, one of them from the payload zip with phase
+    5h's encoder ``artifact`` in place of weights), a fault run (kill -9 and SIGSTOP) and
+    a resume after a cut coordinator. Returns the numbers PERF.md keeps."""
     import contextlib as ctx
     import os
     import signal
@@ -3654,7 +4057,8 @@ def check_elastic_path(torch, np, pred, card, modules) -> dict:
             logs = {w: tmp / f"{w}.log" for w in ("sub0", "payload1")}
             subs = {"sub0": elastic_worker(root, address, "sub0", ckpt, logs["sub0"], root),
                     "payload1": elastic_worker(root, address, "payload1", ckpt,
-                                               logs["payload1"], payload)}
+                                               logs["payload1"], payload,
+                                               artifact=artifact)}
             procs.extend(subs.values())
             if not poll(lambda: set(subs) <= set(coord.state()["workers"]), ELASTIC_WAIT_S,
                         0.05):
@@ -3684,7 +4088,8 @@ def check_elastic_path(torch, np, pred, card, modules) -> dict:
             print(f"elastic map path: single-host map (CLI, native loader, 4 feeder "
                   f"threads) {ref_images} images in {single_s:.3f} s of shard time = "
                   f"{ref_images / single_s:.2f} images/s; elastic clean run (3 workers: "
-                  f"one thread here, sub0, payload1 from the payload zip; tarfile loader, "
+                  f"one thread here, sub0, payload1 from the payload zip with the encoder "
+                  f"artifact; tarfile loader, "
                   f"one feeder each) {images} images in {clean_s:.3f} s from the first grant "
                   f"to the last commit = {images / clean_s:.2f} images/s [{card}]",
                   flush=True)
@@ -5056,10 +5461,18 @@ def main(argv=None) -> int:
                              backward, args.profile)
     print(json.dumps({"train": train, "backward": backward}), flush=True)
     # 5c. the map phase and extract_feature on phase 4's encoder
-    mapped = check_map_path(torch, np, pred, card, (_build, cuda_attn))
+    mapped, map_records = check_map_path(torch, np, pred, card, (_build, cuda_attn))
     print(json.dumps({"map": mapped}), flush=True)
-    # 5g. the elastic map phase on the same weights (the checkpoint 5c writes)
-    elastic = check_elastic_path(torch, np, pred, card, (_build,))
+    with tempfile.TemporaryDirectory() as export_dir:
+        # 5h. the torch.export artifacts on the same weights
+        exported = check_export_path(torch, np, pred, batches, multi_batches, map_records,
+                                     sum(times) / len(times), card, (_build,),
+                                     Path(export_dir))
+        print(json.dumps({"export": exported}), flush=True)
+        # 5g. the elastic map phase on the same weights (the checkpoint 5c writes; the
+        # payload's worker takes 5h's encoder artifact)
+        elastic = check_elastic_path(torch, np, pred, card, (_build,),
+                                     Path(export_dir) / "sam_vit_b_encoder.pt2")
     print(json.dumps({"elastic": elastic}), flush=True)
     # 5d. SAM box refinement and the segment-anything surface on phase 4's weights
     refined = check_refine_path(torch, np, pred, batches, multi_batches, card,

@@ -31,6 +31,7 @@ from test_torch_predictor import EXEMPLARS, SIZE, TINY, TINY_H80, _make_pair  # 
 from tmr_tpu_torch.models import vit  # noqa: E402
 from tmr_tpu_torch.ops import _build, cuda_attn  # noqa: E402
 from tmr_tpu_torch.utils.weights import params_from_jax  # noqa: E402
+from torch_card_route import CardRoute  # noqa: E402
 
 F32_TOL = 2e-5
 LIMIT = 227 * 1024
@@ -84,12 +85,14 @@ def test_f32_kernels_refuse_unaligned_operands():
 
 @pytest.fixture
 def launches(monkeypatch):
-    """Stand-ins for the C launcher on meta tensors (a tensor that is not on the CPU takes
-    the kernel route): each call recorded as (counter, library, function, args)."""
+    """Stand-ins for the C launcher on meta tensors, which take the kernel route (the
+    ``tmr::`` ops' CUDA kernels, ``tests/torch_card_route.py``): each call recorded as
+    (counter, library, function, args)."""
     calls = []
     monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a))
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    return calls
+    with CardRoute():
+        yield calls
 
 
 @pytest.mark.parametrize("dtype,d,counter,lib,fn", [

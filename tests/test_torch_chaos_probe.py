@@ -92,20 +92,47 @@ def test_elastic_imports_from_the_zip_and_builds_refuse_there(tmp_path):
 
 
 def test_unpacked_payload_runs_the_worker_cli(tmp_path):
+    """The worker CLI from the unpacked payload, with a TINY exported encoder in place of
+    weights (``--artifact``, ``--device cpu``), serves a coordinator in the same process:
+    the table it leaves equals the in-process run of the encoder the artifact holds,
+    byte for byte."""
+    from tmr_tpu_torch.chaos_probe import make_tar
+    from tmr_tpu_torch.models.vit import SamViT
+    from tmr_tpu_torch.parallel import mapreduce as mr
+    from tmr_tpu_torch.utils.export import export_encoder, save_exported
     from tmr_tpu_torch.utils.package import unpack_payload
+    from tmr_tpu_torch.utils.weights import init_params
 
     dest = unpack_payload(str(_payload(tmp_path)), str(tmp_path / "payload"))
+    encoder = SamViT(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                     window_size=2, out_chans=8, pretrain_img_size=32)
+    init_params(encoder, 0)
+    encoder.eval()
+    artifact = str(tmp_path / "enc.pt2")
+    with torch.no_grad():
+        save_exported(export_encoder(encoder, image_size=32), artifact)
+    shard = make_tar(str(tmp_path), "Easy_0.tar", 3, seed=0)
+    want = mr.run_stream([shard], mr.make_encode_stats_fn(encoder), 2, 32).emit_lines()
     code = (
         "import sys\n"
         f"sys.path.insert(0, {dest!r})\n"
         "from tmr_tpu_torch.ops import _build\n"
         f"assert _build.CSRC.is_dir() and str(_build.CSRC).startswith({dest!r})\n"
         "from tmr_tpu_torch import elastic_map\n"
-        "try:\n"
-        "    elastic_map.main(['worker', '--coordinator', '127.0.0.1:9', '--artifact', "
-        "'x'])\n"
-        "except NotImplementedError as err:\n"
-        "    assert 'ROADMAP A7' in str(err)\n"
-        "print('ok')\n")
+        "from tmr_tpu_torch.parallel.elastic import ElasticCoordinator, ElasticPolicy\n"
+        "from tmr_tpu_torch.parallel.mapreduce import StatAccumulator\n"
+        f"coord = ElasticCoordinator([{shard!r}], {str(tmp_path / 'j')!r}, "
+        f"features_out={str(tmp_path / 'f')!r}, image_size=32, batch_size=2, "
+        "policy=ElasticPolicy(lease_ttl_s=10.0, hb_interval_s=0.5, check_interval_s=0.1, "
+        "straggler_factor=0.0))\n"
+        "host, port = coord.start()\n"
+        "rc = elastic_map.main(['worker', '--coordinator', f'{host}:{port}', '--artifact', "
+        f"{artifact!r}, '--device', 'cpu', '--max_idle_s', '5'])\n"
+        "assert rc == 0 and coord.wait(timeout=60), rc\n"
+        "acc = StatAccumulator()\n"
+        "acc.table = coord.table()\n"
+        "coord.stop()\n"
+        "print('\\n'.join(acc.emit_lines()))\n")
     res = _run_isolated(code, tmp_path)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-3000:]
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.splitlines() == want and len(want) == 1

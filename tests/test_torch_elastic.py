@@ -722,9 +722,14 @@ def test_worker_cli_stub_exit_codes(shards, tmp_path):
 
 # -------------------------------------------------------- refused by name
 def test_unported_parts_are_refused_by_name(shards, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        elastic_map.main(["worker", "--coordinator", "127.0.0.1:9", "--artifact",
-                          "enc.stablehlo"])
+    """tcp:// sinks and ``TMR_FLEET_OBS`` stay refused; ``worker --artifact`` is ported
+    (the payload test of ``tests/test_torch_chaos_probe.py`` runs it), and without a GPU
+    it refuses the CPU unless ``--device cpu`` is given, before it dials."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            elastic_map.main(["worker", "--coordinator", "127.0.0.1:9", "--artifact",
+                              str(tmp_path / "enc.pt2")])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         elastic.ElasticCoordinator(shards, str(tmp_path / "j"),
                                    features_out="tcp://127.0.0.1:9")

@@ -184,5 +184,20 @@ def test_cli_runs_vit_b_on_the_cpu_when_asked(tmp_path, capsys):
     assert feats.shape == (1, 2, 2, 256) and feats.dtype == np.float32
     assert np.isfinite(feats).all()
     assert "VERDICT" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ext.main(["x.jpg", "--artifact", "enc.stablehlo", "--device", "cpu"])
+    # --artifact on a TINY exported encoder: the dump equals the model's, bit for bit
+    from tmr_tpu_torch.models.vit import SamViT
+    from tmr_tpu_torch.utils.export import export_encoder, save_exported
+    from tmr_tpu_torch.utils.weights import init_params
+
+    tiny = SamViT(embed_dim=32, depth=2, num_heads=2, global_attn_indexes=(1,),
+                  window_size=2, out_chans=8, pretrain_img_size=32)
+    init_params(tiny, 0)
+    tiny.eval()
+    save_exported(export_encoder(tiny, image_size=32), str(tmp_path / "enc.pt2"))
+    want = ext.run_extraction_and_analyze(str(tmp_path / "none.jpg"), str(tmp_path / "m"),
+                                          model=tiny, image_size=32)
+    got = ext.main([str(tmp_path / "none.jpg"), "--output_dir", str(tmp_path / "a"),
+                    "--artifact", str(tmp_path / "enc.pt2"), "--device", "cpu",
+                    "--image_size", "32"])
+    assert np.array_equal(np.load(got["save_path"]), np.load(want["save_path"]))
+    assert got["mean"] == want["mean"] and got["sparsity"] == want["sparsity"]

@@ -109,6 +109,17 @@ def test_scan_covers_the_resnet_and_prototype_modules(mod):
     assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
 
 
+@pytest.mark.parametrize("mod", ["utils/export.py", "export_encoder.py", "ops/probe.py",
+                                 "ops/cuda_nms.py", "ops/cuda_int8.py", "ops/cuda_attn.py"])
+def test_scan_covers_the_export_modules(mod):
+    """The export module, its CLI and the modules that register the ``tmr::`` ops: each
+    the port's own, with no import of JAX, ``tmr_tpu``, ``tests`` or cv2."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
+
+
 def test_sam_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.refine import build_refiner

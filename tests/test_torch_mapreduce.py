@@ -474,17 +474,23 @@ def test_map_report_validator():
     assert any("ROADMAP A8" in p for p in validate_map_report(dict(doc, metrics={})))
 
 
-def test_unported_parts_are_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mr.make_encode_stats_fn_from_artifact("enc.stablehlo")
+def test_unported_parts_are_refused_by_name(tmp_path, monkeypatch):
+    """allreduce and tcp:// sinks stay refused; the exported-encoder artifact is ported
+    (``tests/test_torch_export.py`` runs it), and without a GPU ``map --artifact`` refuses
+    the CPU unless ``--device cpu`` is given, before it reads the artifact."""
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mr.allreduce_stats(np.zeros((4, 5)))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mr.make_feature_sinks("tcp://127.0.0.1:9")
-    for argv in (["map", "--artifact", "enc.stablehlo"],
-                 ["map", "--features_out", "tcp://127.0.0.1:9"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            mr.main(argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        mr.main(["map", "--features_out", "tcp://127.0.0.1:9"])
+    assert "artifact" not in mr._REFUSED
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.stdin", io.StringIO(""))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mr.main(["map", "--artifact", str(tmp_path / "enc.pt2")])
+    with pytest.raises(FileNotFoundError):
+        mr.make_encode_stats_fn_from_artifact(str(tmp_path / "enc.pt2"), "cpu")
 
 
 def test_native_reader_builds_into_the_port(tmp_path):

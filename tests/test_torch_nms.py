@@ -27,6 +27,7 @@ from test_torch_tail import _boxes_with_ties  # noqa: E402
 from tmr_tpu.ops.nms import nms_keep_mask as j_nms  # noqa: E402
 from tmr_tpu.ops.pallas_nms import nms_keep_mask_pallas  # noqa: E402
 from tmr_tpu_torch.ops import cuda_nms  # noqa: E402
+from torch_card_route import CardRoute  # noqa: E402
 
 BLK = 64
 ALL = (1 << BLK) - 1
@@ -236,7 +237,8 @@ def test_bitmask_model_deep_chain():
 def test_kernel_takes_any_box_count(n, words, monkeypatch):
     """The kernel's only limit is its workspace, (B, N, mask_words(N)) 64-bit words:
     past the sequential kernel's shared-memory cap (9000 boxes) the wrapper still
-    launches (driven here on shapes alone, ``meta`` tensors, the launch recorded)."""
+    launches (driven here on shapes alone, ``meta`` tensors on the kernel route, the
+    launch recorded)."""
     assert not hasattr(cuda_nms, "MAX_BOXES")
     assert cuda_nms.mask_words(n) == words
     assert words * BLK >= n > (words - 1) * BLK
@@ -244,8 +246,9 @@ def test_kernel_takes_any_box_count(n, words, monkeypatch):
     monkeypatch.setattr(cuda_nms._build, "launch", lambda *args: calls.append(args))
     monkeypatch.setattr(cuda_nms._build, "stream_of", lambda t: 0)
     boxes = torch.empty((2, n, 4), device="meta")
-    keep = cuda_nms.greedy_keep_sorted(boxes, torch.empty((2, n), dtype=torch.bool,
-                                                          device="meta"), 0.5)
+    with CardRoute():
+        keep = cuda_nms.greedy_keep_sorted(boxes, torch.empty((2, n), dtype=torch.bool,
+                                                              device="meta"), 0.5)
     assert keep.shape == (2, n) and keep.dtype == torch.bool
     assert len(calls) == 1 and calls[0][:3] == ("nms", "nms", "tmr_nms")
     assert calls[0][-4:] == (2, n, 0.5, 0)

@@ -16,7 +16,10 @@ time, heartbeats it, and commits the journal marker under an epoch fence)::
         --checkpoint sam_vit_b.pth [--model_type vit_b|vit_h] [--device cuda]
 
 A worker encodes with the port's SAM encoder on the GPU (``--device cuda``, the
-default, raises without one; ``--device cpu`` runs the plain versions when asked).
+default, raises without one; ``--device cpu`` runs the plain versions when asked), or
+with an exported encoder (``--artifact``, ``python -m tmr_tpu_torch.export_encoder``; no
+model built, no checkpoint read), which runs from the unpacked worker payload
+(``utils/package.py``).
 ``--encoder stub`` runs the numpy stand-in encoder (drills and protocol debugging; no
 model, no device). Both packages speak one protocol, so port workers serve a JAX
 coordinator and JAX workers a port one.
@@ -28,8 +31,7 @@ drills: TMR_FAULTS schedules with the ``lease`` / ``heartbeat`` / ``steal`` poin
 faults; ``python -m tmr_tpu_torch.chaos_probe --elastic`` is the canned gauntlet.
 
 Exit codes: the coordinator 1 when the run did not settle within ``--wait_timeout_s``;
-a worker 1 when it was drained or failed every shard it touched. ``--artifact`` (an
-exported encoder) is not ported yet and raises (ROADMAP A7, export).
+a worker 1 when it was drained or failed every shard it touched.
 """
 
 from __future__ import annotations
@@ -111,18 +113,18 @@ def _cli_worker(args) -> int:
     from tmr_tpu_torch.utils.profiling import log_info, log_warning
 
     _install_faults()
-    if args.artifact:
-        from tmr_tpu_torch.parallel.mapreduce import make_encode_stats_fn_from_artifact
-
-        make_encode_stats_fn_from_artifact(args.artifact)  # raises, ROADMAP A7
     if args.encoder == "stub":
         fn = stub_encode_stats_fn(delay_s=args.shard_delay_s)
+    elif args.artifact:
+        from tmr_tpu_torch.parallel.mapreduce import make_encode_stats_fn_from_artifact
+
+        fn = make_encode_stats_fn_from_artifact(args.artifact, args.device)
     else:
         from tmr_tpu_torch.models import build_sam_encoder
         from tmr_tpu_torch.parallel.mapreduce import make_encode_stats_fn
 
         if not args.checkpoint:
-            log_warning("worker: no --checkpoint, random weights")
+            log_warning("worker: no --artifact/--checkpoint, random weights")
         fn = make_encode_stats_fn(build_sam_encoder(args.model_type, args.checkpoint,
                                                     device=args.device))
 
@@ -180,7 +182,8 @@ def main(argv=None) -> int:
     w.add_argument("--encoder", default="model", choices=("model", "stub"),
                    help="'stub' = numpy stand-in encoder (drills; no device)")
     w.add_argument("--artifact", default=None,
-                   help="serialized encoder (not ported yet: raises, ROADMAP A7)")
+                   help="exported encoder (.pt2) in place of the model: no model built, "
+                        "no checkpoint read")
     w.add_argument("--checkpoint", default=None,
                    help="SAM(-HQ) .pth; without it the weights are seeded")
     w.add_argument("--model_type", default="vit_b")

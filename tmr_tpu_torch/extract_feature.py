@@ -10,10 +10,11 @@ the features dumped as ``<name>_feature.npy``, float32 NHWC ``(1, 64, 64, 256)``
 
 Usage:
   python -m tmr_tpu_torch.extract_feature [image.jpg] [--output_dir feature]
-      [--backbone sam_vit_b|sam_vit_h] [--checkpoint sam_hq_vit_b.pth]
-      [--device cuda|cpu]
+      [--backbone sam_vit_b|sam_vit_h] [--checkpoint sam_hq_vit_b.pth |
+      --artifact exported/sam_vit_b_encoder.pt2] [--device cuda|cpu]
 
-``--artifact`` (an exported encoder) is not ported yet and raises (ROADMAP A7).
+``--artifact`` runs an exported encoder (``python -m tmr_tpu_torch.export_encoder``) in
+place of the model: no model is built and no checkpoint is read.
 """
 
 from __future__ import annotations
@@ -65,28 +66,36 @@ def run_extraction_and_analyze(image_path: str, output_dir: str = "feature",
                                artifact: str | None = None, model=None,
                                image_size: int = 1024, device=None) -> dict:
     """The whole pipeline; returns the statistics (also printed) with ``save_path``.
-    ``model`` may be given (a ``SamViT``; tests, preloaded weights); otherwise
-    ``models.build_sam_encoder(backbone, checkpoint, device=device)`` builds it, on the
+    ``artifact`` runs an exported encoder (``utils/export.load_exported``) on ``device``;
+    otherwise ``model`` may be given (a ``SamViT``; tests, preloaded weights), or
+    ``models.build_sam_encoder(backbone, checkpoint, device=device)`` builds it; on the
     card unless ``device`` says otherwise."""
     from tmr_tpu_torch.data.transforms import sam_longest_side_preprocess
-    from tmr_tpu_torch.models import build_sam_encoder
+    from tmr_tpu_torch.models import build_sam_encoder, resolve_device
+    from tmr_tpu_torch.models.vit import nhwc_features
 
-    if artifact is not None:
-        raise NotImplementedError(f"--artifact {artifact}: the exported-encoder artifact "
-                                  "is not ported yet (ROADMAP A7, export)")
     image, image_path = load_or_dummy(image_path)
     print(f"[2/4] preprocessing {image_path} ({image.shape[1]}x{image.shape[0]})")
     x = sam_longest_side_preprocess(image, target=image_size)[None]
-    if model is None:
-        if not checkpoint:
-            print("      no checkpoint: random weights (stats are still well-defined, "
-                  "like the reference without weights)")
-        model = build_sam_encoder(backbone, checkpoint, device=device)
-    dev = next(model.parameters()).device
-    print(f"[3/4] encoding on {dev.type}")
+    if artifact is not None:
+        from tmr_tpu_torch.utils.export import load_exported
+
+        dev = resolve_device(device)
+        encode = load_exported(artifact, dev)
+    else:
+        if model is None:
+            if not checkpoint:
+                print("      no checkpoint: random weights (stats are still well-defined, "
+                      "like the reference without weights)")
+            model = build_sam_encoder(backbone, checkpoint, device=device)
+        dev = next(model.parameters()).device
+
+        def encode(images):
+            return nhwc_features(model, images)
+
+    print(f"[3/4] encoding on {dev.type}" + (f" (artifact {artifact})" if artifact else ""))
     with torch.inference_mode():
-        feats = model(torch.from_numpy(x).to(dev)).float().permute(0, 2, 3, 1)
-        feats = feats.contiguous().cpu().numpy()
+        feats = encode(torch.from_numpy(x).to(dev)).cpu().numpy()
     stats = analyze(feats)
 
     print("=" * 60)
@@ -117,7 +126,8 @@ def main(argv=None) -> dict:
                    help="sam_vit_b | sam_vit_h | sam (alias for vit_h)")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--artifact", default=None,
-                   help="serialized encoder (not ported yet: raises, ROADMAP A7)")
+                   help="exported encoder (.pt2, python -m tmr_tpu_torch.export_encoder) "
+                        "in place of the model")
     p.add_argument("--image_size", default=1024, type=int)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")

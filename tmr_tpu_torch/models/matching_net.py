@@ -142,10 +142,13 @@ class MatchingNet(nn.Module):
     def _encode(self, image: Optional[torch.Tensor],
                 features: Optional[torch.Tensor]) -> torch.Tensor:
         """The encoder's output (B, C, h, w), or ``features`` (B, h, w, C) in its place;
-        one layout either way, so the split programs run the fused one's ops bit for
+        one layout either way (a contiguous copy, made in every case: the SAM encoder's
+        output is channels-last on the card, and a ``torch.export`` trace would drop a
+        ``contiguous()`` that it sees on a contiguous fake tensor), so the split programs
+        and an exported program run the fused one's ops on the same layout, bit for
         bit."""
         f = self.backbone(image) if features is None else features.permute(0, 3, 1, 2)
-        return f.contiguous()
+        return f.clone(memory_format=torch.contiguous_format)
 
     def match(self, image: Optional[torch.Tensor], exemplars: torch.Tensor,
               capacity: int, features: Optional[torch.Tensor] = None) -> torch.Tensor:

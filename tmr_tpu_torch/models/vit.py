@@ -83,8 +83,10 @@ class Attention(nn.Module):
         heads = self.num_heads
         hd = dim // heads
         qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        # at b = 1 the reshape is a strided view, not a copy: the kernels take dense rows
-        q, k, v = (t.reshape(b * heads, h * w, hd).contiguous() for t in qkv)
+        # the kernels take dense rows: the copy comes before the reshape, where every batch
+        # needs it (after it, b = 1 would leave a strided view, which a program traced
+        # at another batch size would pass on as it is)
+        q, k, v = (t.contiguous().reshape(b * heads, h * w, hd) for t in qkv)
         if not self.use_rel_pos:
             o = global_attention(q, k, v, None, None, (h, w), hd ** -0.5)
         elif self.windowed:
@@ -177,6 +179,15 @@ VIT_CONFIGS = {
     "vit_h": dict(embed_dim=1280, depth=32, num_heads=16,
                   global_attn_indexes=(7, 15, 23, 31)),
 }
+
+
+def nhwc_features(encoder: nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """The encoder's features as the JAX encoder gives them: f32 NHWC, contiguous. The
+    copy is made whatever the layout, so that a ``torch.export`` program of this function
+    writes the same layout as the eager call (the trace drops a ``contiguous()`` that it
+    sees on a contiguous tensor)."""
+    return encoder(images).float().permute(0, 2, 3, 1).clone(
+        memory_format=torch.contiguous_format)
 
 
 def build_sam_vit(model_type: str = "vit_h", dtype: torch.dtype = torch.float32,

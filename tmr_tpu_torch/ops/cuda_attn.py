@@ -18,9 +18,13 @@ one launch that writes nothing to HBM but its output. Softmax statistics and
 accumulators are f32; p is rounded to the input dtype before the p.v product, as in
 ``blockwise_decomposed_attention``.
 
-A wrapper runs the plain version only for CPU tensors; a CUDA tensor launches the
-kernel (``csrc/attn.cu``, whose header says what bounds it on the card and how the
-design answers) or raises. Both wrappers are differentiable: each is a
+Each kernel is a registered ``torch.library`` op, ``tmr::global_attn`` and
+``tmr::window_attn``, so that ``torch.export`` records it by name (``utils/export.py``):
+its CPU kernel is the plain version, its CUDA kernel launches the kernel
+(``csrc/attn.cu``, whose header says what bounds it on the card and how the design
+answers) or raises, and its fake implementation gives the output's shape for a traced
+(symbolic) batch. The eager path and an exported program call the same op. Both
+wrappers are differentiable: each is a
 ``torch.autograd.Function`` (the counterpart of ``_pallas_attn_vjp`` /
 ``_pallas_win_vjp`` and their ``jax.custom_vjp`` rules) whose backward,
 :func:`attention_backward`, recomputes the scores and the softmax from the saved q, k, v
@@ -322,7 +326,7 @@ class GlobalAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
         ctx.save_for_backward(q, k, v, rel_pos_h, rel_pos_w)
         ctx.grid_hw, ctx.scale = grid_hw, scale
-        return _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale)
+        return torch.ops.tmr.global_attn(q, k, v, rel_pos_h, rel_pos_w, *grid_hw, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -338,14 +342,29 @@ class GlobalAttention(torch.autograd.Function):
                 None, None)
 
 
-def _global_forward(q, k, v, rel_pos_h, rel_pos_w, grid_hw, scale):
-    gh, gw = grid_hw
+@torch.library.custom_op(
+    "tmr::global_attn", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? rel_pos_h, Tensor? rel_pos_w, int gh, "
+           "int gw, float scale) -> Tensor")
+def _global_attn_op(q, k, v, rel_pos_h, rel_pos_w, gh, gw, scale):
+    """The op of :func:`global_attention`'s forward; this, its CPU kernel, is the plain
+    version on the projections of the compact tables' expansion."""
+    rel = (bias_projections(q, get_rel_pos(gh, gh, rel_pos_h),
+                            get_rel_pos(gw, gw, rel_pos_w), (gh, gw))
+           if rel_pos_h is not None else (None, None))
+    return attention_plain(q, k, v, *rel, (gh, gw), scale)
+
+
+@_global_attn_op.register_fake
+def _global_attn_fake(q, k, v, rel_pos_h, rel_pos_w, gh, gw, scale):
+    return torch.empty_like(q)
+
+
+@_global_attn_op.register_kernel("cuda")
+def _global_attn_cuda(q, k, v, rel_pos_h, rel_pos_w, gh, gw, scale):
+    """The op's CUDA kernel: one launch of ``tmr_global_attn`` (bf16) or
+    ``tmr_global_attn_f32``, or ``ValueError`` for what the kernels do not take."""
     has_bias = rel_pos_h is not None
-    if q.device.type == "cpu":
-        rel = (bias_projections(q, get_rel_pos(gh, gh, rel_pos_h),
-                                get_rel_pos(gw, gw, rel_pos_w), grid_hw)
-               if has_bias else (None, None))
-        return attention_plain(q, k, v, *rel, grid_hw, scale)
     _check(q, k, v, "global_attention")
     bh, s, d = q.shape
     f32 = q.dtype == torch.float32
@@ -417,7 +436,7 @@ class WindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, rh, rw, grid_hw, scale):
         ctx.save_for_backward(q, k, v, rh, rw)
         ctx.grid_hw, ctx.scale = grid_hw, scale
-        return _window_forward(q, k, v, rh, rw, grid_hw, scale)
+        return torch.ops.tmr.window_attn(q, k, v, rh, rw, *grid_hw, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -425,13 +444,28 @@ class WindowAttention(torch.autograd.Function):
                 None, None)
 
 
-def _window_forward(q, k, v, rh, rw, grid_hw, scale):
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, *bias_projections(q, rh, rw, grid_hw), grid_hw,
-                               scale)
+@torch.library.custom_op(
+    "tmr::window_attn", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor rh, Tensor rw, int gh, int gw, "
+           "float scale) -> Tensor")
+def _window_attn_op(q, k, v, rh, rw, gh, gw, scale):
+    """The op of :func:`window_attention`'s forward; this, its CPU kernel, is the plain
+    version."""
+    return attention_plain(q, k, v, *bias_projections(q, rh, rw, (gh, gw)), (gh, gw),
+                           scale)
+
+
+@_window_attn_op.register_fake
+def _window_attn_fake(q, k, v, rh, rw, gh, gw, scale):
+    return torch.empty_like(q)
+
+
+@_window_attn_op.register_kernel("cuda")
+def _window_attn_cuda(q, k, v, rh, rw, gh, gw, scale):
+    """The op's CUDA kernel: one launch of ``tmr_window_attn`` (bf16) or
+    ``tmr_window_attn_f32``, or ``ValueError`` for what the kernels do not take."""
     _check(q, k, v, "window_attention")
     bh, s, d = q.shape
-    gh, gw = grid_hw
     f32 = q.dtype == torch.float32
     if s != gh * gw:
         raise ValueError(f"window_attention: S={s} is not the {gh}x{gw} window's")

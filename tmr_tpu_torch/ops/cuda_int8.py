@@ -16,9 +16,11 @@ tap products summed in f32 in tap order, each through the product's epilogue, th
 bias and ``leaky_relu``, bit for bit what the per-tap composition computes. It takes the
 unpadded activation: the kernel reads zeros outside the image.
 
-The wrappers run the plain versions only for CPU tensors; a CUDA tensor launches
-``csrc/int8_mm.cu`` (its header says what bounds each kernel on the card) or raises. The
-kernels have no backward (training runs without quantization): on the card an input that
+Each kernel is a registered ``torch.library`` op, ``tmr::int8_mm`` and
+``tmr::int8_conv3x3``, which ``torch.export`` records by name: its CPU kernel is the plain
+version, its CUDA kernel launches ``csrc/int8_mm.cu`` (whose header says what bounds each
+kernel on the card) or raises, and its fake implementation gives the plain version's
+output shape and dtype. The kernels have no backward (training runs without quantization): on the card an input that
 requires grad raises while grad mode is on (``_build.refuse_grad``).
 """
 
@@ -64,9 +66,30 @@ def int8_mm(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
         raise ValueError(
             f"int8_mm: x_q {tuple(x_q.shape)}, w_q {tuple(w_q.shape)}, x_scale "
             f"{tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
-    if x_q.device.type == "cpu":
-        return int8_mm_plain(x_q, w_q, x_scale, w_scale)
-    _build.refuse_grad("int8_mm", x_q, w_q, x_scale, w_scale)
+    if x_q.device.type != "cpu":
+        _build.refuse_grad("int8_mm", x_q, w_q, x_scale, w_scale)
+    return torch.ops.tmr.int8_mm(x_q, w_q, x_scale, w_scale)
+
+
+@torch.library.custom_op(
+    "tmr::int8_mm", mutates_args=(), device_types="cpu",
+    schema="(Tensor x_q, Tensor w_q, Tensor x_scale, Tensor w_scale) -> Tensor")
+def _int8_mm_op(x_q, w_q, x_scale, w_scale):
+    """The op of :func:`int8_mm`; this, its CPU kernel, is the plain version."""
+    return int8_mm_plain(x_q, w_q, x_scale, w_scale)
+
+
+@_int8_mm_op.register_fake
+def _int8_mm_fake(x_q, w_q, x_scale, w_scale):
+    return x_q.new_empty((*x_q.shape[:-1], w_q.shape[0]), dtype=torch.float32)
+
+
+@_int8_mm_op.register_kernel("cuda")
+def _int8_mm_cuda(x_q, w_q, x_scale, w_scale):
+    """The op's CUDA kernel: one launch of ``tmr_int8_mm`` on x_q's rows as they are
+    strided, or ``ValueError`` for operands the kernel does not take."""
+    k = x_q.shape[-1]
+    n = w_q.shape[0]
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise ValueError("int8_mm: the kernel takes int8 operands")
     if x_q.stride(-1) != 1:
@@ -121,10 +144,31 @@ def int8_conv3x3(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch
     f32; wq (3, 3, N, C) int8 and sw (3, 3, N) f32, the stored taps; bias (N,) f32 ->
     leaky_relu(conv3x3 + bias) (B, H, W, N) f32. On the card C must be a multiple of 16
     (TMA's 16-byte strides)."""
+    _check_conv3x3(xq, sx, wq, sw, bias)
+    if xq.device.type != "cpu":
+        _build.refuse_grad("int8_conv3x3", xq, sx, wq, sw, bias)
+    return torch.ops.tmr.int8_conv3x3(xq, sx, wq, sw, bias, float(negative_slope))
+
+
+@torch.library.custom_op(
+    "tmr::int8_conv3x3", mutates_args=(), device_types="cpu",
+    schema="(Tensor xq, Tensor sx, Tensor wq, Tensor sw, Tensor bias, "
+           "float negative_slope) -> Tensor")
+def _int8_conv3x3_op(xq, sx, wq, sw, bias, negative_slope):
+    """The op of :func:`int8_conv3x3`; this, its CPU kernel, is the plain version."""
+    return int8_conv3x3_plain(xq, sx, wq, sw, bias, negative_slope)
+
+
+@_int8_conv3x3_op.register_fake
+def _int8_conv3x3_fake(xq, sx, wq, sw, bias, negative_slope):
+    return xq.new_empty((*xq.shape[:3], wq.shape[2]), dtype=torch.float32)
+
+
+@_int8_conv3x3_op.register_kernel("cuda")
+def _int8_conv3x3_cuda(xq, sx, wq, sw, bias, negative_slope):
+    """The op's CUDA kernel: one launch of ``tmr_int8_conv3x3``, or ``ValueError`` for
+    operands the kernel does not take."""
     b, h, w, c, n = _check_conv3x3(xq, sx, wq, sw, bias)
-    if xq.device.type == "cpu":
-        return int8_conv3x3_plain(xq, sx, wq, sw, bias, negative_slope)
-    _build.refuse_grad("int8_conv3x3", xq, sx, wq, sw, bias)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise ValueError("int8_conv3x3: the kernel takes int8 operands")
     if c % 16:

@@ -5,8 +5,10 @@ boxes arrive sorted by descending score; box i, while kept, suppresses every lat
 whose IoU with it is strictly above the threshold. Areas clamp at 0, the union at
 ``1e-12``. Sorting and unsorting stay outside (``ops/nms.py``), as in the JAX wrapper.
 
-The wrapper runs the plain version only for CPU tensors; a CUDA tensor launches
-``csrc/nms.cu`` or raises. There the work is an IoU bitmask of every (i, j > i) pair,
+The kernel is a registered ``torch.library`` op, ``tmr::nms``, which ``torch.export``
+records by name: its CPU kernel is the plain version (whose early exit reads the data,
+inside the op and never in a traced program), its CUDA kernel launches ``csrc/nms.cu`` or
+raises, and its fake implementation gives the (B, N) bool keep mask. There the work is an IoU bitmask of every (i, j > i) pair,
 made in parallel into a workspace of :func:`mask_words` 64-bit words per box, then a
 short scan over those words per image that decides the keeps (two kernel launches per
 call, counted as one). The IoU is explicitly rounded, so keep decisions equal the plain
@@ -56,9 +58,29 @@ def greedy_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor,
     b, n, four = boxes.shape
     if four != 4 or valid.shape != (b, n):
         raise ValueError(f"nms: boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
-    if boxes.device.type == "cpu":
-        return greedy_keep_sorted_plain(boxes, valid, iou_threshold)
-    _build.refuse_grad("nms", boxes)
+    if boxes.device.type != "cpu":
+        _build.refuse_grad("nms", boxes)
+    return torch.ops.tmr.nms(boxes, valid, float(iou_threshold))
+
+
+@torch.library.custom_op("tmr::nms", mutates_args=(), device_types="cpu",
+                         schema="(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor")
+def _nms_op(boxes, valid, iou_threshold):
+    """The op of :func:`greedy_keep_sorted`; this, its CPU kernel, is the plain
+    version."""
+    return greedy_keep_sorted_plain(boxes, valid, iou_threshold)
+
+
+@_nms_op.register_fake
+def _nms_fake(boxes, valid, iou_threshold):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
+@_nms_op.register_kernel("cuda")
+def _nms_cuda(boxes, valid, iou_threshold):
+    """The op's CUDA kernel: the mask and scan launches of ``tmr_nms`` (counted as one),
+    or ``ValueError`` for boxes the kernel does not take."""
+    b, n, _ = boxes.shape
     if boxes.dtype != torch.float32:
         raise ValueError("nms: the kernel takes f32 boxes")
     boxes = boxes.contiguous()

@@ -17,9 +17,11 @@ On the card, both run on the tensor cores, each template row as a Toeplitz band 
 (3xTF32, f32 grade); :func:`xcorr_int8` in s8 (m16n8k32), one pass with one exact int32
 sum (:func:`int8_geometry` mirrors its launch geometry).
 
-The wrapper runs the plain version (the T^2 shifted multiply-adds of the Pallas kernel)
-only for CPU tensors (both wrappers); a CUDA tensor launches ``csrc/xcorr.cu`` (its
-header says what bounds it on the card and how each kernel is laid out) or raises. The
+Each kernel is a registered ``torch.library`` op, ``tmr::xcorr`` and
+``tmr::xcorr_int8``, which ``torch.export`` records by name: its CPU kernel is the plain
+version (the T^2 shifted multiply-adds of the Pallas kernel), its CUDA kernel launches
+``csrc/xcorr.cu`` (whose header says what bounds it on the card and how each kernel is
+laid out) or raises, and its fake implementation gives the f32 output's shape. The
 wrappers themselves have no backward: on the card an input that requires grad raises
 while grad mode is on (``_build.refuse_grad``). The f32 correlation's gradient is
 :class:`XCorr`, the ``torch.autograd.Function`` the matcher calls: its forward is
@@ -87,9 +89,29 @@ def xcorr(feature: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
     if template.shape != (b, c, t, t) or t % 2 == 0:
         raise ValueError(
             f"xcorr: template {tuple(template.shape)} must be (B, C, T, T), T odd")
-    if feature.device.type == "cpu":
-        return xcorr_plain(feature, template)
-    _build.refuse_grad("xcorr", feature, template)
+    if feature.device.type != "cpu":
+        _build.refuse_grad("xcorr", feature, template)
+    return torch.ops.tmr.xcorr(feature, template)
+
+
+@torch.library.custom_op("tmr::xcorr", mutates_args=(), device_types="cpu",
+                         schema="(Tensor feature, Tensor template) -> Tensor")
+def _xcorr_op(feature, template):
+    """The op of :func:`xcorr`; this, its CPU kernel, is the plain version."""
+    return xcorr_plain(feature, template)
+
+
+@_xcorr_op.register_fake
+def _xcorr_fake(feature, template):
+    return feature.new_empty(feature.shape, dtype=torch.float32)
+
+
+@_xcorr_op.register_kernel("cuda")
+def _xcorr_cuda(feature, template):
+    """The op's CUDA kernel: one launch of ``tmr_xcorr``, or ``ValueError`` for what the
+    kernel does not take."""
+    b, c, h, w = feature.shape
+    t = template.shape[-1]
     if feature.dtype != torch.float32 or template.dtype != torch.float32:
         raise ValueError("xcorr: the kernel takes f32 feature and template")
     if t > MAX_T:
@@ -165,9 +187,30 @@ def xcorr_int8(feature: torch.Tensor, template: torch.Tensor, f_scale: torch.Ten
             f"xcorr_int8: feature {tuple(feature.shape)}, template "
             f"{tuple(template.shape)} (T odd), scales {tuple(f_scale.shape)} / "
             f"{tuple(t_scale.shape)} must be (B, C, 1, 1)")
-    if feature.device.type == "cpu":
-        return xcorr_int8_plain(feature, template, f_scale, t_scale)
-    _build.refuse_grad("xcorr_int8", feature, template, f_scale, t_scale)
+    if feature.device.type != "cpu":
+        _build.refuse_grad("xcorr_int8", feature, template, f_scale, t_scale)
+    return torch.ops.tmr.xcorr_int8(feature, template, f_scale, t_scale)
+
+
+@torch.library.custom_op(
+    "tmr::xcorr_int8", mutates_args=(), device_types="cpu",
+    schema="(Tensor feature, Tensor template, Tensor f_scale, Tensor t_scale) -> Tensor")
+def _xcorr_int8_op(feature, template, f_scale, t_scale):
+    """The op of :func:`xcorr_int8`; this, its CPU kernel, is the plain version."""
+    return xcorr_int8_plain(feature, template, f_scale, t_scale)
+
+
+@_xcorr_int8_op.register_fake
+def _xcorr_int8_fake(feature, template, f_scale, t_scale):
+    return feature.new_empty(feature.shape, dtype=torch.float32)
+
+
+@_xcorr_int8_op.register_kernel("cuda")
+def _xcorr_int8_cuda(feature, template, f_scale, t_scale):
+    """The op's CUDA kernel: one launch of ``tmr_xcorr_int8``, or ``ValueError`` for what
+    the kernel does not take."""
+    b, c, h, w = feature.shape
+    t = template.shape[-1]
     if feature.dtype != torch.int8 or template.dtype != torch.int8:
         raise ValueError("xcorr_int8: the kernel takes int8 feature and template")
     int8_geometry(t)

@@ -5,8 +5,10 @@ whether Mosaic lowers at all). Here it shows that ``nvcc`` builds for ``sm_90a``
 ``ctypes`` binds the library and that a kernel launches on PyTorch's stream;
 ``chip_smoke.py`` runs it before any other kernel.
 
-The wrapper runs the plain version only for CPU tensors; a CUDA tensor launches
-``csrc/probe.cu`` or raises.
+Like every kernel of the port it is a registered ``torch.library`` op, ``tmr::add1``: its
+CPU kernel is the plain version, its CUDA kernel launches ``csrc/probe.cu`` or raises.
+``chip_smoke.py`` times a call through the op beside the bare launch: the host's cost of
+the dispatch.
 """
 
 from __future__ import annotations
@@ -22,8 +24,24 @@ def add1_plain(x: torch.Tensor) -> torch.Tensor:
 
 def add1(x: torch.Tensor) -> torch.Tensor:
     """``x + 1`` for an f32 tensor."""
-    if x.device.type == "cpu":
-        return add1_plain(x)
+    return torch.ops.tmr.add1(x)
+
+
+@torch.library.custom_op("tmr::add1", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x) -> Tensor")
+def _add1_op(x):
+    """The op of :func:`add1`; this, its CPU kernel, is the plain version."""
+    return add1_plain(x)
+
+
+@_add1_op.register_fake
+def _add1_fake(x):
+    return torch.empty_like(x)
+
+
+@_add1_op.register_kernel("cuda")
+def _add1_cuda(x):
+    """The op's CUDA kernel: one launch of ``tmr_add1``."""
     if x.dtype != torch.float32:
         raise ValueError("add1: the kernel takes f32")
     x = x.contiguous()

@@ -26,11 +26,12 @@ uninterrupted one. Non-finite per-image statistics are excluded and counted. The
 described by a ``map_report/v1`` document (``diagnostics.py``), and the fault points of
 ``utils/faults.py`` are threaded through it.
 
-Not ported yet, and refused by name: the exported-encoder artifact (``--artifact``,
-``make_encode_stats_fn_from_artifact``) and ``tcp://`` feature sinks (ROADMAP A7), and
-``allreduce_stats`` (A7, ``torch.distributed``). The JAX package's ``obs`` counters,
-spans and flight records of the executor, and the report's ``metrics`` key, wait for
-the measurement plane (A8).
+``--artifact`` (``make_encode_stats_fn_from_artifact``) encodes with an exported encoder
+(``utils/export.py``, ``python -m tmr_tpu_torch.export_encoder``) in place of the model:
+no model is built and no checkpoint is read. Not ported yet, and refused by name:
+``tcp://`` feature sinks (ROADMAP A7) and ``allreduce_stats`` (A7,
+``torch.distributed``). The JAX package's ``obs`` counters, spans and flight records of
+the executor, and the report's ``metrics`` key, wait for the measurement plane (A8).
 """
 
 from __future__ import annotations
@@ -68,7 +69,6 @@ _NON_RETRYABLE = (tarfile.ReadError, FileNotFoundError, NotADirectoryError,
 
 #: the ROADMAP items of what the port refuses
 _REFUSED = {
-    "artifact": "the exported-encoder artifact is not ported yet (ROADMAP A7, export)",
     "tcp": "tcp:// feature sinks (the serve gallery) are not ported yet (ROADMAP A7, "
            "gallery)",
     "allreduce": "allreduce_stats needs the torch.distributed port (ROADMAP A7)",
@@ -142,24 +142,48 @@ def feature_stats(features: torch.Tensor) -> torch.Tensor:
                        dim=1)
 
 
+def _to_unit(device: torch.device) -> Callable:
+    """(uint8 images, numpy) -> float32 ``x / 255`` on ``device``: the images go there as
+    uint8 and are looked up in a table of numpy's quotients (a CUDA divide by a scalar is
+    a reciprocal multiply, an ulp off)."""
+    lut = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)).to(device)
+    return lambda images: lut[torch.from_numpy(np.ascontiguousarray(images)).to(
+        device).long()]
+
+
 def make_encode_stats_fn(encoder: torch.nn.Module) -> Callable:
     """(uint8 images (B, S, S, 3), numpy) -> (features (B, S/16, S/16, C) float32 NHWC,
-    stats (B, 4)), both on the encoder's device. The images go to the device as uint8
-    and become float32 ``x / 255`` there through a table of numpy's quotients."""
-    device = next(encoder.parameters()).device
-    lut = torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)).to(device)
+    stats (B, 4)), both on the encoder's device."""
+    from tmr_tpu_torch.models.vit import nhwc_features
+
+    to_unit = _to_unit(next(encoder.parameters()).device)
 
     @torch.inference_mode()
     def run(images: np.ndarray):
-        x = lut[torch.from_numpy(np.ascontiguousarray(images)).to(device).long()]
-        feats = encoder(x).float().permute(0, 2, 3, 1).contiguous()
+        feats = nhwc_features(encoder, to_unit(images))
         return feats, feature_stats(feats)
 
     return run
 
 
-def make_encode_stats_fn_from_artifact(path: str) -> Callable:
-    raise NotImplementedError(f"{path}: {_REFUSED['artifact']}")
+def make_encode_stats_fn_from_artifact(path: str, device=None) -> Callable:
+    """:func:`make_encode_stats_fn` from an exported encoder (``utils/export.py``), the
+    onnxruntime session of mapper.py:40-45: the worker needs the artifact and the port's
+    ops package, no model code and no weights. It runs on ``device`` (the card unless
+    ``"cpu"`` is asked for); its features equal the eager encoder's bit for bit."""
+    from tmr_tpu_torch.models import resolve_device
+    from tmr_tpu_torch.utils.export import load_exported
+
+    device = resolve_device(device)
+    encoder = load_exported(path, device)
+    to_unit = _to_unit(device)
+
+    @torch.inference_mode()
+    def run(images: np.ndarray):
+        feats = encoder(to_unit(images))
+        return feats, feature_stats(feats)
+
+    return run
 
 
 def allreduce_stats(table, axis_name: str = "data"):
@@ -699,20 +723,21 @@ def _cli_map(args) -> int:
         # loud: a schedule left over from a drill would corrupt a run that exits 0
         log_warning(f"fault injection ACTIVE (TMR_FAULTS="
                     f"{os.environ.get('TMR_FAULTS', '')!r})")
-    if args.artifact:
-        raise NotImplementedError(f"--artifact: {_REFUSED['artifact']}")
     save, cleanup, sync = make_feature_sinks(args.features_out)
 
     names = [ln.strip() for ln in sys.stdin if ln.strip()]
     paths = [n if os.path.isabs(n) else os.path.join(args.data_dir, n) for n in names]
     log_info(f"map: {len(paths)} shards from stdin")
 
-    from tmr_tpu_torch.models import build_sam_encoder
+    if args.artifact:
+        fn = make_encode_stats_fn_from_artifact(args.artifact, args.device)
+    else:
+        from tmr_tpu_torch.models import build_sam_encoder
 
-    if not args.checkpoint:
-        log_warning("map: no --checkpoint, random weights")
-    fn = make_encode_stats_fn(build_sam_encoder(args.model_type, args.checkpoint,
-                                                device=args.device))
+        if not args.checkpoint:
+            log_warning("map: no --artifact/--checkpoint, random weights")
+        fn = make_encode_stats_fn(build_sam_encoder(args.model_type, args.checkpoint,
+                                                    device=args.device))
 
     journal_dir = args.journal_dir
     if journal_dir is None and args.features_out:
@@ -765,7 +790,8 @@ def main(argv=None) -> int:
     m.add_argument("--data_dir", default=".",
                    help="prefix for shard names (the HDFS tar directory)")
     m.add_argument("--artifact", default=None,
-                   help="serialized encoder (not ported yet: raises, ROADMAP A7)")
+                   help="exported encoder (.pt2, python -m tmr_tpu_torch.export_encoder) "
+                        "in place of the model: no model built, no checkpoint read")
     m.add_argument("--checkpoint", default=None,
                    help="SAM(-HQ) .pth; without it the weights are seeded")
     m.add_argument("--model_type", default="vit_b")

@@ -121,7 +121,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tensors bit for bit; its losses equal ``compute_losses`` on the same model outputs
    and are finite; MAE and RMSE equal those of the detection counts; the 1536 batch
    takes the template bucket phase 3 checks on 192^2 maps; and image 0 of the 1536
-   batch has its objectness within 5e-2 x max of an f32 CPU run; then once at
+   batch has its objectness within 5e-2 x max of an f32 CPU run (made on a thread beside
+   phase 5c's CLI runs, where the card idles, and compared after them); then once at
    ``compute_dtype="float32"`` (num_exemplars 1, both buckets) with the same checks and
    the f32 attention kernels' launches (4 / 8 a batch, none of the bf16 ones);
 5b. training (run after 5, on phase 4's weights): first each attention Function's
@@ -173,7 +174,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    batch of 8, the device's busy share (events around each batch over the wall) and
    ``extract_feature``'s ms, with the card, and a ``{"map": ...}`` JSON line;
 5g. the elastic map phase (run after 5c, on phase 4's encoder saved as 5c saves it):
-   8 synthetic tar shards of 10 PNGs of 480 x 640 (Easy, Normal, Hard; 5c's writer); the
+   6 synthetic tar shards of 10 PNGs of 480 x 640 (Easy, Normal, Hard; 5c's writer); the
    single-host ``mapreduce map | reduce`` CLI over them is the reference table and feature
    tree. The worker payload (``utils/package.py``) is zipped, unpacked into a temporary
    directory and its ``attn.cu`` built from its own ``csrc`` beside the reference run.
@@ -202,7 +203,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    features and statistics against ``make_encode_stats_fn``, and at batches 1 and 3
    against the eager encoder; the same encoder traced on the CPU (fake tensors) and
    loaded onto the card (``move_to_device_pass``) against the card's export; ``map
-   --artifact`` (CLI, no checkpoint read) on 5c's shards against 5c's in-process records,
+   --artifact`` (CLI, no checkpoint read, run beside the rest of the phase) on 5c's shard
+   Easy_0 and the corrupt tar against 5c's in-process record of that category,
    and the same map through the artifact in this process, timed (images/s beside 5c's);
    ``extract_feature --artifact`` at batch 1 against the run without it; the detector
    artifact at batch 4 and capacity 33 on phase 4's bucket-33 batch against
@@ -232,7 +234,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0 of phase 4d (launches exactly a third of phase 4d's; the device tail's lists equal
    the host tail's) and ``_get_heads_fn`` on the backbone's features equal to the fused
    call bit for bit; ``Trainer.test`` with the refiner on phase 5's split at
-   num_exemplars 1 and 3 (phase 5's checks: launches per batch, detections equal to the
+   num_exemplars 1, and at 3 on 4 images made as phase 5's, 2 in each size bucket (a depth
+   cut; phase 5's checks: launches per batch, detections equal to the
    refining Predictor's bit for bit, losses, MAE/RMSE), its images/s beside phase 5's
    warm runs; then the segment-anything surface on phase 4's encoder and the refiner's
    decoder: ``SamPredictor.set_image`` on a 720 x 1280 image must launch exactly global 4
@@ -267,6 +270,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    histogram), batches, mean fill, padded slots, cache hit rates, the spans' ms, beside
    phase 4's sequential ms per batch, and a ``{"serve": ...}`` JSON line; ``--profile``
    adds a torch.profiler table and the busy share of one served burst of 24 requests;
+5i. the gallery tier and the demo (run after 5f, on phase 4's predictor): bank A, 12
+   patterns of 3 boxes in template bucket 17 (one group: n_bucket 16, k_bucket 3, 48
+   rows), searched three times on one frame: the fused arm (cold), the features arm (the
+   second sighting fills the feature cache) and a cache hit, launching exactly 4 / 8 / 1 /
+   1, 4 / 8 / 1 / 1 and 0 / 0 / 1 / 1; the three arms' results equal bit for bit; the
+   fused tail's NMS equal to its plain version; each entry's decoded scores before NMS
+   within 1e-2 x max of the N-loop's (12 ``predict_multi_exemplar`` calls). Bank B, 32
+   patterns of 1-3 boxes in buckets 9, 17, 33 (nine groups), with the prefilter's top-k
+   8, on the linear scan and through the sketch index: the encoder once a frame, 24
+   entries skipped with ``degrade_steps: ["prefilter"]``, the index's results equal to
+   the scan's bit for bit, both fallback counters 0; the coarse scores (kernel 5 on 96 x
+   32 planes of 32^2 at T 31) within 2e-5 x max of the same call through ``xcorr_plain``,
+   with the same top-k. ``ServeEngine.search_gallery`` on a bank sharing the engine's
+   feature cache equals bank A's results bit for bit and counts
+   ``serve.gallery.searches``. ``map --features_out tcp://`` on 5c's shard Easy_0 into a
+   ``FeatureSinkServer``: every feature equal to 5c's ``.npy`` byte for byte, the journal
+   marker absent when ``sync`` arrives. ``python -m tmr_tpu_torch.demo`` (seeded ViT-B at
+   1024, emb 512) with and without ``--refine_box``: a 1024-wide PNG, its count equal to
+   ``DemoEngine.infer``'s in process, which equals ``predict_multi_exemplar`` bit for bit
+   and launches 4 / 8 / 1 / 1. Printed: ms per fused frame beside the N-loop's, per
+   features-arm, cache-hit and prefilter-on frame and per prefilter call, frames/s, the
+   subprocesses' seconds and the peak memory at 48 rows;
 4f. ``compute_dtype="float32"`` (run after 4d on phase 4's weights, and for ViT-H after
    4c on its weights): ``Predictor(preset("TMR_FSCD147", compute_dtype="float32"))`` on
    phase 4's 3 batches and one ``predict_multi_batch`` of phase 4d's, then ViT-H at f32 on
@@ -321,6 +346,7 @@ no CUDA device or when the port's sources are not beside this file.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
@@ -328,6 +354,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -361,13 +388,15 @@ XCORR_REL_TOL = 2e-5
 XCORR_TS = (1, 3, 9, 17, 33, 65)
 #: other maps, (B, C, H, W, templates, feature rounded to bf16): the 768 and 512 inputs'
 #: 96^2 and 64^2 maps, a ragged map with 7 planes, the main path's bf16 feature
-#: (``fp.float()`` of a bf16 map, exact in tf32), and the multi-exemplar path's 12 rows
-#: (4 images x 3 exemplars)
+#: (``fp.float()`` of a bf16 map, exact in tf32), the multi-exemplar path's 12 rows
+#: (4 images x 3 exemplars), and the gallery prefilter's 96 rows (a rung of 32 entries x
+#: k 3) of 32 sketch planes on the 32^2 coarse grid at its capacity, T = 31
 XCORR_MAPS = ((4, 512, 96, 96, (9, 17, 33, 65), False),
               (4, 512, 64, 64, (9, 17, 33, 65), False),
               (1, 7, 100, 76, XCORR_TS, False),
               (4, 512, 128, 128, (9, 33, 65), True),
-              (12, 512, 128, 128, (33,), True))
+              (12, 512, 128, 128, (33,), True),
+              (96, 32, 32, 32, (31,), False))
 OBJ_REL_TOL = 5e-2  # bf16 network vs f32 CPU network, relative to the map's max
 #: tmr_tpu/ops/quant.py OUTPUT_TIER_REL: the int8 tail vs the exact tail on the JAX
 #: package's own tier inputs (quant_int8dot_ok), and the stored-weight (dequant) path's
@@ -1263,6 +1292,34 @@ def check_nms_unions(torch, cuda_nms, thr: float, seed: int) -> None:
                  f"slots")
 
 
+#: ``nms_topk`` on the gallery tail's union: one row per bank entry of a rung of 16, k 3
+NMS_TOPK = (16, 6000)
+
+
+def check_nms_topk(torch, cuda_nms, thr: float, seed: int) -> None:
+    """``ops/nms.nms_topk`` on the card (kernel 6, then a stable sort) against the same
+    function through the plain version of the keep mask on the same tensors, at
+    :data:`NMS_TOPK`, with tied scores (``nms_inputs``'s identical boxes and rounded
+    scores): count, index, boxes and scores equal bit for bit."""
+    from tmr_tpu_torch.ops import nms as nms_mod
+    from tmr_tpu_torch.ops.nms import nms_topk
+
+    b, n = NMS_TOPK
+    boxes, scores, valid = nms_inputs(torch, seed, b, n)
+    scores = (scores * 64).round() / 64  # many ties across slots
+    boxes, scores, valid = boxes.cuda(), scores.cuda(), valid.cuda()
+    got = nms_topk(boxes, scores, thr, valid, k=n // 2)
+    with swapped(nms_mod, "greedy_keep_sorted", cuda_nms.greedy_keep_sorted_plain):
+        want = nms_topk(boxes, scores, thr, valid, k=n // 2)
+    same = {f: torch.equal(got[f], want[f]) for f in ("count", "index", "boxes", "scores")}
+    ms = cuda_ms(lambda: nms_topk(boxes, scores, thr, valid, k=n // 2))
+    print(f"kernel nms_topk {b}x{n} k {n // 2} IoU {thr}, tied scores: equal to the plain "
+          f"version {json.dumps(same)}; counts {want['count'].tolist()}; ms {ms:.4f} "
+          f"(kernel 6 and the sorts)", flush=True)
+    if not all(same.values()):
+        fail(f"nms_topk differs from its plain version: {same}")
+
+
 def synthetic_batch(np, rng, side_px: int, b: int = 4, size: int = 1024, k: int = 1):
     """Dark noisy images with bright squares of ``side_px``; exemplars = the first k
     squares (the draws do not depend on k)."""
@@ -1410,6 +1467,7 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                   bound_ms=bms, bound_by=bby, library_ms=None)
     check_nms_cases(torch, cuda_nms, thr, SEED)
     check_nms_unions(torch, cuda_nms, thr, SEED)
+    check_nms_topk(torch, cuda_nms, thr, SEED)
     for kb in (1, 2, 3):
         for k16 in (0, 1):
             info = ptxas_info(_build.LOGS.get("xcorr"), f"xcorr_int8_kernelILi{kb}ELb{k16}E")
@@ -2035,8 +2093,9 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
     ``profile``, a torch.profiler breakdown of the 1536 batch's program. Then one run at
     ``compute_dtype="float32"`` (num_exemplars 1, both buckets) with the same checks and
     the f32 kernels' launches. Returns the warm runs' images/s end to end by
-    num_exemplars, and the f32 run's under ``"f32"``; and the global kernel's launches in
-    the warm num_exemplars=1 run's 1536 batches (its 96-token-row instantiation)."""
+    num_exemplars, and the f32 run's under ``"f32"``; the global kernel's launches in
+    the warm num_exemplars=1 run's 1536 batches (its 96-token-row instantiation); and the
+    1536 objectness check's (run, finish) (:func:`check_1536_objectness`)."""
     import dataclasses
     import os
     import tempfile
@@ -2112,8 +2171,8 @@ def check_eval_path(torch, np, pred, card, phase4_ms, modules, profile=False) ->
             del records, tr
             torch.cuda.empty_cache()
     # the 1536 bucket's objectness against an f32 CPU run (phase 4's measure)
-    check_1536_objectness(torch, pred, Predictor, big["image"], big["exemplars"])
-    return rates, launches_1536
+    return rates, launches_1536, check_1536_objectness(torch, pred, Predictor, big["image"],
+                                                       big["exemplars"])
 
 
 def check_eval_run(torch, np, pred, tr, name, metrics, records, wall, phase4_ms, card,
@@ -2659,26 +2718,39 @@ def check_train_path(torch, np, pred, card, modules, backward=(), profile=False)
     return out
 
 
-def check_1536_objectness(torch, pred, Predictor, imgs, ex) -> None:
-    """Image 0 of a 1536 batch of 4: its objectness on the card against an f32 CPU run of
-    the same port and weights, within OBJ_REL_TOL of the map's max."""
+def check_1536_objectness(torch, pred, Predictor, imgs, ex):
+    """Image 0 of a 1536 batch of 4: its objectness on the card (taken now) against an f32
+    CPU run of the same port and weights, within OBJ_REL_TOL of the map's max. Returns
+    (run, finish): ``run()`` makes the CPU run (on any thread: phase 5c calls it beside its
+    CLI runs, where the card idles), ``finish()`` makes it if it was not made, compares
+    and fails (on the main thread)."""
     from tmr_tpu_torch.config import preset
 
     obj = pred.forward(imgs, ex)["objectness"][0].float().cpu()
     ref = Predictor(preset("TMR_FSCD147", compute_dtype="float32"), device="cpu")
     ref.model.load_state_dict({k: v.cpu() for k, v in pred.model.state_dict().items()})
-    t0 = time.perf_counter()
-    ref_obj = ref.forward(imgs[:1], ex[:1])["objectness"][0]
-    cpu_s = time.perf_counter() - t0
-    diff = (obj - ref_obj).abs().max().item()
-    scale = ref_obj.abs().max().item()
-    print(f"eval 1536 bucket objectness image 0 vs f32 CPU run: shape "
-          f"{tuple(obj.shape)}, max_abs_diff {diff:.4e}, map max {scale:.4e}, "
-          f"{diff / scale:.4f} of the max, tol {OBJ_REL_TOL} ({cpu_s:.1f} s on the CPU)",
-          flush=True)
-    if not (torch.isfinite(obj).all() and obj.shape == (192, 192)
-            and diff <= OBJ_REL_TOL * scale):
-        fail("the 1536 bucket's objectness map disagrees with the f32 CPU reference")
+    done = {}
+
+    def run() -> None:
+        t0 = time.perf_counter()
+        done["obj"] = ref.forward(imgs[:1], ex[:1])["objectness"][0]
+        done["s"] = time.perf_counter() - t0
+
+    def finish() -> None:
+        if "obj" not in done:
+            run()
+        ref_obj = done["obj"]
+        diff = (obj - ref_obj).abs().max().item()
+        scale = ref_obj.abs().max().item()
+        print(f"eval 1536 bucket objectness image 0 vs f32 CPU run: shape "
+              f"{tuple(obj.shape)}, max_abs_diff {diff:.4e}, map max {scale:.4e}, "
+              f"{diff / scale:.4f} of the max, tol {OBJ_REL_TOL} ({done['s']:.1f} s on "
+              f"the CPU)", flush=True)
+        if not (torch.isfinite(obj).all() and obj.shape == (192, 192)
+                and diff <= OBJ_REL_TOL * scale):
+            fail("the 1536 bucket's objectness map disagrees with the f32 CPU reference")
+
+    return run, finish
 
 
 @contextlib.contextmanager
@@ -3224,10 +3296,13 @@ def feature_files(np, root: Path) -> dict:
     return {str(p.relative_to(root)): np.load(p) for p in sorted(root.rglob("*.npy"))}
 
 
-def check_map_path(torch, np, pred, card, modules) -> tuple:
+def check_map_path(torch, np, pred, card, modules, beside_clis=None) -> tuple:
     """Phase 5c: the map phase (``tmr_tpu_torch.parallel.mapreduce``) and
-    ``extract_feature`` on phase 4's ViT-B weights (bf16, 1024^2, batch 8). Returns the
-    numbers PERF.md keeps and the in-process run's records (phase 5h's reference)."""
+    ``extract_feature`` on phase 4's ViT-B weights (bf16, 1024^2, batch 8);
+    ``beside_clis()`` runs on a thread while the CLI runs do, and nothing here is timed
+    until it has ended. Returns the
+    numbers PERF.md keeps, the in-process run's records (phase 5h's reference), and shard
+    Easy_0's bytes with the CLI's features of it (phase 5i's reference)."""
     import contextlib as ctx
     import io
     import tempfile
@@ -3293,6 +3368,8 @@ def check_map_path(torch, np, pred, card, modules) -> tuple:
                 "tarfile": map_cli(root, tmp, "tarfile", ["--no_native"]),
                 "fault": map_cli(root, tmp, "fault", env={"TMR_FAULTS": MAP_FAULT}),
                 "cut": map_cli(root, tmp, "cut", env={"TMR_FAULTS": MAP_CUT})}
+        beside = threading.Thread(target=beside_clis or (lambda: None), daemon=True)
+        beside.start()
 
         # the resume starts as soon as the cut run has died, beside the others
         wait_cli(*runs["cut"], "cut", want_rc=1)
@@ -3305,6 +3382,7 @@ def check_map_path(torch, np, pred, card, modules) -> tuple:
             wait_cli(*runs[tag], tag)
             results[tag] = cli_result(np, runs[tag][1], tag)
         cli_s = time.perf_counter() - t0
+        beside.join()
         base = results["native"]
         print(f"map path CLI (map | tee | reduce: 4 runs at once, the resume once the cut "
               f"run has died: "
@@ -3443,8 +3521,12 @@ def check_map_path(torch, np, pred, card, modules) -> tuple:
         if err > MAP_REL_TOL * stats["std"]:
             fail("extract_feature disagrees with the attention_plain run")
         out.update(extract_ms=times, extract_vs_plain=err)
+        # what phase 5i's tcp:// run needs: shard Easy_0 and the CLI's features of it
+        kit = {"shard": shards[0].read_bytes(),
+               "features": {k: v for k, v in files.items()
+                            if k.startswith("Easy/Easy_0/")}}
     torch.cuda.empty_cache()
-    return out, timed_acc.emit_lines()
+    return out, timed_acc.emit_lines(), kit
 
 
 #: phase 5h: each artifact call of the detector launches what one eval batch does; the
@@ -3513,7 +3595,7 @@ def check_export_path(torch, np, pred, batches, multi_batches, map_records, phas
     weights. The encoder artifact (bf16 ViT-B, symbolic batch) traced on the card, saved
     and loaded back, against ``make_encode_stats_fn`` at batch 8 and the eager encoder at
     batches 1 and 3, and against the same encoder traced on the CPU and moved to the card;
-    ``map --artifact`` (CLI) on phase 5c's shards against 5c's in-process records and the
+    ``map --artifact`` (CLI) on shard Easy_0 against 5c's in-process record and the
     same map in this process timed; ``extract_feature --artifact``; the detector at batch
     4 and capacity 33, the multi-exemplar program (3 rows) on phase 4d's image 0 and the
     int8 detector, each against its eager call; the SAM decoder at 1 and 5 prompts; and
@@ -3558,6 +3640,16 @@ def check_export_path(torch, np, pred, batches, multi_batches, map_records, phas
           f"loaded in {t3 - t2:.1f} s [{card}]", flush=True)
     if spec != (("b", MAP_SIZE, MAP_SIZE, 3), torch.float32):
         fail(f"the encoder artifact's input spec is {spec}")
+
+    # map --artifact: the CLI (no checkpoint is read: the path holds none) over shard Easy_0
+    # and the corrupt tar, in a directory of its own, beside the rest of this phase (whose
+    # timings share the host with it); waited for at the end, killed if the phase fails
+    cli_dir = tempfile.TemporaryDirectory()
+    map_shards(np, Path(cli_dir.name), np.random.default_rng(SEED + 71), names=("Easy_0",))
+    t_cli = time.perf_counter()
+    proc, outs = map_cli(Path(__file__).resolve().parent, Path(cli_dir.name), "artifact",
+                         ["--artifact", str(artifact)], names=["Easy_0.tar", "corrupt.tar"])
+    atexit.register(lambda: proc.poll() is None and proc.kill())
 
     with tempfile.TemporaryDirectory() as tmpdir, ctx.ExitStack() as stack:
         tmp = Path(tmpdir)
@@ -3610,20 +3702,7 @@ def check_export_path(torch, np, pred, batches, multi_batches, map_records, phas
         out["encoder"].update(cpu_export_s=cpu_s, cpu_load_move_s=move_s)
         del moved, x
 
-        # map --artifact: the CLI (no checkpoint is read: the path holds none)
-        t0 = time.perf_counter()
-        proc, outs = map_cli(Path(__file__).resolve().parent, tmp, "artifact",
-                             ["--artifact", str(artifact)])
-        wait_cli(proc, outs, "artifact")
-        cli_s = time.perf_counter() - t0
-        res = cli_result(np, outs, "artifact")
-        same = res["records"].splitlines() == map_records
-        print(f"export path: map --artifact (CLI, {cli_s:.1f} s) records "
-              f"{'equal' if same else 'DIFFER from'} phase 5c's in-process run's, byte for "
-              f"byte", flush=True)
-        if not same:
-            fail(f"map --artifact records differ: {res['records']!r} vs {map_records!r}")
-        # ... and in this process, timed as 5c times it
+        # the same map through the artifact in this process, timed as 5c times it
         dev = []
 
         def timed(images):
@@ -3647,7 +3726,7 @@ def check_export_path(torch, np, pred, batches, multi_batches, map_records, phas
         dms = [a.elapsed_time(b) for a, b, _ in dev]
         wrong = [d for _, _, d in dev if d != MAP_BATCH_LAUNCHES]
         out["map"] = dict(images=n, wall_s=wall, images_per_s=n / wall,
-                          device_ms_per_batch=sum(dms) / len(dms), cli_s=cli_s)
+                          device_ms_per_batch=sum(dms) / len(dms))
         print(f"export path: map through the artifact in this process (native loader, 4 "
               f"feeder threads, features saved): {n} images in {wall:.3f} s = "
               f"{n / wall:.2f} images/s; device ms per batch of {MAP_BATCH} "
@@ -3812,15 +3891,28 @@ def check_export_path(torch, np, pred, batches, multi_batches, map_records, phas
         checked.append(name)
     print(f"export path: torch.library.opcheck passed on the card for {checked}", flush=True)
     torch.cuda.empty_cache()
+
+    wait_cli(proc, outs, "artifact")
+    cli_s = out["map"]["cli_s"] = time.perf_counter() - t_cli
+    res = cli_result(np, outs, "artifact")
+    cli_dir.cleanup()
+    want_rec = [r for r in map_records if r.startswith("Easy\t")]
+    same = res["records"].splitlines() == want_rec
+    print(f"export path: map --artifact (CLI over Easy_0 and the corrupt tar, {cli_s:.1f} s "
+          f"from its start, beside the rest of the phase) records "
+          f"{'equal' if same else 'DIFFER from'} phase 5c's in-process run's, byte for byte",
+          flush=True)
+    if not same:
+        fail(f"map --artifact records differ: {res['records']!r} vs {want_rec!r}")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"export path: phase wall {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
 
 
-#: phase 5g, the elastic map phase: 8 synthetic shards (the JAX elastic gauntlet's count)
-#: of 10 PNGs of 480 x 640, leased to workers that encode them at batch 8 on the card
-ELASTIC_SHARDS = ("Easy_0", "Easy_1", "Easy_2", "Normal_0", "Normal_1", "Normal_2",
-                  "Hard_0", "Hard_1")
+#: phase 5g, the elastic map phase: 6 synthetic shards (a depth cut from the JAX elastic
+#: gauntlet's 8) of 10 PNGs of 480 x 640, leased to workers that encode them at batch 8 on
+#: the card
+ELASTIC_SHARDS = ("Easy_0", "Easy_1", "Normal_0", "Normal_1", "Hard_0", "Hard_1")
 #: lease knobs of the clean and resume runs (no straggler duplicates: a real encoder's
 #: shard times spread with the host's load) and of the fault run (a TTL short enough that
 #: a SIGSTOPped worker's lease goes stale within seconds)
@@ -3961,7 +4053,7 @@ def check_elastic_doc(validate, doc: dict, tag: str, causes) -> None:
 
 def check_elastic_path(torch, np, pred, card, modules, artifact: Path) -> dict:
     """Phase 5g: the elastic map phase on phase 4's ViT-B weights (the SAM checkpoint
-    phase 5c writes), bf16, 1024^2, batch 8, over 8 synthetic shards: the single-host
+    phase 5c writes), bf16, 1024^2, batch 8, over 6 synthetic shards: the single-host
     CLI's table and feature tree first, then a clean run (the coordinator and one worker
     in this process, two worker processes, one of them from the payload zip with phase
     5h's encoder ``artifact`` in place of weights), a fault run (kill -9 and SIGSTOP) and
@@ -4277,6 +4369,9 @@ SAM_ENCODER_LAUNCHES = dict(EVAL_LAUNCHES, xcorr=0, nms=0)
 #: another order); the boxes of slots whose masks agree within REFINE_BOX_TOL (normalized:
 #: the boxes of equal masks are equal); scores within REFINE_SCORE_REL of the largest
 REFINE_CPU_SLOTS = 32
+#: the refined eval at num_exemplars 3 runs on 4 images made as phase 5's, 2 in each size
+#: bucket (a depth cut: at 3 exemplars each refined image is its own batch, 0.6-3.8 s)
+REFINE_K3_SIDES = (30, 12, 38, 14)
 REFINE_PIXEL_REL = 1e-4
 REFINE_BOX_TOL = 1e-6
 REFINE_SCORE_REL = 1e-5
@@ -4412,8 +4507,9 @@ def check_refine_path(torch, np, pred, batches, multi_batches, card, phase4_ms,
     ms with and without refinement in turns, the NMS keep mask on refined boxes, the
     refiner against an f32 CPU run, a chunk's parts), ``predict_multi_batch`` on a batch
     of phase 4d (launches; the device tail's lists), ``_get_heads_fn`` against the fused
-    call, ``Trainer.test`` with the refiner on phase 5's split (num_exemplars 1 and 3),
-    and the segment-anything surface on phase 4's encoder and the refiner's decoder."""
+    call, ``Trainer.test`` with the refiner (num_exemplars 1 on phase 5's split, 3 on
+    :data:`REFINE_K3_SIDES`), and the segment-anything surface on phase 4's encoder and
+    the refiner's decoder."""
     import dataclasses
     import os
     import tempfile
@@ -4520,13 +4616,14 @@ def check_refine_path(torch, np, pred, batches, multi_batches, card, phase4_ms,
     # eval with refinement on phase 5's split
     rates = {}
     with tempfile.TemporaryDirectory() as tmp:
-        images = eval_split(np, os.path.join(tmp, "fsc"))
-        base = preset("TMR_FSCD147", datapath=os.path.join(tmp, "fsc"), eval=True,
-                      num_workers=4, refine_box=True)
+        splits = {1: eval_split(np, os.path.join(tmp, "fsc1")),
+                  3: eval_split(np, os.path.join(tmp, "fsc3"), REFINE_K3_SIDES)}
+        base = preset("TMR_FSCD147", eval=True, num_workers=4, refine_box=True)
         state_dict = pred.model.state_dict()
-        with in_memory_images(images):
-            for k in (1, 3):
+        for k, images in splits.items():
+            with in_memory_images(images):
                 kcfg = dataclasses.replace(base, logpath=os.path.join(tmp, f"log{k}"),
+                                           datapath=os.path.join(tmp, f"fsc{k}"),
                                            num_exemplars=k, eval_batch_size=4)
                 metrics, records, wall, tr = run_eval(torch, kcfg, pred.model, state_dict,
                                                       _build, pred.device, refiner)
@@ -5308,6 +5405,439 @@ def check_serve_path(torch, np, pred, batches, multi_batches, card, phase4_ms, m
 
 
 
+#: phase 5i, the gallery tier on phase 4's predictor: bank A is 12 patterns of 3 boxes
+#: of 120 px (template bucket 17, so one group: n_bucket 16, k_bucket 3, 48 rows); bank
+#: B is 32 patterns of 1-3 boxes of 56, 120 and 240 px (buckets 9, 17 and 33 by k
+#: buckets 1, 2 and 3: nine groups), searched with the prefilter's top-k 8. A cold frame
+#: or a feature fill launches what an eval batch does, a cache hit the tail's 1 / 1
+GALLERY_A = (12, 3, 120)
+GALLERY_B_SIDES = (56, 120, 240)
+GALLERY_B = 32
+GALLERY_TOPK = 8
+GALLERY_FRAME_LAUNCHES = EVAL_LAUNCHES
+GALLERY_HIT_LAUNCHES = dict(EVAL_LAUNCHES, global_attn=0, window_attn=0)
+#: each entry's decoded scores against the N-loop's, relative to their max: the heads
+#: run at 48 rows against 3, so cuDNN may pick other bf16 algorithms (phase 4d's tier)
+GALLERY_ROW_TOL = MULTI_ROW_TOL
+GALLERY_TIMED = 3  # cold frames timed per arm
+#: the demo's query image (H, W) and its exemplar boxes (pixel xyxy, 120-px squares)
+DEMO_HW = (768, 1024)
+DEMO_SIZE = 1024  # the demo model's input size (demo_config's --image_size)
+#: the demo's --NMS_cls_threshold here: the seeded (untrained) detector's objectness stays
+#: under the demo's default 0.7, so every peak is kept, to give the counts something to
+#: count
+DEMO_CLS_THRESHOLD = 0.0
+DEMO_EXEMPLARS = ((104, 96, 224, 216), (600, 400, 720, 520))
+
+
+def gallery_boxes(np, rng, n: int, ks, sides, size: int = 1024):
+    """``n`` patterns: pattern i has ``ks[i]`` boxes of ``sides[i]`` px of a 1024 frame
+    (scaled to ``size``) at random 8-px-aligned places, normalized xyxy (k, 4)."""
+    out = []
+    for i in range(n):
+        side = max(sides[i] * size // 1024, 8)
+        xy = rng.integers(0, (size - side) // 8, (ks[i], 2)) * 8
+        out.append(np.concatenate([xy, xy + side], 1).astype(np.float32) / size)
+    return out
+
+
+def gallery_frame(np, rng, patterns, size: int = 1024):
+    """A dark noisy frame with a bright square under every pattern box."""
+    img = rng.normal(-1.0, 0.1, (size, size, 3)).astype(np.float32)
+    for boxes in patterns:
+        for x1, y1, x2, y2 in (boxes * size).astype(int):
+            img[y1:y2, x1:x2] = 2.0
+    return img
+
+
+def results_equal(np, a: dict, b: dict) -> bool:
+    """Two ``search`` results: the same entries, each field bit for bit, the same
+    degrade labels."""
+    return set(a) == set(b) and all(
+        set(a[n]) == set(b[n]) and all(
+            np.array_equal(a[n][f], b[n][f]) if isinstance(a[n][f], np.ndarray)
+            else a[n][f] == b[n][f] for f in a[n]) for n in a)
+
+
+def demo_cli(root: Path, tmp: Path, tag: str, extra=()):
+    """``python -m tmr_tpu_torch.demo`` headless on the query image (the PNG reader of
+    this script swapped in where PIL is missing). Returns (popen, stdout path, stderr
+    path)."""
+    import os
+
+    prog = ([sys.executable, "-m", "tmr_tpu_torch.demo"] if has_pil() else
+            [sys.executable, "-c", "import runpy, sys; sys.path.insert(0, sys.argv.pop(1)); "
+             "import chip_smoke; chip_smoke.use_png_reader(); runpy.run_module("
+             "'tmr_tpu_torch.demo', run_name='__main__')", str(root)])
+    ex = [f"{x1},{y1},{x2},{y2}" for x1, y1, x2, y2 in DEMO_EXEMPLARS]
+    argv = prog + ["--image", str(tmp / "q.png"), "--out", str(tmp / f"{tag}.png"),
+                   "--image_size", str(DEMO_SIZE),
+                   "--NMS_cls_threshold", str(DEMO_CLS_THRESHOLD),
+                   *[a for e in ex for a in ("--exemplar", e)], *extra]
+    out, err = tmp / f"{tag}.stdout", tmp / f"{tag}.stderr"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(argv, cwd=root, stdout=fo, stderr=fe,
+                                env=dict(os.environ, PYTHONPATH=str(root)))
+    return proc, out, err
+
+
+
+def demo_image(np, rng):
+    """The demo's query image: uint8 noise with 120-px squares, two of them the
+    exemplars."""
+    h, w = DEMO_HW
+    img = rng.integers(20, 60, (h, w, 3)).astype(np.uint8)
+    for x1, y1, x2, y2 in DEMO_EXEMPLARS:
+        img[y1:y2, x1:x2] = 220
+    for _ in range(6):
+        y, x = rng.integers(0, h - 120), rng.integers(0, w - 120)
+        img[y:y + 120, x:x + 120] = 220
+    return img
+
+
+def wait_demo(proc, out, err, tag: str) -> tuple:
+    """The CLI's exit, its detection count and its seconds-free stdout."""
+    rc = proc.wait(timeout=300)
+    text = out.read_text()
+    m = re.search(r"^(\d+) detections -> ", text, re.M)
+    if rc != 0 or m is None:
+        fail(f"demo CLI {tag}: exit code {rc}, stdout {text[-500:]!r}, stderr "
+             f"{err.read_text()[-3000:]}")
+    return int(m.group(1))
+
+
+def check_gallery_path(torch, np, pred, card, map_kit, modules) -> dict:
+    """Phase 5i: the gallery tier on phase 4's ViT-B predictor (bf16, 1024^2): bank A's
+    fused, features and cache-hit arms against each other and the N-loop, bank B's
+    prefilter on the linear scan and through the sketch index, ``ServeEngine``'s
+    ``search_gallery`` on a shared feature cache, ``map --features_out tcp://`` into a
+    ``FeatureSinkServer`` against 5c's features, and the demo CLI and ``DemoEngine``."""
+    import types
+
+    from tmr_tpu_torch import demo as demo_mod
+    from tmr_tpu_torch.data.transforms import resize_normalize
+    from tmr_tpu_torch.ops import cuda_xcorr
+    from tmr_tpu_torch.ops import xcorr as xcorr_mod
+    from tmr_tpu_torch.ops.nms import batched_keep_mask
+    from tmr_tpu_torch.parallel.journal import ShardJournal
+    from tmr_tpu_torch.serve import FeatureSinkServer, GalleryBank, ServeEngine
+    from tmr_tpu_torch.diagnostics import gate_refusals
+    from tmr_tpu_torch.serve.gallery import _topk_flat, gallery_fused_ok
+
+    (_build,) = modules
+    out = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 90)
+    size = pred.cfg.image_size
+    n_a, k_a, side_a = GALLERY_A
+    pats_a = gallery_boxes(np, rng, n_a, [k_a] * n_a, [side_a] * n_a, size)
+    ks_b = [1 + i % 3 for i in range(GALLERY_B)]
+    sides_b = [GALLERY_B_SIDES[(i // 3) % 3] for i in range(GALLERY_B)]
+    pats_b = gallery_boxes(np, rng, GALLERY_B, ks_b, sides_b, size)
+    frames = [gallery_frame(np, rng, pats_a[:6] + pats_b[:6], size) for _ in range(
+        3 + 2 * GALLERY_TIMED)]
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        root = Path(__file__).resolve().parent
+        # the subprocesses first, so that their start overlaps the in-process checks
+        # (nothing is timed until they are done)
+        (tmp / "Easy_0.tar").write_bytes(map_kit["shard"])
+        sam_checkpoint(torch, pred.model.backbone, tmp / "vit_b.pth")
+        received, order = {}, []
+        journal_dir = tmp / "journal"
+
+        def on_feature(shard, name, arr):
+            received[(shard, name)] = arr
+
+        sink = FeatureSinkServer(on_feature=on_feature)
+        dispatch = sink._dispatch
+
+        def watched(doc, state):
+            if doc.get("op") == "sync":
+                order.append(("sync", sorted(ShardJournal(str(journal_dir)).load_all())))
+            return dispatch(doc, state)
+
+        sink._dispatch = watched
+        host, port = sink.start()
+        t_cli = time.perf_counter()
+        tcp_run = map_cli(root, tmp, "tcp", ["--features_out", f"tcp://{host}:{port}",
+                                             "--journal_dir", str(journal_dir)],
+                          names=["Easy_0.tar"])
+        drng = np.random.default_rng(SEED + 91)
+        qimg = demo_image(np, drng)
+        write_png(np, tmp / "q.png", qimg)
+        demo_runs = {"demo": demo_cli(root, tmp, "demo"),
+                     "demo_refine": demo_cli(root, tmp, "demo_refine", ["--refine_box"])}
+
+        # ---- bank A: the fused arm, the features arm, a cache hit, the N-loop
+        bank_a = GalleryBank(pred, feature_cache=4)
+        for i, b in enumerate(pats_a):
+            bank_a.register(f"a{i:02d}", b)
+        groups = bank_a.stats()["groups"]
+        if [(g["capacity"], g["k_bucket"], g["n_real"], g["n_bucket"]) for g in groups] \
+                != [(17, 3, 12, 16)]:
+            fail(f"gallery bank A: groups {groups}, expected one (17, 3, 12, 16)")
+        frame = frames[0]
+        # the gate's trace (FakeTensorMode, no launch), cached per geometry: before the spy
+        # below, which would record its fake tensors
+        t0 = time.perf_counter()
+        gate = gallery_fused_ok(pred, groups[0]["capacity"], groups[0]["n_bucket"],
+                                groups[0]["k_bucket"])
+        out["gate_s"] = time.perf_counter() - t0
+        print(f"gallery gate (the fused program traced under FakeTensorMode at bank A's "
+              f"geometry): {'admitted' if gate else 'REFUSED'} in "
+              f"{out['gate_s']:.2f} s; refusals {gate_refusals()}", flush=True)
+        if not gate:
+            fail("the gallery gate refused the fused program")
+        captured = []
+        refine_nms = pred._refine_nms
+
+        def spy(dets, feature, image_hw):
+            captured.append({k: v.clone() for k, v in dets.items()})
+            return refine_nms(dets, feature, image_hw)
+
+        arms, launches = {}, {}
+        pred._refine_nms = spy
+        try:
+            for arm in ("fused", "features", "hit"):
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                arms[arm] = bank_a.search(frame)
+                launches[arm] = dict(_build.LAUNCHES)
+            nloop = [pred.predict_multi_exemplar(frame[None], b) for b in pats_a]
+        finally:
+            del pred._refine_nms
+        c = bank_a.counters
+        print(f"gallery bank A (12 patterns x 3 boxes, one group: capacity 17, n_bucket 16, "
+              f"k_bucket 3, 48 rows): launches fused {json.dumps(launches['fused'])}, "
+              f"features {json.dumps(launches['features'])}, hit "
+              f"{json.dumps(launches['hit'])}; counters fused_frames {c['fused_frames']} "
+              f"heads_frames {c['heads_frames']} backbone_fills {c['backbone_fills']}",
+              flush=True)
+        want = {"fused": GALLERY_FRAME_LAUNCHES, "features": GALLERY_FRAME_LAUNCHES,
+                "hit": GALLERY_HIT_LAUNCHES}
+        for arm, w in want.items():
+            if launches[arm] != w:
+                fail(f"gallery {arm} frame launched {launches[arm]}, expected {w}")
+        if (c["fused_frames"], c["heads_frames"], c["backbone_fills"]) != (1, 2, 1):
+            fail(f"gallery bank A took other arms: {c}")
+        for arm in ("features", "hit"):
+            same = results_equal(np, arms[arm], arms["fused"])
+            print(f"gallery bank A: the {arm} arm's results "
+                  f"{'equal' if same else 'DIFFER from'} the fused arm's, bit for bit",
+                  flush=True)
+            if not same:
+                fail(f"gallery {arm} arm differs from the fused arm")
+        # the tail's NMS (the fused call's union per entry) against its plain version
+        pre = captured[0]
+        keep = batched_keep_mask(pre["boxes"], pre["scores"], pred.cfg.NMS_iou_threshold,
+                                 pre["valid"])
+        plain = batched_keep_mask(*(pre[k].cpu() for k in ("boxes", "scores")),
+                                  pred.cfg.NMS_iou_threshold, pre["valid"].cpu())
+        mism = int((keep.cpu() != plain).sum())
+        print(f"gallery fused tail NMS over {tuple(pre['valid'].shape)} slots: keep "
+              f"mismatches against the plain version {mism} (must be 0)", flush=True)
+        if mism:
+            fail(f"gallery tail NMS differs from its plain version in {mism} slots")
+        worst, kept = 0.0, []
+        for i, one in enumerate(captured[3:]):
+            got = pre["scores"][i:i + 1].float()
+            ref = one["scores"].float()
+            worst = max(worst, (got - ref).abs().max().item() / ref.abs().max().item())
+            kept.append((int(arms["fused"][f"a{i:02d}"]["valid"].sum()),
+                         int(nloop[i]["valid"].sum())))
+        print(f"gallery fused vs the N-loop (12 predict_multi_exemplar calls): decoded "
+              f"scores before NMS worst |diff| / max {worst:.3e} (tol {GALLERY_ROW_TOL}); "
+              f"kept per entry (gallery, N-loop) {kept}", flush=True)
+        if worst > GALLERY_ROW_TOL:
+            fail("gallery fused arm's decoded scores disagree with the N-loop's")
+        out.update(kept=kept, scores_vs_nloop=worst, launches=launches)
+
+        # ---- bank B: the prefilter, on the linear scan and through the index
+        banks = {"linear": GalleryBank(pred, feature_cache=0, index=False),
+                 "index": GalleryBank(pred, feature_cache=0, index=True, index_min_n=16)}
+        for bank in banks.values():
+            for i, b in enumerate(pats_b):
+                bank.register(f"b{i:02d}", b)
+        nb_groups = len(banks["linear"].stats()["groups"])
+        res_b, launches_b = {}, {}
+        for name, bank in banks.items():
+            for j, f in enumerate(frames[1:3]):
+                _build.reset_launches()
+                res_b[name, j] = bank.search(f, prefilter_topk=GALLERY_TOPK)
+                launches_b[name, j] = dict(_build.LAUNCHES)
+        for (name, j), res in res_b.items():
+            skipped = sorted(n for n, r in res.items() if r.get("degrade_steps"))
+            ok = all(res[n]["degrade_steps"] == ["prefilter"] and res[n]["valid"].size == 0
+                     for n in skipped)
+            print(f"gallery bank B ({GALLERY_B} patterns, {nb_groups} groups) {name} frame "
+                  f"{j}: {GALLERY_B - len(skipped)} matched, {len(skipped)} skipped with "
+                  f"degrade_steps ['prefilter']; launches {json.dumps(launches_b[name, j])}",
+                  flush=True)
+            lb = launches_b[name, j]
+            if (lb["global_attn"], lb["window_attn"]) != (4, 8) or not ok \
+                    or len(skipped) != GALLERY_B - GALLERY_TOPK:
+                fail(f"gallery bank B {name} frame {j}: the encoder ran other than once or "
+                     f"the skipped entries are not labelled")
+        for j in range(2):
+            if not results_equal(np, res_b["index", j], res_b["linear", j]):
+                fail(f"gallery: the indexed selection differs from the linear scan's on "
+                     f"frame {j}")
+        print("gallery bank B: the indexed selection and results equal the linear scan's "
+              "on both frames, bit for bit", flush=True)
+        cb = {n: b.counters for n, b in banks.items()}
+        fallbacks = {n: (c["nloop_fallback_frames"], c["index_fallbacks"])
+                     for n, c in cb.items()}
+        fallbacks["A"] = (bank_a.counters["nloop_fallback_frames"],
+                          bank_a.counters["index_fallbacks"])
+        print(f"gallery fallbacks (nloop_fallback_frames, index_fallbacks): "
+              f"{json.dumps(fallbacks)} (must be 0); index queries "
+              f"{cb['index']['index_queries']}, candidates {cb['index']['index_candidates']}, "
+              f"rebuilds {cb['index']['index_rebuilds']}", flush=True)
+        if any(v != (0, 0) for v in fallbacks.values()) or cb["index"]["index_queries"] != 2:
+            fail(f"gallery fallbacks moved or the index was not queried: {fallbacks}")
+        # the coarse scores on the card against the same function through xcorr_plain
+        feats = pred._get_backbone_fn()(frames[1][None])
+        ex = np.stack([np.concatenate([b, np.tile(b[-1:], (3 - len(b), 1))])
+                       for b in pats_b])
+        kr = np.array(ks_b, np.int32)
+        pre_fn = pred._get_gallery_prefilter_fn(GALLERY_B, 3)
+        _build.reset_launches()
+        s_card = pre_fn(feats, ex, kr, GALLERY_B)
+        pre_launches = dict(_build.LAUNCHES)
+        plain_corr = types.SimpleNamespace(apply=cuda_xcorr.xcorr_plain)
+        with swapped(xcorr_mod, "XCorr", plain_corr):
+            s_plain = pre_fn(feats, ex, kr, GALLERY_B)
+        s_card, s_plain = s_card.cpu().numpy(), s_plain.cpu().numpy()
+        err = float(np.abs(s_card - s_plain).max())
+        tol = XCORR_REL_TOL * float(np.abs(s_plain).max())
+        same_top = sorted(_topk_flat(s_card, GALLERY_TOPK)) == sorted(
+            _topk_flat(s_plain, GALLERY_TOPK))
+        print(f"gallery prefilter ({GALLERY_B} entries x kpad 3 = 96 rows x 32 sketch "
+              f"planes of 32^2, T 31): max_err {err:.3e} tol {tol:.3e} against xcorr_plain, "
+              f"top-{GALLERY_TOPK} {'equal' if same_top else 'DIFFERS'}; launches "
+              f"{json.dumps(pre_launches)}", flush=True)
+        if not err <= tol or not same_top or pre_launches["xcorr"] != 1:
+            fail("gallery prefilter disagrees with its plain version")
+
+        # ---- the engine, sharing its feature cache
+        with ServeEngine(pred, batch=1, max_wait_ms=5) as engine:
+            shared = GalleryBank(pred, feature_cache=engine.feature_cache)
+            for i, b in enumerate(pats_a):
+                shared.register(f"a{i:02d}", b)
+            engine.attach_gallery(shared)
+            got = [engine.search_gallery(frame) for _ in range(2)]
+            n_calls = engine.metrics.counter("serve.gallery.searches").value
+            cached = len(engine.feature_cache)
+        same = all(results_equal(np, g, arms["fused"]) for g in got)
+        print(f"gallery through ServeEngine.search_gallery (shared feature cache): results "
+              f"{'equal' if same else 'DIFFER from'} bank A's bit for bit; "
+              f"serve.gallery.searches {n_calls}; engine feature cache entries {cached}",
+              flush=True)
+        if not same or n_calls != 2 or cached != 1:
+            fail("search_gallery differs from bank A or did not count or share")
+
+        # ---- the subprocesses: map --features_out tcp://, the demo CLI
+        rc = tcp_run[0].wait(timeout=300)
+        cli_s = time.perf_counter() - t_cli
+        if rc != 0:
+            fail(f"map --features_out tcp:// exited {rc}: "
+                 f"{tcp_run[1]['stderr'].read_text()[-3000:]}")
+        want_f = map_kit["features"]
+        got_f = {f"Easy/Easy_0/{n}.npy": a for (s, n), a in received.items()}
+        same = sorted(got_f) == sorted(want_f) and all(
+            got_f[k].dtype == want_f[k].dtype and got_f[k].shape == want_f[k].shape
+            and got_f[k].tobytes() == want_f[k].tobytes() for k in want_f)
+        marked = sorted(ShardJournal(str(journal_dir)).load_all())
+        print(f"map --features_out tcp:// (Easy_0, {len(received)} features into a "
+              f"FeatureSinkServer): {'equal' if same else 'DIFFER from'} 5c's .npy byte for "
+              f"byte; journal at each sync {order}, after the run {marked}; sink "
+              f"{json.dumps(sink.counters())}", flush=True)
+        sink.close()
+        if not same or not order or order[0][1] or marked != ["Easy_0.tar"]:
+            fail("the tcp:// feature sink run lost features or committed before the ack")
+        counts = {tag: wait_demo(*run, tag) for tag, run in demo_runs.items()}
+        demo_s = time.perf_counter() - t_cli
+        png = (tmp / "demo.png").read_bytes()
+        width = int.from_bytes(png[16:20], "big")
+        dargs = types.SimpleNamespace(backbone="sam_vit_b", image_size=DEMO_SIZE,
+                                      NMS_cls_threshold=DEMO_CLS_THRESHOLD,
+                                      NMS_iou_threshold=0.5)
+        dengine = demo_mod.DemoEngine(demo_mod.demo_config(dargs), device="cuda")
+        dengine.init_params()
+        _build.reset_launches()
+        drawn, boxes, scores = dengine.infer(qimg, DEMO_EXEMPLARS)
+        dl = dict(_build.LAUNCHES)
+        h, w = DEMO_HW
+        exn = np.asarray(DEMO_EXEMPLARS, np.float32) / np.array([w, h, w, h], np.float32)
+        dets = dengine.predictor.predict_multi_exemplar(
+            resize_normalize(qimg, DEMO_SIZE)[None], exn)
+        v = dets["valid"][0].cpu().numpy()
+        same = (np.array_equal(dets["boxes"][0].cpu().numpy()[v], boxes)
+                and np.array_equal(dets["scores"][0].cpu().numpy()[v], scores))
+        dengine.attach_refiner()
+        _, rboxes, _ = dengine.infer(qimg, DEMO_EXEMPLARS, refine=True)
+        print(f"demo CLI (python -m tmr_tpu_torch.demo, seeded ViT-B at 1024, emb 512): "
+              f"{counts['demo']} detections, PNG {width} wide; DemoEngine.infer "
+              f"{len(boxes)} detections, {'equal' if same else 'DIFFERENT'} to "
+              f"predict_multi_exemplar bit for bit, launches {json.dumps(dl)}; with "
+              f"--refine_box: CLI {counts['demo_refine']}, in process {len(rboxes)}; the "
+              f"map and demo subprocesses {demo_s:.1f} s from their start [{card}]",
+              flush=True)
+        if (width != 1024 or counts["demo"] != len(boxes) or not same or not len(boxes)
+                or dl != GALLERY_FRAME_LAUNCHES or counts["demo_refine"] != len(rboxes)
+                or drawn.shape != (768, 1024, 3)):
+            fail("the demo disagrees with DemoEngine.infer or predict_multi_exemplar")
+        del dengine
+        out.update(demo_detections=counts, tcp_map_s=cli_s, demo_cli_s=demo_s)
+
+    # ---- times (nothing else runs now); cold frames are new images
+    def timed(fn, reps=GALLERY_TIMED):
+        ms = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    bank_t = GalleryBank(pred, feature_cache=0)
+    for i, b in enumerate(pats_a):
+        bank_t.register(f"a{i:02d}", b)
+    bank_t.search(frames[0])  # warm (a cold frame for this bank): cuDNN plans at 48 rows
+    torch.cuda.reset_peak_memory_stats()
+    fused = timed(lambda i: bank_t.search(frames[3 + i]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loop = timed(lambda i: [{k: v.cpu() for k, v in pred.predict_multi_exemplar(
+        frames[3 + i][None], b).items()} for b in pats_a])
+    # the same frames again: second sightings, so the features arm (no feature cache)
+    feats_ms = timed(lambda i: bank_t.search(frames[3 + i]))
+    hit = timed(lambda i: bank_a.search(frame))
+    pre_on = timed(lambda i: banks["linear"].search(frames[3 + GALLERY_TIMED + i],
+                                                    prefilter_topk=GALLERY_TOPK))
+    pre_call = timed(lambda i: pre_fn(feats, ex, kr, GALLERY_B).cpu(), reps=10)
+    ct = bank_t.counters
+    if (ct["fused_frames"], ct["heads_frames"]) != (1 + GALLERY_TIMED, GALLERY_TIMED):
+        fail(f"gallery timing: the arms ran other frames than timed: {ct}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    out.update(fused_ms=fused, nloop_ms=loop, features_ms=feats_ms, hit_ms=hit,
+               prefilter_frame_ms=pre_on, prefilter_call_ms=pre_call, peak_gb=peak_gb,
+               frames_per_s=1e3 / med(fused), wall_s=time.perf_counter() - t_phase)
+    print(f"gallery times, ms per frame of 12 patterns (median of {GALLERY_TIMED} new "
+          f"frames; wall, host digest and copies included): fused {med(fused):.1f} "
+          f"({', '.join(f'{x:.1f}' for x in fused)}) against the N-loop's {med(loop):.1f} "
+          f"({', '.join(f'{x:.1f}' for x in loop)}; {med(loop) / med(fused):.2f}x); "
+          f"features arm (encoder program + tail) {med(feats_ms):.1f}; cache hit "
+          f"{med(hit):.1f}; bank B with the prefilter on (32 patterns, top-8) "
+          f"{med(pre_on):.1f}; one prefilter call over bank B {med(pre_call):.2f}; fused "
+          f"frames/s {1e3 / med(fused):.2f}; peak device memory at 48 rows {peak_gb:.2f} GB; "
+          f"phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     saved = getattr(module, name)
@@ -5350,6 +5880,15 @@ def main(argv=None) -> int:
     from tmr_tpu_torch.ops import (_build, cuda_attn, cuda_int8, cuda_nms, cuda_xcorr,
                                    fused_heads, probe)
 
+    t_marks = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        """The wall seconds of the phase that just ended, and of the script so far."""
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_marks[-1]:.1f} s (script {now - t_marks[0]:.1f} s)",
+              flush=True)
+        t_marks.append(now)
+
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5366,11 +5905,13 @@ def main(argv=None) -> int:
     print(f"build: {build_s:.1f} s for {len(_build.SIGNATURES)} sources", flush=True)
     entries = {"add1": run_probe(torch, probe, _build)}
     probe_launches = entries["add1"].pop("launches")
+    mark("2")
 
     # 3. kernels at main-path shapes
     with exact_f32(torch):
         entries.update(check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
                                      preset("TMR_FSCD147").NMS_iou_threshold))
+    mark("3")
 
     # 4. main path
     cfg = preset("TMR_FSCD147")
@@ -5427,10 +5968,12 @@ def main(argv=None) -> int:
         fail("objectness map disagrees with the f32 CPU reference")
     del ref
     phase4_ref = (ref_obj, diff / scale, sum(times) / len(times))
+    mark("4")
 
     # 4b. the int8-storage path on the same weights
     qlaunches, qpred = check_quant_path(torch, np, pred, batches, caps, obj, reg, card,
                                         (_build, cuda_int8, fused_heads))
+    mark("4b")
     # 4d. the multi-exemplar path on the same weights
     check_multi_path(torch, np, pred, qpred, multi_batches, caps,
                      sum(times) / len(times), card, (_build, cuda_nms))
@@ -5442,6 +5985,7 @@ def main(argv=None) -> int:
             "one batch of 4 images x 3 exemplars, bucket 33")
     del qpred
     torch.cuda.empty_cache()
+    mark("4d")
     # 4f. compute_dtype="float32" on phase 4's weights: its batches, a multi batch and the
     # CLI with --visualize
     f32_launches, f32 = check_f32_path(torch, np, pred, batches, multi_batches, caps,
@@ -5449,41 +5993,54 @@ def main(argv=None) -> int:
                                        args.profile)
     nobias_launches, f32["nobias"] = check_nobias_blocks(torch, card, (_build,))
     f32.update(check_f32_cli(torch, np, pred, card, (_build,)))
+    mark("4f")
 
     # 5. eval through Trainer.test on the same weights, both size buckets
-    eval_rates, launches_1536 = check_eval_path(torch, np, pred, card,
-                                                sum(times) / len(times), (_build,),
-                                                args.profile)
+    eval_rates, launches_1536, (ref_1536, check_1536) = check_eval_path(
+        torch, np, pred, card, sum(times) / len(times), (_build,), args.profile)
+    mark("5")
     # 5b. training: the attention backward at main-path shapes, then Trainer.fit from the
     # same weights
     backward = check_backward_kernels(torch, cuda_attn, card)
     train = check_train_path(torch, np, pred, card, (_build, cuda_attn, cuda_xcorr),
                              backward, args.profile)
     print(json.dumps({"train": train, "backward": backward}), flush=True)
+    mark("5b")
     # 5c. the map phase and extract_feature on phase 4's encoder
-    mapped, map_records = check_map_path(torch, np, pred, card, (_build, cuda_attn))
+    mapped, map_records, map_kit = check_map_path(torch, np, pred, card,
+                                                  (_build, cuda_attn), ref_1536)
+    check_1536()  # phase 5's 1536 objectness, its CPU run made beside 5c's CLI runs
     print(json.dumps({"map": mapped}), flush=True)
+    mark("5c")
     with tempfile.TemporaryDirectory() as export_dir:
         # 5h. the torch.export artifacts on the same weights
         exported = check_export_path(torch, np, pred, batches, multi_batches, map_records,
                                      sum(times) / len(times), card, (_build,),
                                      Path(export_dir))
         print(json.dumps({"export": exported}), flush=True)
+        mark("5h")
         # 5g. the elastic map phase on the same weights (the checkpoint 5c writes; the
         # payload's worker takes 5h's encoder artifact)
         elastic = check_elastic_path(torch, np, pred, card, (_build,),
                                      Path(export_dir) / "sam_vit_b_encoder.pt2")
     print(json.dumps({"elastic": elastic}), flush=True)
+    mark("5g")
     # 5d. SAM box refinement and the segment-anything surface on phase 4's weights
     refined = check_refine_path(torch, np, pred, batches, multi_batches, card,
                                 sum(times) / len(times), eval_rates, (_build, cuda_nms),
                                 args.profile)
     print(json.dumps({"refine": refined}), flush=True)
+    mark("5d")
     # 5f. the serving engine on phase 4's predictor
     served = check_serve_path(torch, np, pred, batches, multi_batches, card,
                               sum(times) / len(times), (_build,), args.profile)
     print(json.dumps({"serve": served}), flush=True)
-    del pred
+    mark("5f")
+    # 5i. the gallery tier and the demo on phase 4's predictor
+    gallery = check_gallery_path(torch, np, pred, card, map_kit, (_build,))
+    print(json.dumps({"gallery": gallery}), flush=True)
+    mark("5i")
+    del pred, map_kit
     torch.cuda.empty_cache()
 
     # 4c. SAM ViT-H (head dim 80) on the same batches
@@ -5491,10 +6048,12 @@ def main(argv=None) -> int:
                                               (_build, cuda_attn, cuda_nms))
     if args.profile:
         profile_batch(torch, lambda: hpred(*batches[2]), "ViT-H path")
+    mark("4c")
     # 4f, ViT-H: the same weights at compute_dtype="float32"
     h32_launches, f32["vit_h"] = check_f32_vit_h(torch, np, hpred, batches, caps, href, card,
                                                  (_build, cuda_attn, cuda_nms))
     print(json.dumps({"f32": f32}), flush=True)
+    mark("4f ViT-H")
     del hpred
     torch.cuda.empty_cache()
 
@@ -5505,6 +6064,7 @@ def main(argv=None) -> int:
     default.update(check_default_train_eval(torch, np, dpred, ppred, card, default["ms"],
                                             (_build, cuda_xcorr)))
     print(json.dumps({"default": default}), flush=True)
+    mark("4e, 5e")
     del dpred, ppred
     torch.cuda.empty_cache()
 

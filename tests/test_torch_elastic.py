@@ -722,21 +722,30 @@ def test_worker_cli_stub_exit_codes(shards, tmp_path):
 
 # -------------------------------------------------------- refused by name
 def test_unported_parts_are_refused_by_name(shards, tmp_path, monkeypatch):
-    """tcp:// sinks and ``TMR_FLEET_OBS`` stay refused; ``worker --artifact`` is ported
-    (the payload test of ``tests/test_torch_chaos_probe.py`` runs it), and without a GPU
-    it refuses the CPU unless ``--device cpu`` is given, before it dials."""
+    """``TMR_FLEET_OBS`` stays refused. A ``tcp://`` target is taken as given by the
+    coordinator (not made a path) and builds network sinks, which raise for retry on a
+    dead address; the coordinator CLI takes it. ``worker --artifact`` is ported (the
+    payload test of ``tests/test_torch_chaos_probe.py`` runs it), and without a GPU it
+    refuses the CPU unless ``--device cpu`` is given, before it dials."""
+    import socket
+
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             elastic_map.main(["worker", "--coordinator", "127.0.0.1:9", "--artifact",
                               str(tmp_path / "enc.pt2")])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        elastic.ElasticCoordinator(shards, str(tmp_path / "j"),
-                                   features_out="tcp://127.0.0.1:9")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    coord = elastic.ElasticCoordinator(shards, str(tmp_path / "j"), features_out=dead)
+    assert coord.features_out == dead
+    with pytest.raises(ConnectionError, match="unreachable"):
+        coord._feature_sinks[1]("Easy_0.tar")  # the quarantine cleanup dials the sink
     monkeypatch.setattr("sys.stdin", io.StringIO("Easy_0.tar\n"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        elastic_map.main(["coordinator", "--data_dir", str(tmp_path), "--features_out",
-                          "tcp://127.0.0.1:9"])
+    assert elastic_map.main(["coordinator", "--data_dir", str(tmp_path), "--features_out",
+                             dead, "--journal_dir", str(tmp_path / "cj"),
+                             "--wait_timeout_s", "0.2"]) == 1  # no worker: unsettled
     monkeypatch.setenv("TMR_FLEET_OBS", "1")
     with pytest.raises(NotImplementedError, match="TMR_FLEET_OBS.*ROADMAP A7"):
         elastic.ElasticCoordinator(shards, str(tmp_path / "j"))

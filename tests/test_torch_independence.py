@@ -120,6 +120,27 @@ def test_scan_covers_the_export_modules(mod):
     assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
 
 
+@pytest.mark.parametrize("mod", ["serve/gallery.py", "serve/gallery_index.py",
+                                 "serve/fleet.py", "demo.py", "ops/nms.py", "inference.py"])
+def test_scan_covers_the_gallery_and_demo_modules(mod):
+    """The gallery tier, its sketch index, the wire helpers, the demo and the ops and
+    programs they add: each the port's own module, with no import of JAX, ``tmr_tpu``,
+    ``tests`` or cv2 (the demo draws cv2's rectangles in numpy)."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
+
+
+def test_demo_refuses_the_cpu_unless_asked(monkeypatch):
+    from tmr_tpu_torch import demo
+    from tmr_tpu_torch.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.DemoEngine(Config(backbone="resnet50_layer1", emb_dim=16))
+
+
 def test_sam_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from tmr_tpu_torch.config import preset
     from tmr_tpu_torch.refine import build_refiner

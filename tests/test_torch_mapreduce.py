@@ -474,17 +474,40 @@ def test_map_report_validator():
     assert any("ROADMAP A8" in p for p in validate_map_report(dict(doc, metrics={})))
 
 
-def test_unported_parts_are_refused_by_name(tmp_path, monkeypatch):
-    """allreduce and tcp:// sinks stay refused; the exported-encoder artifact is ported
-    (``tests/test_torch_export.py`` runs it), and without a GPU ``map --artifact`` refuses
-    the CPU unless ``--device cpu`` is given, before it reads the artifact."""
+def test_unported_parts_are_refused_by_name(shards, tmp_path, monkeypatch, capsys):
+    """allreduce stays refused. A ``tcp://`` target builds network sinks (the gallery's
+    feature sink, ``tests/test_torch_gallery.py``), which raise for retry on a dead
+    address: ``map`` retries the shard, quarantines it and commits no marker. The
+    exported-encoder artifact is ported (``tests/test_torch_export.py`` runs it), and
+    without a GPU ``map --artifact`` refuses the CPU unless ``--device cpu`` is given,
+    before it reads the artifact."""
+    import socket
+
+    import tmr_tpu_torch.models
+
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mr.allreduce_stats(np.zeros((4, 5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mr.make_feature_sinks("tcp://127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mr.main(["map", "--features_out", "tcp://127.0.0.1:9"])
-    assert "artifact" not in mr._REFUSED
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    save, cleanup, sync = mr.make_feature_sinks(dead)
+    with pytest.raises(ConnectionError, match="unreachable"):
+        save("Easy_0.tar", "img_0.png", np.zeros(3, np.float32))
+    model = SamViT(**TINY, dtype=torch.float32).eval()
+    monkeypatch.setattr(tmr_tpu_torch.models, "build_sam_encoder", lambda *a, **k: model)
+    monkeypatch.setattr("sys.stdin", io.StringIO("Easy_0.tar\n"))
+    report = tmp_path / "report.json"
+    assert mr.main(["map", "--data_dir", str(tmp_path), "--features_out", dead,
+                    "--journal_dir", str(tmp_path / "j"), "--device", "cpu",
+                    "--image_size", str(SIZE), "--batch_size", "2", "--max_attempts", "2",
+                    "--backoff_base", "0.01", "--report_out", str(report)]) == 0
+    shard = json.loads(report.read_text())["shards"][0]
+    assert (shard["shard"], shard["status"], shard["attempts"]) == \
+        ("Easy_0.tar", "quarantined", 2)
+    assert ShardJournal(str(tmp_path / "j")).load_all() == {}
+    assert capsys.readouterr().out == ""
+    assert "artifact" not in mr._REFUSED and "tcp" not in mr._REFUSED
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.stdin", io.StringIO(""))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -444,13 +444,21 @@ def test_unported_options_are_refused_by_name(pair, kw, item):
 
 
 def test_unported_methods_and_knobs_are_refused(pair, engines, monkeypatch):
+    """The live tuner (A8) and ``TMR_SERVE_MESH`` (A7) stay refused. The gallery is
+    ported (``tests/test_torch_gallery.py``): ``search_gallery`` before
+    ``attach_gallery`` raises, after it searches the attached backend, counted."""
     _, pred, _ = pair
     eng = engines(ServeEngine, pred, batch=1)
-    for call, item in ((lambda: eng.attach_gallery(object()), "A7"),
-                       (lambda: eng.search_gallery(_images(1)[0]), "A7"),
-                       (lambda: eng.attach_live_tuner(object()), "A8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        eng.attach_live_tuner(object())
+    with pytest.raises(RuntimeError, match="no gallery attached"):
+        eng.search_gallery(_images(1)[0])
+    seen = []
+    eng.attach_gallery(type("Backend", (), {
+        "search": lambda self, image, **kw: seen.append((image.shape, kw)) or {}})())
+    assert eng.search_gallery(_images(1)[0], prefilter_topk=2) == {}
+    assert seen == [((SIZE, SIZE, 3), {"prefilter_topk": 2})]
+    assert eng.metrics.counter("serve.gallery.searches").value == 1
     with pytest.raises(ValueError, match="donation"):
         ServeEngine(pred, donate=True)
     monkeypatch.setenv("TMR_SERVE_MESH", "dp=2")

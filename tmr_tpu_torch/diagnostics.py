@@ -22,11 +22,15 @@ queue depths, per-device batches, cache stats, compile-event tallies (the port's
 its ``nvcc`` builds) and the anomalies its health watch fired. The JAX engine's
 ``mfu_totals`` input and the mesh sections have no counterpart until ROADMAP A8 and A7;
 :func:`validate_health_report` refuses a ``mesh`` section by name.
+
+``gate_probe/v1`` records say why a gate refused a program (the JAX package's
+``record_gate_refusal`` / ``gate_refused``, the part the port's one gate needs:
+``serve/gallery.gallery_fused_ok``).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 MAP_REPORT_SCHEMA = "map_report/v1"
 
@@ -366,3 +370,59 @@ def validate_elastic_report(doc: dict) -> List[str]:
             if totals.get("fenced_rejections") != len(fenced):
                 problems.append("totals.fenced_rejections != len(fenced_rejections)")
     return problems
+
+
+GATE_PROBE_SCHEMA = "gate_probe/v1"
+#: the refusal log keeps the newest this many records
+_MAX_GATE_REFUSALS = 256
+_GATE_REFUSALS: List[dict] = []
+
+
+def record_gate_refusal(gate: str, cause: str, message: str = "",
+                        exception: Optional[str] = None,
+                        config: Optional[Dict[str, object]] = None) -> dict:
+    """Append one ``gate_probe/v1`` refusal record and return it. ``cause`` is from the
+    JAX package's closed list: "forward-mismatch" (the program is not what the gate
+    requires) or "exception" (the check raised; ``exception`` then names the class).
+    ``config`` is the gate's cache key. The record's backend is the device kind the
+    port runs on (``cuda`` with the card's name, or ``cpu``)."""
+    rec: dict = {"schema": GATE_PROBE_SCHEMA, "gate": gate, "cause": cause,
+                 "message": message, "exception": exception,
+                 "config": dict(config or {})}
+    try:  # the device's identity is best effort: diagnostics never raise
+        import torch
+
+        on_card = torch.cuda.is_available()
+        rec["backend"] = "cuda" if on_card else "cpu"
+        rec["device_kind"] = torch.cuda.get_device_name(0) if on_card else "cpu"
+    except Exception:
+        rec["backend"] = rec["device_kind"] = None
+    _GATE_REFUSALS.append(rec)
+    del _GATE_REFUSALS[:-_MAX_GATE_REFUSALS]
+    return rec
+
+
+def gate_refused(gate: str, reason: str, cause: str,
+                 config: Optional[Dict[str, object]] = None,
+                 exception: Optional[str] = None) -> bool:
+    """:func:`record_gate_refusal`, plus a stderr line under ``TMR_GATE_DEBUG``; returns
+    False, so a gate can ``return gate_refused(...)``."""
+    import os
+    import sys
+
+    record_gate_refusal(gate, cause, message=reason, exception=exception, config=config)
+    if os.environ.get("TMR_GATE_DEBUG"):
+        print(f"[gate] {gate}: refused - {reason}", file=sys.stderr)
+    return False
+
+
+def gate_refusals() -> List[dict]:
+    """The recorded refusals, oldest first (not cleared)."""
+    return list(_GATE_REFUSALS)
+
+
+def drain_gate_refusals() -> List[dict]:
+    """The recorded refusals, oldest first, and the log cleared."""
+    out = list(_GATE_REFUSALS)
+    _GATE_REFUSALS.clear()
+    return out

@@ -11,7 +11,13 @@ bucket picked on the host from the exemplar geometry:
   heads and the decode once per exemplar row, one NMS over each image's union of rows
   (with a ``loss_fn``, the losses of the real rows summed);
 - :meth:`Predictor._get_backbone_fn` / :meth:`Predictor._get_heads_fn`: the split
-  programs behind a feature cache (the encoder alone; the rest on its features).
+  programs behind a feature cache (the encoder alone; the rest on its features);
+- :meth:`Predictor.predict_gallery`: one frame against N standing exemplar sets (the
+  gallery tier, ``serve/gallery.py``): the encoder once, the heads and the decode over
+  the N x k_bucket rows, one union NMS per entry; the fused arm
+  (:meth:`Predictor._get_gallery_fn`) or, on features from the backbone program, the
+  features arm (:meth:`Predictor._get_gallery_heads_fn`); the coarse prefilter's scores
+  (:meth:`Predictor._get_gallery_prefilter_fn`).
 
 All four end in the same tail (:meth:`Predictor._refine_nms`): with a ``refiner``
 (``refine.SamRefineModule``) and ``cfg.refine_box``, SAM box refinement on the encoder's
@@ -44,6 +50,7 @@ import torch
 from tmr_tpu_torch.models import build_model, resolve_device
 from tmr_tpu_torch.models.matching_net import select_capacity_bucket
 from tmr_tpu_torch.ops.postprocess import batched_nms, compact_detections, decode_detections
+from tmr_tpu_torch.ops.xcorr import coarse_prefilter_scores
 from tmr_tpu_torch.utils.weights import init_params, params_from_jax
 
 #: static exemplar-count buckets of the multi-exemplar programs (the JAX
@@ -51,11 +58,19 @@ from tmr_tpu_torch.utils.weights import init_params, params_from_jax
 #: detections are masked out. The paper's contract is k <= 3; 16 and 32 are the gallery
 #: tier's rungs.
 K_BUCKETS = (1, 2, 3, 4, 6, 8, 16, 32)
+#: static entry-count buckets of the gallery programs (the JAX ``Predictor.N_BUCKETS``):
+#: N bank entries pad up to a rung and the padded entries are masked out
+N_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
 def k_bucket(k: int) -> int:
     """The bucket k real exemplar rows pad up to (k itself past the last bucket)."""
     return int(next((b for b in K_BUCKETS if b >= k), k))
+
+
+def n_bucket(n: int) -> int:
+    """The rung n bank entries pad up to (n itself past the last rung)."""
+    return int(next((b for b in N_BUCKETS if b >= n), n))
 
 
 def _host(a) -> np.ndarray:
@@ -67,6 +82,7 @@ class Predictor:
     """The detector's inference entry points over one ``Config``."""
 
     K_BUCKETS = K_BUCKETS
+    N_BUCKETS = N_BUCKETS
 
     def __init__(self, cfg, device=None, model: Optional[torch.nn.Module] = None,
                  refiner: Optional[torch.nn.Module] = None):
@@ -299,25 +315,36 @@ class Predictor:
 
     @torch.inference_mode()
     def _multi(self, images, exemplars, k_real, cap: int):
-        """Encoder once per image, its feature repeated image-major to the B x k_bucket
-        exemplar rows, heads and decode over those rows, padded rows masked, then the
-        rows of each image merged into one union for the tail (``_multi_batched_pipeline``
-        of the JAX package). Returns (detections, the heads' output over the rows, the
-        rows (B * k_bucket, 4) on the device)."""
+        """Encoder once per image, then :meth:`_union_tail` over its k_bucket exemplar
+        rows (``_multi_batched_pipeline`` of the JAX package). Returns (detections, the
+        heads' output over the rows, the rows (B * k_bucket, 4) on the device)."""
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         ex = torch.as_tensor(exemplars, dtype=torch.float32, device=self.device)
-        k_real = torch.as_tensor(k_real, device=self.device)
-        b, kb = ex.shape[:2]
-        rows = ex.reshape(b * kb, 4)
         feat = self.model.backbone_features(images)
+        return self._union_tail(feat, ex, torch.as_tensor(k_real, device=self.device),
+                                cap, (images.shape[1], images.shape[2]))
+
+    def _union_tail(self, feat, ex, k_real, cap: int, image_hw, n_real=None):
+        """The one body of the multi-exemplar and gallery programs. ``feat`` (G, h, w, C)
+        is the encoder's output for each of G groups of exemplar rows ``ex``
+        (G, k_bucket, 4), of which the first ``k_real[g]`` are real: the feature is
+        repeated group-major to the G x k_bucket rows, the heads and decode run over the
+        rows, the padded rows (and the groups from ``n_real`` on, when given) are masked,
+        and each group's rows merge into one union for :meth:`_refine_nms` (which refines
+        on ``feat``). Returns (detections, the heads' output, the rows (G * k_bucket,
+        4))."""
+        g, kb = ex.shape[:2]
+        rows = ex.reshape(g * kb, 4)
         out = self.model(None, rows[:, None, :], cap,
                          features=feat.repeat_interleave(kb, dim=0))
         dets = self._decode(out, rows)
-        row_ok = torch.arange(kb, device=self.device)[None, :] < k_real[:, None]
-        dets["valid"] = dets["valid"] & row_ok.reshape(-1)[:, None]
-        dets = self._refine_nms({name: dets[name].reshape((b, -1) + dets[name].shape[2:])
+        ok = torch.arange(kb, device=self.device)[None, :] < k_real[:, None]
+        if n_real is not None:
+            ok = ok & (torch.arange(g, device=self.device) < n_real)[:, None]
+        dets["valid"] = dets["valid"] & ok.reshape(-1)[:, None]
+        dets = self._refine_nms({name: dets[name].reshape((g, -1) + dets[name].shape[2:])
                                  for name in ("boxes", "scores", "refs", "valid")},
-                                feat, (images.shape[1], images.shape[2]))
+                                feat, image_hw)
         return dets, out, rows
 
     def _get_backbone_fn(self) -> Callable:
@@ -349,6 +376,130 @@ class Predictor:
                                     out["backbone_feature"], (image_size, image_size))
 
         return run
+
+    # ------------------------------------------------------------------ gallery
+    # One frame against a standing bank of N exemplar sets (``serve/gallery.py``): the
+    # encoder once, then the heads and decode over N x k_bucket rows and one union NMS
+    # per entry, the N-entry generalization of the multi program (entry i's slice runs
+    # the ops of ``predict_multi_exemplar`` on its exemplars). N pads to a
+    # ``N_BUCKETS`` rung; the padded entries are masked like padded rows.
+
+    def _gallery_tail(self, feat, exemplars, k_real, n_real: int, cap: int, image_hw):
+        """The tail both gallery arms share: feat (1, h, w, C); exemplars (n_bucket,
+        k_bucket, 4); k_real (n_bucket,); n_real the real entries. The feature stands for
+        every entry (a view; repeated n_bucket times only when a refiner refines on
+        it, as in JAX). Returns detections with leading dim n_bucket."""
+        nb = exemplars.shape[0]
+        feat = feat.expand((nb,) + tuple(feat.shape[1:]))
+        if self.refiner is not None and self.cfg.refine_box:
+            feat = feat.contiguous()
+        return self._union_tail(feat, exemplars, k_real, cap, image_hw, n_real)[0]
+
+    def _gallery_inputs(self, exemplars, k_real):
+        return (torch.as_tensor(exemplars, dtype=torch.float32, device=self.device),
+                torch.as_tensor(k_real, device=self.device))
+
+    def _get_gallery_fn(self, capacity: int, n_bucket: int, k_bucket: int) -> Callable:
+        """The fused gallery program: (image (1, S, S, 3), exemplars (n_bucket, k_bucket,
+        4), k_real (n_bucket,), n_real) -> detections with leading dim n_bucket: the
+        encoder once, then :meth:`_gallery_tail`; each real entry's result is the
+        N-loop's of ``predict_multi_exemplar`` (the same ops per row). The JAX
+        program's ``donate`` has no eager counterpart."""
+        capacity, n_bucket, k_bucket = int(capacity), int(n_bucket), int(k_bucket)
+
+        @torch.inference_mode()
+        def run(image, exemplars, k_real, n_real):
+            image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+            ex, kr = self._gallery_inputs(exemplars, k_real)
+            _check_gallery_shape(ex, n_bucket, k_bucket)
+            feat = self.model.backbone_features(image)
+            return self._gallery_tail(feat, ex, kr, n_real, capacity,
+                                      (image.shape[1], image.shape[2]))
+
+        return run
+
+    def _get_gallery_heads_fn(self, capacity: int, n_bucket: int, k_bucket: int,
+                              image_size: int) -> Callable:
+        """The gallery tail on precomputed features (the feature-cache and prefilter
+        arm): (features (1, h, w, C) from :meth:`_get_backbone_fn`, exemplars, k_real,
+        n_real) -> the detections of :meth:`_get_gallery_fn`, through the same launches
+        after the encoder."""
+        capacity, n_bucket, k_bucket = int(capacity), int(n_bucket), int(k_bucket)
+        image_size = int(image_size)
+
+        @torch.inference_mode()
+        def run(features, exemplars, k_real, n_real):
+            feat = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+            ex, kr = self._gallery_inputs(exemplars, k_real)
+            _check_gallery_shape(ex, n_bucket, k_bucket)
+            return self._gallery_tail(feat, ex, kr, n_real, capacity,
+                                      (image_size, image_size))
+
+        return run
+
+    def _get_gallery_prefilter_fn(self, n_bucket: int, k_bucket: int) -> Callable:
+        """The coarse prefilter program: (features (1, h, w, C), exemplars (n_bucket,
+        k_bucket, 4), k_real, n_real) -> (n_bucket,) f32 scores, padded entries -inf
+        (``ops/xcorr.coarse_prefilter_scores``). Parameter-free."""
+        n_bucket, k_bucket = int(n_bucket), int(k_bucket)
+
+        @torch.inference_mode()
+        def run(features, exemplars, k_real, n_real):
+            feat = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+            ex, kr = self._gallery_inputs(exemplars, k_real)
+            _check_gallery_shape(ex, n_bucket, k_bucket)
+            return coarse_prefilter_scores(feat, ex, kr, n_real)
+
+        return run
+
+    def predict_gallery(self, image, exemplars, k_real, n_real=None, features=None,
+                        image_size=None) -> dict:
+        """Match a bank of N exemplar sets against one frame: image (1, S, S, 3);
+        exemplars (N, k_bucket, 4) padded to one k rung already; k_real (N,) real rows
+        per entry; the first ``n_real`` (default N) entries are real, the rest rung
+        padding. With ``features`` ((1, h, w, C) from :meth:`_get_backbone_fn`) and
+        ``image_size`` the encoder is skipped (the features arm). Returns fixed-slot
+        detections with leading dim the padded N rung; entries from ``n_real`` on keep
+        nothing."""
+        if not self.weights_set:
+            raise RuntimeError("call init_params() or load weights first")
+        exemplars = _host(exemplars)
+        if exemplars.ndim != 3 or exemplars.shape[-1] != 4:
+            raise ValueError(f"expected (N, k_bucket, 4) exemplars, got {exemplars.shape}")
+        n = int(n_real) if n_real is not None else exemplars.shape[0]
+        if not 1 <= n <= exemplars.shape[0]:
+            raise ValueError(f"n_real={n} out of range for {exemplars.shape[0]} bank "
+                             "entries")
+        k_real = np.asarray(k_real, np.int32).reshape(-1)
+        if k_real.shape[0] != exemplars.shape[0]:
+            raise ValueError("k_real must have one count per entry")
+        kb = int(exemplars.shape[1])
+        if not all(1 <= int(k) <= kb for k in k_real[:n]):
+            raise ValueError(f"k_real rows must lie in [1, {kb}]")
+        nb = n_bucket(n)
+        if exemplars.shape[0] < nb:
+            pad = nb - exemplars.shape[0]
+            exemplars = np.concatenate([exemplars, np.tile(exemplars[-1:], (pad, 1, 1))])
+            k_real = np.concatenate([k_real, np.ones((pad,), np.int32)])
+        else:
+            exemplars, k_real = exemplars[:nb], k_real[:nb]
+        if features is None:
+            size = int(image.shape[1])
+        elif image_size is None:
+            raise ValueError("features-arm predict_gallery needs image_size")
+        else:
+            size = int(image_size)
+        rows = np.concatenate([exemplars[i, :int(k_real[i])] for i in range(n)])
+        cap = self.pick_capacity(rows, size)
+        if features is None:
+            return self._get_gallery_fn(cap, nb, kb)(image, exemplars, k_real, n)
+        return self._get_gallery_heads_fn(cap, nb, kb, size)(features, exemplars, k_real, n)
+
+
+def _check_gallery_shape(ex: torch.Tensor, n_bucket: int, k_bucket: int) -> None:
+    if tuple(ex.shape) != (n_bucket, k_bucket, 4):
+        raise ValueError(f"exemplars {tuple(ex.shape)}, the program's buckets are "
+                         f"({n_bucket}, {k_bucket}, 4)")
 
 
 def detections_to_numpy(dets: dict) -> list:

@@ -50,9 +50,11 @@ Environment knobs, all read lazily: ``TMR_ELASTIC_TTL_S``, ``TMR_ELASTIC_HB_S``,
 ``TMR_ELASTIC_POISON_FAILURES``, ``TMR_ELASTIC_CONNECT_TIMEOUT_S`` (every protocol
 dial: a black-holed coordinator address fails a worker fast).
 
-Not ported, and refused by name: the fleet observability plane (``TMR_FLEET_OBS``,
-ROADMAP A7, with the fleet) and ``tcp://`` feature sinks (``mapreduce.make_feature_sinks``,
-A7). Nothing here imports torch at module load: the map executor (and through it torch)
+A ``tcp://host:port`` ``features_out`` streams every worker's features into a
+``serve/gallery.FeatureSinkServer`` (``mapreduce.make_feature_sinks``), the
+coordinator's quarantine cleanup evicting a shard's features there. Not ported, and
+refused by name: the fleet observability plane (``TMR_FLEET_OBS``, ROADMAP A7, with the
+fleet). Nothing here imports torch at module load: the map executor (and through it torch)
 is imported where a worker or the table needs it.
 """
 
@@ -242,7 +244,7 @@ class ElasticCoordinator:
         os.makedirs(self.lease_dir, exist_ok=True)
         # like the shard paths: workers resolve this from their own cwd, so a relative
         # features tree would scatter across worker cwds (a tcp:// target is not a path:
-        # it reaches make_feature_sinks as given, which refuses it by name)
+        # it reaches make_feature_sinks as given)
         self.features_out = (
             features_out if not features_out or str(features_out).startswith("tcp://")
             else os.path.abspath(features_out)

@@ -28,8 +28,10 @@ described by a ``map_report/v1`` document (``diagnostics.py``), and the fault po
 
 ``--artifact`` (``make_encode_stats_fn_from_artifact``) encodes with an exported encoder
 (``utils/export.py``, ``python -m tmr_tpu_torch.export_encoder``) in place of the model:
-no model is built and no checkpoint is read. Not ported yet, and refused by name:
-``tcp://`` feature sinks (ROADMAP A7) and ``allreduce_stats`` (A7,
+no model is built and no checkpoint is read. ``--features_out tcp://host:port`` streams
+the features into a serve-side ``serve/gallery.FeatureSinkServer`` (the JAX package's
+wire: a JAX sink takes a port worker's stream and the other way round) in place of
+``.npy`` files. Not ported yet, and refused by name: ``allreduce_stats`` (ROADMAP A7,
 ``torch.distributed``). The JAX package's ``obs`` counters, spans and flight records of
 the executor, and the report's ``metrics`` key, wait for the measurement plane (A8).
 """
@@ -41,6 +43,7 @@ import json
 import os
 import random
 import shutil
+import socket
 import sys
 import tarfile
 import threading
@@ -69,8 +72,6 @@ _NON_RETRYABLE = (tarfile.ReadError, FileNotFoundError, NotADirectoryError,
 
 #: the ROADMAP items of what the port refuses
 _REFUSED = {
-    "tcp": "tcp:// feature sinks (the serve gallery) are not ported yet (ROADMAP A7, "
-           "gallery)",
     "allreduce": "allreduce_stats needs the torch.distributed port (ROADMAP A7)",
 }
 
@@ -351,11 +352,12 @@ def atomic_save_npy(path: str, arr: np.ndarray) -> None:
 def make_feature_sinks(features_out: Optional[str]):
     """(save, cleanup, sync) callables writing each image's features to
     ``features_out/<category>/<shard>/<image>.npy`` (mapper.py:126-130), the JAX
-    package's layout; all None when features are off."""
+    package's layout; all None when features are off. A ``tcp://host:port`` target
+    streams them to a feature sink instead (:func:`_network_feature_sinks`)."""
     if not features_out:
         return None, None, None
     if str(features_out).startswith("tcp://"):
-        raise NotImplementedError(f"--features_out {features_out}: {_REFUSED['tcp']}")
+        return _network_feature_sinks(str(features_out))
 
     def shard_dir(shard: str) -> str:
         return os.path.join(features_out, CATEGORIES[category_of(shard)],
@@ -372,6 +374,90 @@ def make_feature_sinks(features_out: Optional[str]):
 
     def sync(shard: str) -> None:
         fsync_dir(shard_dir(shard))
+
+    return save, cleanup, sync
+
+
+def _network_feature_sinks(url: str):
+    """(save, cleanup, sync) streaming over the JSON-lines protocol to a
+    ``serve/gallery.FeatureSinkServer`` at ``tcp://host:port`` (the JAX
+    ``parallel/elastic._network_feature_sinks``, byte for byte the same lines).
+
+    ``save`` pipelines one feature line per image with no ack; ``sync``, called before
+    the shard's journal marker commits, waits for the one ack that vouches for every
+    feature sent before it on the same ordered connection. A dirty ack or any socket
+    error raises ``ConnectionError``, failing the shard attempt, so the executor's
+    retries stream the shard again. One connection per process, dialed lazily and
+    dropped on error; ``cleanup`` is the quarantine eviction."""
+    from tmr_tpu_torch.parallel.leases import connect_timeout, recv_line, send_line
+    from tmr_tpu_torch.serve.fleet import pack_array
+
+    host, _, port_s = url[len("tcp://"):].rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        port = None
+    if not host or port is None:
+        raise ValueError(f"feature-sink url {url!r}: expected tcp://host:port")
+    state = {"sock": None, "file": None}
+    lock = threading.Lock()
+
+    def _drop_locked() -> None:
+        for key in ("file", "sock"):
+            obj, state[key] = state[key], None
+            if obj is not None:
+                try:
+                    obj.close()
+                except OSError:
+                    pass
+
+    def _conn_locked():
+        if state["sock"] is None:
+            sock = socket.create_connection((host, port), timeout=connect_timeout())
+            # a dead sink must fail the shard attempt (retried), never wedge the worker
+            sock.settimeout(60.0)
+            f = sock.makefile("rb")
+            state["sock"], state["file"] = sock, f
+            send_line(sock, {"op": "hello", "worker": f"map-{os.getpid()}"})
+            reply = recv_line(f)
+            if not (reply and reply.get("ok")):
+                _drop_locked()
+                raise ConnectionError(f"feature sink {host}:{port} refused hello: "
+                                      f"{reply!r}")
+        return state["sock"], state["file"]
+
+    def _exchange(doc: dict, want_ack: bool) -> Optional[dict]:
+        with lock:
+            try:
+                sock, f = _conn_locked()
+                send_line(sock, doc)
+                if not want_ack:
+                    return None
+                reply = recv_line(f)
+            except (OSError, ValueError) as e:
+                _drop_locked()
+                raise ConnectionError(f"feature sink {host}:{port} unreachable: {e}") from e
+            if reply is None:
+                _drop_locked()
+                raise ConnectionError(f"feature sink {host}:{port} closed mid-exchange")
+            return reply
+
+    def save(shard: str, name: str, feat) -> None:
+        base = os.path.splitext(os.path.basename(name))[0]
+        _exchange({"op": "feature", "shard": shard_stem(shard), "name": base,
+                   "array": pack_array(feat)}, want_ack=False)
+
+    def cleanup(shard: str) -> None:
+        _exchange({"op": "evict", "shard": shard_stem(shard)}, want_ack=True)
+
+    def sync(shard: str) -> None:
+        reply = _exchange({"op": "sync", "shard": shard_stem(shard)}, want_ack=True)
+        if not reply.get("ok"):
+            # the retry dials afresh rather than inheriting a half-streamed connection
+            with lock:
+                _drop_locked()
+            raise ConnectionError(f"feature sink {host}:{port} reported "
+                                  f"{reply.get('errors')} failed features for {shard}")
 
     return save, cleanup, sync
 

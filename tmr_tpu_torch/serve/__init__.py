@@ -3,8 +3,10 @@ single-process part of ``tmr_tpu/serve``).
 
 ``ServeEngine`` is the entry point: dynamic micro-batching under a latency bound, pinned
 double-buffered staging, content-addressed result and feature caches, admission control
-and the degrade ladder; see engine.py for the pipeline and its contracts. Streams, the
-feature tier, galleries, the fleet and mesh plans are ROADMAP A7's.
+and the degrade ladder; see engine.py for the pipeline and its contracts. ``GalleryBank`` serves
+standing pattern banks (``gallery.py``; ``FeatureSinkServer`` takes the map phase's
+streamed features). Streams, the feature tier, the fleet and mesh plans are ROADMAP
+A7.4's.
 """
 
 from tmr_tpu_torch.serve.admission import (
@@ -17,6 +19,7 @@ from tmr_tpu_torch.serve.batcher import MicroBatcher, Request
 from tmr_tpu_torch.serve.caches import LRUCache, array_digest
 from tmr_tpu_torch.serve.degrade import DEGRADE_STEPS, DegradeController
 from tmr_tpu_torch.serve.engine import ServeEngine
+from tmr_tpu_torch.serve.gallery import FeatureSinkServer, GalleryBank, gallery_fused_ok
 from tmr_tpu_torch.serve.staging import DeviceStager, StagedBatch
 
 __all__ = [
@@ -24,6 +27,8 @@ __all__ = [
     "DEGRADE_STEPS",
     "DegradeController",
     "DeviceStager",
+    "FeatureSinkServer",
+    "GalleryBank",
     "LRUCache",
     "MicroBatcher",
     "REJECTION_CAUSES",
@@ -33,4 +38,5 @@ __all__ = [
     "StagedBatch",
     "array_digest",
     "class_weight_fn",
+    "gallery_fused_ok",
 ]

@@ -176,6 +176,16 @@ class LRUCache:
                 self._bytes -= self._sizes.pop(dead, 0)
                 self._evictions.inc()
 
+    def pop(self, key: Hashable) -> Optional[Any]:
+        """Remove one entry (bytes accounted); the value, or None when absent. Touches
+        neither the traffic counters nor the eviction tally (evictions count capacity
+        pressure, not removals)."""
+        with self._lock:
+            if key not in self._data:
+                return None
+            self._bytes -= self._sizes.pop(key, 0)
+            return self._data.pop(key)
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._data)

@@ -30,10 +30,12 @@ Contracts:
   seven pipeline stages (submit, queue_wait, batch_assemble, stage, execute,
   postprocess, resolve).
 
+``attach_gallery`` / ``search_gallery`` serve a standing pattern bank
+(``serve/gallery.GalleryBank``) beside the request pipeline.
+
 Not ported, refused by name where the JAX engine has them: mesh serving (``mesh=``,
-``TMR_SERVE_MESH``, more than one device) and the feature tier (``feature_client=``), the
-gallery (``attach_gallery``, ``search_gallery``) and stream sessions (``submit``'s
-``features=``), all ROADMAP A7; the live tuner (``attach_live_tuner``) and the measured
+``TMR_SERVE_MESH``, more than one device), the feature tier (``feature_client=``) and
+stream sessions (``submit``'s ``features=``), all ROADMAP A7; the live tuner (``attach_live_tuner``) and the measured
 batch bound, ROADMAP A8. ``aot=`` has no counterpart (no jit): ``warmup_buckets=`` runs
 each padded shape of each bucket once, which builds the kernels and lets cuDNN pick its
 algorithms. ``donate=True`` (XLA buffer donation) has no eager counterpart and raises.
@@ -173,6 +175,7 @@ class ServeEngine:
         self._batch_bounds: Dict[int, int] = {}
         self._lock = threading.Lock()
         self._inflight: Dict[tuple, Request] = {}
+        self._gallery: Optional[Any] = None
         self._closed = False
         self._t_start = time.time()
         self._watch = obs.HealthWatch() if watch is None else watch
@@ -221,13 +224,26 @@ class ServeEngine:
         for t in self._threads:
             t.start()
 
-    # ------------------------------------------------- refused (not ported)
+    # -------------------------------------------------------------- gallery
     def attach_gallery(self, gallery: Any) -> None:
-        _refuse("pattern-search galleries (attach_gallery)", "A7")
+        """Arm :meth:`search_gallery` with a pattern-search backend: any object with
+        ``search(image) -> {name: dets}``, such as a ``serve.gallery.GalleryBank`` (built
+        with ``feature_cache=engine.feature_cache``, it shares the engine's frame
+        features under the same ``feature_stamp`` keys). Detached, nothing changes."""
+        with self._lock:
+            self._gallery = gallery
 
     def search_gallery(self, image, **kw) -> Dict[str, dict]:
-        _refuse("pattern-search galleries (search_gallery)", "A7")
+        """Match every registered pattern against one frame through the attached backend,
+        counted as ``serve.gallery.searches``; RuntimeError when none is attached."""
+        with self._lock:
+            gallery = self._gallery
+        if gallery is None:
+            raise RuntimeError("no gallery attached (ServeEngine.attach_gallery)")
+        self.metrics.counter("serve.gallery.searches").inc()
+        return gallery.search(image, **kw)
 
+    # ------------------------------------------------- refused (not ported)
     def attach_live_tuner(self, tuner: Any) -> bool:
         _refuse("continuous autotune (attach_live_tuner)", "A8")
 

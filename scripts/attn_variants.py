@@ -17,7 +17,8 @@ out computes garbage and is marked so. Shapes: the windowed kernels on SAM ViT-B
 window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim 80; the global
 kernels on ViT-B's 48 x 4096 with and without the bias, on the 1536 bucket's 96x96 grid
 (bf16: one image and the eval batch of 4, and ViT-H's batch of 4 at head dim 80; f32:
-batch 4), and on ViT-H's 64 x 4096 (head dim 80) with and without the bias. Prints the
+batch 4), on ViT-H's 64 x 4096 (head dim 80) with and without the bias, and (bf16) on
+the grids off ViT-H's path, 24x40, 5x7 and 7x64, at its BH 64, both ways. Prints the
 card, one line per kernel, shape and variant, and a JSON line of the times. ``--src``
 compares several versions of the selected kernels' source file (for example a parent
 commit's, unpacked beside this one: ``git show <commit>:tmr_tpu_torch/csrc/attn.cu >
@@ -91,18 +92,16 @@ def window_variants(src: str) -> dict:
 
 
 _G_SOFTMAX = "global_softmax<BK, HAS_BIAS, GW, {}>(s, m, l, a, rw0, rw1, rows, kt);"
-_G_STAGES = ("static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 128 ? 3 : 4) : "
-             "(BK == 96 ? 2 : 3);")
-_G_BK = "constexpr int BK = GW == 96 ? 96 : GW == 64 && D == 64 ? 128 : 64;"
+_G_STAGES = "static constexpr int NS = D == 64 ? (BK == 128 ? 3 : 4) : (BK == 64 ? 4 : 3);"
+_G_BK = "constexpr int BK = GW == 96 ? 96 : GW == 64 ? 128 : 64;"
 _G_ROW96 = "  if (gw == 96 && global_smem<D, 96, true>(gh, gw) <= G_SMEM_LIMIT)"
 _G_RW = ("        v0 = fmaf(s[4 * j + e], rows.scale_log2, rw0[j % JG][e]);\n"
          "        v1 = fmaf(s[4 * j + 2 + e], rows.scale_log2, rw1[j % JG][e]);\n")
 
 
-def _stages(one_panel: str, two_panels: str = "(BK == 96 ? 2 : 3)") -> tuple:
-    """The K/V ring's depth edited: at one panel (head dim 64) and at two (80)."""
-    return (_G_STAGES, f"static constexpr int NS = GPanels<D>::NP == 1 ? {one_panel} : "
-                       f"{two_panels};")
+def _stages(d64: str, d80: str = "(BK == 64 ? 4 : 3)") -> tuple:
+    """The K/V ring's depth edited: at head dim 64 and at 80."""
+    return (_G_STAGES, f"static constexpr int NS = D == 64 ? {d64} : {d80};")
 
 
 #: global kernel: name -> text edits
@@ -126,13 +125,15 @@ _G_EDITS = {
     # 96-token rows on the general bias path (64-key tiles, (ky, kx) per key), both head
     # dims: the route before the row tiles
     "row96_general": ((_G_ROW96, "  if (false)"),),
-    # 64-key tiles on 64-token rows in place of 128 at head dim 64
+    # 64-key tiles on 64-token rows in place of 128, at both head dims
     "bk64": ((_G_BK, "constexpr int BK = GW == 96 ? 96 : 64;"),),
-    # head dim 80 (two panels): 4 stages of 64 keys (128 KB; 231,496 B with the 64x64
-    # projections) in place of 3, or 2 stages of 128-key tiles on 64-token grid rows
-    "d80_stages4": (_stages("(BK == 128 ? 3 : 4)", "(BK == 96 ? 2 : 4)"),),
-    "d80_bk128": (_stages("(BK == 128 ? 3 : 4)", "(BK == 64 ? 3 : 2)"),
-                  (_G_BK, "constexpr int BK = GW == 96 ? 96 : GW == 64 ? 128 : 64;")),
+    # head dim 80: without the bias 128-key tiles (3 stages, 120 KB) in place of 64; on
+    # 96-token rows 2 stages of 96 keys in place of 3; 3 stages of 64 keys in place of 4
+    "d80_nobias_bk128": ((_G_BK, "constexpr int BK = GW == 96 ? 96 : GW == 64 || "
+                                 "(D == 80 && !HAS_BIAS) ? 128 : 64;"),),
+    "d80_row96_stages2": (_stages("(BK == 128 ? 3 : 4)",
+                                  "(BK == 64 ? 4 : BK == 96 ? 2 : 3)"),),
+    "d80_stages3_64": (_stages("(BK == 128 ? 3 : 4)", "3"),),
     # the consumer warpgroups' turn-taking flipped: none with the bias, turns without it
     "turns_flipped": (("constexpr bool TURNS = HAS_BIAS;",
                        "constexpr bool TURNS = !HAS_BIAS;"),),
@@ -141,7 +142,7 @@ _G_EDITS = {
                    ("    float a[2];", "    float a[2] = {1.f, 1.f};")),
     # the key loop without its products (the softmax reruns on stale scores)
     "no_mma": (("issue_qk<D, BK>(s, qa, sKV + st * 2 * KVBYTES);", ""),
-               ("issue_pv<D, BK>(o, p, sKV + prev * 2 * KVBYTES + KVBYTES);", "")),
+               ("issue_pv<D, BK>(o, ot, p, sKV + prev * 2 * KVBYTES + KVBYTES);", "")),
     # no bias projections before the key loop (the bias reads unset shared memory)
     "no_projections": (("global_projection<D>(sQ, lr0, rph, gh, ya, yb, yf, yl, sRh, sth);",
                         ""),
@@ -164,10 +165,11 @@ def _edited(src: str, table: dict) -> dict:
 
 
 def global_variants(src: str) -> dict:
-    """The global edits apply to this design's source (row tiles of GW-token grid rows);
-    another design (``--src``, the general path's on 96-token rows) runs as it is, under
-    the name ``full``."""
-    return _edited(src, _G_EDITS) if "RW_GROUPS<GW>" in src else {"full": src}
+    """The global edits apply to this design's source (row tiles of GW-token grid rows,
+    head dim 80 at its 80 columns); another design (``--src``: the general path's on
+    96-token rows, or head dim 80 in two 64-column panels) runs as it is, under the name
+    ``full``."""
+    return _edited(src, _G_EDITS) if "sw32_desc" in src else {"full": src}
 
 
 _F_QK = ("          wgmma_n32(sc, ql[kk], bhi, kk > 0);\n"
@@ -248,7 +250,9 @@ KERNELS = {
         variants=global_variants,
         shapes=((64, 64, 48, True, 64), (64, 64, 48, False, 64), (96, 96, 12, True, 64),
                 (96, 96, 48, True, 64), (64, 64, 64, True, 80), (64, 64, 64, False, 80),
-                (96, 96, 64, True, 80)), reps=20,
+                (96, 96, 64, True, 80), (24, 40, 64, True, 80), (24, 40, 64, False, 80),
+                (5, 7, 64, True, 80), (5, 7, 64, False, 80), (7, 64, 64, True, 80),
+                (7, 64, 64, False, 80)), reps=20,
         args=lambda x: (*x.qkv, *(x.compact if x.bias else (None, None)), x.out, x.bh, x.s,
                         x.gh, x.gw, x.d, x.scale, int(x.bias))),
     "window_f32": SimpleNamespace(

@@ -27,7 +27,7 @@ from tmr_tpu.ops.pallas_attn import (  # noqa: E402
     pallas_fused_attention,
     pallas_windowed_attention,
 )
-from tmr_tpu_torch.ops import cuda_attn  # noqa: E402
+from tmr_tpu_torch.ops import _build, cuda_attn  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_REL_TOL = 2.0 ** -7
@@ -399,20 +399,21 @@ def test_kernels_take_head_dims_64_and_80_only(d, ok):
 
 def _global_smem_mirror(gh, gw, has_bias, d):
     """csrc/attn.cu launch_global's shared bytes (global_smem): 1024 alignment slack, the
-    Q tile of 128 rows in 64-column panels, the K/V ring of NS stages of BK keys (GStages,
+    Q tile of 128 rows of 2d bytes (a 128-byte row of the 64-column panel, and at head dim
+    80 a 32-byte row of the 16-column one), the K/V ring of NS stages of BK keys (GStages,
     BK in launch_global), NS full + NS empty + 1 mbarriers, and the (128, gh | 1) +
     (128, gw | 1) f32 projections. global_entry's route with the bias: 96-key tiles (one
     grid row each) on 96-token rows where they fit in 227 KB, 128-key tiles on 64-token
-    rows at head dim 64, else 64-key tiles."""
-    np_ = (d + 63) // 64
+    rows, else 64-key tiles."""
+    row = 128 + (d - 64) * 2
 
     def smem(bk):
-        ns = (3 if bk == 128 else 4) if np_ == 1 else (2 if bk == 96 else 3)
-        fixed = 1024 + np_ * 128 * 128 + ns * 2 * np_ * bk * 128 + (1 + 2 * ns) * 8
+        ns = (3 if bk == 128 else 4) if d == 64 else (4 if bk == 64 else 3)
+        fixed = 1024 + 128 * row + ns * 2 * bk * row + (1 + 2 * ns) * 8
         return fixed + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0)
 
     bk = 64
-    if has_bias and d == 64 and gw == 64:
+    if has_bias and gw == 64:
         bk = 128
     elif has_bias and gw == 96 and smem(96) <= 227 * 1024:
         bk = 96
@@ -432,14 +433,15 @@ def test_geometry_mirrors_the_c_side(d):
     """global_geometry and window_geometry equal the C side's formulas at both head dims, and
     ViT-H's shapes (a 64x64 grid, 14x14 windows) fit the 227 KB a block may use."""
     limit = 227 * 1024
-    tall = ((129, 96), (130, 96)) if d == 64 else ()  # over 227 KB at head dim 80
+    tall = ((129, 96), (130, 96), (133, 96), (134, 96))
     for gh, gw in ((64, 64), (24, 40), (5, 7), (7, 64), (96, 96), (1, 1), (2, 96), *tall):
         for has_bias in (True, False):
             assert (cuda_attn.global_geometry(gh, gw, has_bias, d)
                     == _global_smem_mirror(gh, gw, has_bias, d))
     # the 1536 bucket's 96x96 grid: 4 stages of 96-key tiles (24,576 B each) at head dim
-    # 64 and 2 of twice that at 80, beside the (128, 97) + (128, 97) projections; at head
-    # dim 64 a grid of 130 such rows leaves them no room and takes 64-key tiles
+    # 64 and 3 of 30,720 at 80 (rows of 160 bytes), beside the (128, 97) + (128, 97)
+    # projections; a grid of 130 such rows (134 at head dim 80) leaves them no room and
+    # takes 64-key tiles
     if d == 64:
         assert cuda_attn.global_geometry(96, 96, True, d) == (
             1024 + 16384 + 4 * 24576 + 72 + 128 * (97 + 97) * 4) == 215112
@@ -447,7 +449,9 @@ def test_geometry_mirrors_the_c_side(d):
             1024 + 16384 + 4 * 16384 + 72 + 128 * (131 + 97) * 4)
     else:
         assert cuda_attn.global_geometry(96, 96, True, d) == (
-            1024 + 2 * 16384 + 2 * 49152 + 40 + 128 * (97 + 97) * 4) == 231464
+            1024 + 20480 + 3 * 30720 + 56 + 128 * (97 + 97) * 4) == 213048
+        assert cuda_attn.global_geometry(134, 96, True, d) == (
+            1024 + 20480 + 4 * 20480 + 72 + 128 * (135 + 97) * 4)
     for gh, gw in ((14, 14), (7, 7), (16, 16), (1, 64), (13, 13)):
         assert cuda_attn.window_geometry(gh, gw, d) == _window_smem_mirror(gh, gw, d)
     assert cuda_attn.global_geometry(64, 64, True, d) <= limit
@@ -478,4 +482,127 @@ def test_window_swizzle_is_a_bijection_and_free_of_bank_conflicts(d):
     group = (off * 2 // 16) % 8  # 16-byte bank group of each chunk's address
     for r0 in range(0, 256, 8):
         for c in range(chunks):
+            assert len(set(group[r0:r0 + 8, c].tolist())) == 8, (r0, c)
+
+
+def test_global_geometry_head_dim_80_takes_128_key_tiles():
+    """ViT-H's 64x64 grid with the bias: Q (128 rows of 160 bytes), 3 stages of 128-key K
+    and V tiles at their 80 columns (40,960 B a stage), 7 mbarriers and the (128, 65) +
+    (128, 65) projections; without the bias 4 stages of 64 keys."""
+    assert cuda_attn.global_geometry(64, 64, True, 80) == (
+        1024 + 20480 + 3 * 40960 + 56 + 128 * (65 + 65) * 4) == 211000
+    assert cuda_attn.global_geometry(64, 64, False, 80) == (
+        1024 + 20480 + 4 * 20480 + 72) == 103496
+
+
+def _swizzle(addr, span):
+    """The hardware's address swizzle of a 32B / 128B-swizzled tile (TMA writes and the
+    wgmma descriptors' layout types 3 / 1 alike): the 16-byte chunk bits of the address
+    XOR the bits just above the span's 128 bytes (bit 7 into bit 4 for 32B; bits 7-9 into
+    4-6 for 128B)."""
+    mask = {32: 1, 128: 7}[span]
+    return addr ^ (((addr >> 7) & mask) << 4)
+
+
+def _tma_box_offset(row, col, d):
+    """Byte offset (in a tile of ``rows`` rows) where csrc/attn.cu's TMA boxes put bf16
+    element (row, col) of a head-dim-``d`` row: columns 0-63 by the 128B-swizzled box of
+    64 columns (rows of 128 bytes), columns 64-79 by the 32B-swizzled box of 16 (rows of
+    32 bytes) after the ``rows`` x 128 bytes of the first panel. Returns (panel, offset
+    within the panel)."""
+    if col < 64:
+        return 0, _swizzle(row * 128 + col * 2, 128)
+    return 1, _swizzle(row * 32 + (col - 64) * 2, 32)
+
+
+def _c_descriptor(name, addr):
+    """csrc/attn.cu's ``name`` (sw128_desc or sw32_desc) evaluated at shared address
+    ``addr``: the C expression read from the source, so the model below runs on the
+    kernel's own constants."""
+    src = (_build.CSRC / "attn.cu").read_text()
+    body = src[src.index(f"uint64_t {name}(const void* p)"):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    expr = " ".join(expr.replace("(uint64_t)", "").replace("smem_addr(p)", str(addr)).split())
+    return eval(expr.replace("ull", ""))  # noqa: S307 - constants and shifts only
+
+
+def _descriptor_reads(desc, rows, cols, mn_major):
+    """Byte addresses a wgmma operand descriptor reads for a (rows x 16) K-major tile (row
+    r, k-column c: Q or K) or a (16 keys x cols) MN-major one (key r, column c: V through
+    the transpose bit): the canonical layouts of the swizzled modes (a span of 32 or 128
+    bytes a row, 8-row groups the stride offset apart; MN-major, columns past a span the
+    leading offset apart), then the address swizzle."""
+    start = (desc & 0x3FFF) << 4
+    lead = ((desc >> 16) & 0x3FFF) << 4
+    stride = ((desc >> 32) & 0x3FFF) << 4
+    span = {1: 128, 3: 32}[desc >> 62]
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    lin = start + (r // 8) * stride + (r % 8) * span
+    if mn_major:
+        lin = lin + (c // (span // 2)) * lead + (c % (span // 2)) * 2
+    else:
+        lin = lin + c * 2
+    return _swizzle(lin, span)
+
+
+@pytest.mark.parametrize("bk", [128, 96, 64])
+def test_head_dim_80_panels_are_read_as_tma_wrote_them(bk):
+    """The head-dim-80 K and V tiles: every (key, column) of a bk-key tile is read exactly
+    once over q.k's five k-steps (K-major: four 32-byte steps of the 128B panel's
+    descriptor, one 32B-panel descriptor) and over p.v's k-steps (MN-major: m64n64k16 on
+    the 128B panel, m64n16k16 on the 32B panel), and each read lands on the bytes the TMA
+    box wrote that element to; so too Q's ldmatrix rows (load_q_fragments)."""
+    d, base = 80, 1 << 14  # a 1024-aligned tile in shared memory
+    panel_base = (base, base + bk * 128)
+    tma = np.empty((bk, d), np.int64)
+    for r in range(bk):
+        for c in range(d):
+            pn, off = _tma_box_offset(r, c, d)
+            tma[r, c] = panel_base[pn] + off
+    # the tile is bk rows of 160 bytes, every element once
+    assert np.array_equal(np.sort(tma.ravel()), base + 2 * np.arange(bk * d))
+    # q.k: k-step kk reads K[key, 16 kk + k]
+    seen = np.zeros((bk, d), int)
+    for kk in range(5):
+        desc = (_c_descriptor("sw128_desc", panel_base[0]) + kk * 2 if kk < 4
+                else _c_descriptor("sw32_desc", panel_base[1]))
+        got = _descriptor_reads(desc, bk, 16, mn_major=False)
+        np.testing.assert_array_equal(got, tma[:, 16 * kk:16 * kk + 16])
+        seen[:, 16 * kk:16 * kk + 16] += 1
+    assert (seen == 1).all()
+    # p.v: k-step kk reads V[16 kk + key, col] over the 64 + 16 columns
+    seen[:] = 0
+    for kk in range(bk // 16):
+        keys = slice(16 * kk, 16 * kk + 16)
+        got64 = _descriptor_reads(_c_descriptor("sw128_desc", panel_base[0] + kk * 16 * 128),
+                                  16, 64, mn_major=True)
+        got16 = _descriptor_reads(_c_descriptor("sw32_desc", panel_base[1] + kk * 16 * 32),
+                                  16, 16, mn_major=True)
+        np.testing.assert_array_equal(got64, tma[keys, :64])
+        np.testing.assert_array_equal(got16, tma[keys, 64:])
+        seen[keys] += 1
+    assert (seen == 1).all()
+    # Q (128 rows): lane row r, 16-byte chunk ch of load_q_fragments' address
+    q0 = base
+    for row in range(128):
+        for ch in range(10):
+            if ch < 8:
+                off = q0 + row * 128 + ((ch ^ (row & 7)) << 4)
+            else:
+                off = q0 + 128 * 128 + row * 32 + (((ch & 1) ^ ((row >> 2) & 1)) << 4)
+            pn, want = _tma_box_offset(row, 8 * ch, d)
+            assert off == (q0, q0 + 128 * 128)[pn] + want
+
+
+def test_32b_panel_is_free_of_bank_conflicts():
+    """The 16-column panel's 32B swizzle: each 32-byte row holds its two chunks once, and
+    for each chunk the 8 rows an ldmatrix phase or a wgmma core matrix reads (8
+    consecutive rows from a multiple of 8) sit in 8 distinct bank groups of 16 bytes."""
+    rows = np.arange(256)[:, None]
+    off = _swizzle(rows * 32 + np.arange(2)[None, :] * 16, 32)
+    for r in range(256):
+        np.testing.assert_array_equal(np.sort(off[r] - r * 32) // 16, np.arange(2))
+    group = (off // 16) % 8
+    for r0 in range(0, 256, 8):
+        for c in range(2):
             assert len(set(group[r0:r0 + 8, c].tolist())) == 8, (r0, c)

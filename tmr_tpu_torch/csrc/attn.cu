@@ -44,12 +44,12 @@
 //     terms, f32 sums) only the table rows its 16 rows need: 8-9 groups of 8 for rel-h, 10-11
 //     for rel-w on the 64x64 grid, ~4% of the attention's tensor work. The (128, gh) and
 //     (128, gw) results stay in shared memory.
-//  5. Copies and occupancy: K/V tiles (128-byte rows, 128B-swizzled) arrive by TMA
-//     (cp.async.bulk.tensor, 3-D maps over (BH, S, D)) into a ring (3 stages of 128 keys,
-//     96 KB, on the main path; 4 of 64 elsewhere) with full/empty mbarriers, fed by one
-//     producer thread; the producer warpgroup hands its registers to the consumers
-//     (setmaxnreg 40 / 232). One CTA of 12 warps per SM (182 KB of shared memory on the
-//     main path).
+//  5. Copies and occupancy: K/V tiles (128-byte rows, 128B-swizzled; head dim 80 below)
+//     arrive by TMA (cp.async.bulk.tensor, 3-D maps over (BH, S, D)) into a ring (3
+//     stages of 128 keys, 96 KB, on the main path; 4 of 64 elsewhere) with full/empty
+//     mbarriers, fed by one producer thread; the producer warpgroup hands its registers
+//     to the consumers (setmaxnreg 40 / 232). One CTA of 12 warps per SM (182 KB of
+//     shared memory on the main path).
 // Alternatives measured slower on the main path and removed (PERF.md): Q read from shared
 // memory by every q.k, 64-key tiles, and no turn-taking with the bias.
 // Any token count: Q rows and K/V keys past S are zero-filled by TMA; the last tile's pad
@@ -64,20 +64,25 @@
 // general path below at BH 48 and 1.6x at head dim 80, and rel-w read from shared memory
 // per 8-key group 1.8x slower than from registers. Other grids (24x40, 20x20, ...) derive
 // each column's (ky, kx) once per tile by a reciprocal multiply and read both terms from
-// shared memory. The head dim is a template parameter (64-column panels; 64 and 80
-// instantiated).
+// shared memory. The head dim is a template parameter (64 and 80 instantiated).
 // Head dim 80 (SAM ViT-H: 4 blocks of 64 x 4096 x 80 per batch of 4; 4 S^2 D BH = 344
-// GFLOP, 0.347 ms at the bf16 peak): q.k takes 5 k-steps; Q, K and V take two panels, the
-// second zero-filled by TMA past column 80, so p.v performs 128 / 80 of the products it
-// needs (0.452 ms at the peak). With two panels a ring of 128-key tiles and the 64x64
-// projections fits only 2 stages, so the D = 80 instantiations on 64-key tiles take 3
-// stages (a 96x96 grid's projections still fit), and on 96-token rows 2 stages of 96 keys.
-// Measured in turns (scripts/attn_variants.py, PERF.md): 4 stages of 64 keys 2-4% slower,
-// 2 stages of 128 keys ~45% slower.
-// nvcc 12.9 -Xptxas -v (sm_90a), each of <64, 128, bias, 64>, <64, 96, bias, 96>,
-// <64, 64, bias, 0>, <64, 64, no bias, 0>, <80, 64, *, 64 or 0> and <80, 96, bias, 96>
-// (<D, BK, bias, GW>): 168 registers (the launch bound's share of 384 threads), 0 bytes
-// stack frame, 0 spills.
+// GFLOP, 0.347 ms at the bf16 peak) at its 80 columns: a row of Q, K or V is a 64-column
+// 128B-swizzled panel plus a 16-column 32B-swizzled one (its own TMA box of 16 columns and
+// 32-byte rows, its own wgmma descriptor, sw32_desc), 160 bytes a row with no padding. q.k
+// takes k-steps 0-3 from the first panel and k-step 4 from the second; p.v is one
+// m64n64k16 and one m64n16k16 a 16-key step, 80 columns of products and 40 accumulator
+// registers. So a 128-key stage is 40 KB, and the main path runs D = 64's ring: 3 stages of
+// 128 keys with the 64x64 projections (211,000 B), and 3 stages of 96 keys on 96-token rows
+// (213,048 B with the 96x96 grid's). The design it replaced kept two 64-column panels, the
+// second zero-filled past column 80: p.v performed 128 / 80 of the products, and only 64-key
+// tiles fit (3 stages; 2 of 96 keys on 96-token rows). Measured in turns against it
+// (scripts/attn_variants.py, PERF.md): 64x64 with the bias 0.928-0.959 ms against
+// 1.029-1.134, 64-key tiles in this layout 1.005-1.016; without the bias 0.900-0.905
+// against 0.934-0.943 (128-key tiles 0.920-0.949, 3 stages of 64 keys 0.974-0.998); 96x96
+// 4.14-4.47 against 5.87-6.14 (2 stages of 96 keys 5.06-5.20).
+// nvcc 12.9 -Xptxas -v (sm_90a), each of <D, 128, bias, 64>, <D, 96, bias, 96>,
+// <D, 64, bias, 0> and <D, 64, no bias, 0> (<D, BK, bias, GW>) at D = 64 and 80: 168
+// registers (the launch bound's share of 384 threads), 0 bytes stack frame, 0 spills.
 //
 // Windowed kernel (SAM: 14x14 windows, S = 196, BH = 4 * 25 * 12 = 1200 per block). Its
 // bound is bytes: q, k, v in and out, bf16, 120 MB per call, 0.036 ms at 3.35 TB/s; its
@@ -526,23 +531,25 @@ __global__ void __launch_bounds__(WIN_WARPS<D> * 32, D == 64 ? 2 : 1)
 constexpr int GQ = 128;         // query rows per CTA: 2 consumer warpgroups x 64
 constexpr int G_THREADS = 384;  // warpgroup 0 loads (one thread), warpgroups 1-2 compute
 
-// Head dim D is stored as 64-column panels (128-byte rows, one 128B-swizzle span each; a
-// head dim that is not a multiple of 64 is zero-filled by TMA up to the panel edge: at
-// D = 80 the second panel holds 16 real columns, so p.v performs 128 / 80 of the products
-// it needs and Q, K and V take twice the shared memory of D = 64).
+// Head dim D as a tile of R rows holds it: columns 0-63 in a 64-column panel (R rows of 128
+// bytes, 128B-swizzled), and at D = 80 columns 64-79 after it in a 16-column panel (R rows
+// of 32 bytes, 32B-swizzled: 16-byte chunk c of row r at chunk c ^ ((r >> 2) & 1)). A tile
+// takes R * 2D bytes, no column of padding; both panels stay 1024-byte aligned (R is a
+// multiple of 32).
 template <int D>
 struct GPanels {
-  static constexpr int NP = (D + 63) / 64;  // panels per row
-  static constexpr int KS = (D + 15) / 16;  // 16-wide k-steps of q.k
+  static_assert(D == 64 || D == 80, "the global kernel takes head dim 64 or 80");
+  static constexpr int TW = D - 64;   // columns of the 16-column panel (0: none)
+  static constexpr int KS = D / 16;   // 16-wide k-steps of q.k
+  static constexpr int ROW = 2 * D;   // bytes of a row over both panels
 };
-// K/V ring depth. One panel (D = 64): 4 stages of 64-key tiles (64 KB), 3 of 128-key tiles
-// (96 KB), or 4 of 96-key tiles (96 KB; with the 96x96 grid's projections 215,112 B).
-// Two panels (D = 80): 3 stages of 64-key tiles (96 KB), or 2 of 96-key tiles (96 KB);
-// with the projections of a 96x96 grid 231,480 and 231,464 B, within the 232,448 a block
+// K/V ring depth: 3 stages of 128-key tiles (96 KB at D = 64, 120 KB at 80); 4 of 64-key
+// tiles (64 / 80 KB); 96-key tiles 4 stages at D = 64 (96 KB; with the 96x96 grid's
+// projections 215,112 B) and 3 at D = 80 (90 KB; 213,048 B), within the 232,448 a block
 // may use.
 template <int D, int BK>
 struct GStages {
-  static constexpr int NS = GPanels<D>::NP == 1 ? (BK == 128 ? 3 : 4) : (BK == 96 ? 2 : 3);
+  static constexpr int NS = D == 64 ? (BK == 128 ? 3 : 4) : (BK == 64 ? 4 : 3);
 };
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -623,6 +630,16 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (1ull << 62);
 }
 
+// The same for a 32B-swizzled 16-column panel (rows of 32 bytes, 8-row groups 256 bytes
+// apart: the stride offset 16; layout type 3 in bits 62-63; 256-byte aligned): K-major
+// it is one 16-wide k-step of Q or K; MN-major (V) it is 16 columns of p.v, 16-key k-steps
+// 512 bytes apart. One 32-byte span holds all 16 columns, so the leading offset (the
+// next span's) is never read.
+__device__ __forceinline__ uint64_t sw32_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) |
+         (3ull << 62);
+}
+
 #define WG_ACC8(i)                                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -639,6 +656,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
       "%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
       : WG_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+// d (64 x 16, f32) (+)= A (64 x 16, bf16 registers) . B (16 x 16, shared; TB as above)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, %14;\n}\n"
+      : WG_ACC8(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
 }
 
@@ -679,8 +708,10 @@ __device__ __forceinline__ void load_q_fragments(const unsigned char* sQ, int lr
 #pragma unroll
   for (int kk = 0; kk < GPanels<D>::KS; ++kk) {
     const int chunk = kk * 2 + (lm >> 1);
-    ldsm_x4(a[kk],
-            sQ + (chunk >> 3) * GQ * 128 + row * 128 + (((chunk & 7) ^ (row & 7)) << 4));
+    if (kk < 4)  // the 64-column panel
+      ldsm_x4(a[kk], sQ + row * 128 + ((chunk ^ (row & 7)) << 4));
+    else  // the 16-column panel
+      ldsm_x4(a[kk], sQ + GQ * 128 + row * 32 + (((chunk & 1) ^ ((row >> 2) & 1)) << 4));
   }
 }
 
@@ -855,20 +886,25 @@ __device__ __forceinline__ void global_softmax(float (&s)[BK / 2], float (&m)[2]
   a[1] = a1;
 }
 
-template <int D, int BK>
-__device__ __forceinline__ void global_finish(const float (&s)[BK / 2],
-                                              float (&o)[GPanels<D>::NP][32],
-                                              uint32_t (&p)[BK / 16][4], const float (&a)[2]) {
+// A wgmma accumulator's rows g and g + 8 scaled by a[0] and a[1].
+template <int N>
+__device__ __forceinline__ void rescale(float (&x)[N], const float (&a)[2]) {
 #pragma unroll
-  for (int pn = 0; pn < GPanels<D>::NP; ++pn) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[pn][4 * j] *= a[0];
-      o[pn][4 * j + 1] *= a[0];
-      o[pn][4 * j + 2] *= a[1];
-      o[pn][4 * j + 3] *= a[1];
-    }
+  for (int j = 0; j < N / 4; ++j) {
+    x[4 * j] *= a[0];
+    x[4 * j + 1] *= a[0];
+    x[4 * j + 2] *= a[1];
+    x[4 * j + 3] *= a[1];
   }
+}
+
+// o: columns 0-63 in the m64n64 accumulator layout; ot: columns 64-79 at D = 80 (m64n16).
+template <int D, int BK>
+__device__ __forceinline__ void global_finish(const float (&s)[BK / 2], float (&o)[32],
+                                              float (&ot)[8], uint32_t (&p)[BK / 16][4],
+                                              const float (&a)[2]) {
+  rescale(o, a);
+  if constexpr (GPanels<D>::TW > 0) rescale(ot, a);
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
@@ -879,14 +915,15 @@ __device__ __forceinline__ void global_finish(const float (&s)[BK / 2],
 }
 
 // s = q . k^T of one tile for this warpgroup's 64 rows: A = Q from the registers qa
-// (loaded once), B = K from shared memory.
+// (loaded once), B = K from shared memory: k-steps 0-3 from the 64-column panel (32 bytes
+// apart in its rows), k-step 4 (D = 80) from the 16-column panel.
 template <int D, int BK>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
                                          const uint32_t (&qa)[GPanels<D>::KS][4],
                                          const unsigned char* sK) {
 #pragma unroll
   for (int kk = 0; kk < GPanels<D>::KS; ++kk) {
-    const uint64_t b = sw128_desc(sK + (kk >> 2) * BK * 128) + (kk & 3) * 2;
+    const uint64_t b = kk < 4 ? sw128_desc(sK) + kk * 2 : sw32_desc(sK + BK * 128);
     if constexpr (BK == 64)
       wgmma_rs_n64<0>(s, qa[kk], b, kk > 0);
     else if constexpr (BK == 96)
@@ -896,16 +933,18 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
   }
 }
 
-// o += p . v of one tile (A = p from registers, B = V shared through the transpose bit).
+// o += p . v of one tile (A = p from registers, B = V shared through the transpose bit):
+// per 16-key k-step one m64n64k16 over the 64-column panel and, at D = 80, one m64n16k16
+// over the 16-column panel, so p.v performs exactly the D columns it needs.
 template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[GPanels<D>::NP][32],
+__device__ __forceinline__ void issue_pv(float (&o)[32], float (&ot)[8],
                                          const uint32_t (&p)[BK / 16][4],
                                          const unsigned char* sV) {
 #pragma unroll
-  for (int pn = 0; pn < GPanels<D>::NP; ++pn) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs_n64<1>(o[pn], p[kk], sw128_desc(sV + pn * BK * 128 + kk * 16 * 128), 1);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_rs_n64<1>(o, p[kk], sw128_desc(sV + kk * 16 * 128), 1);
+    if constexpr (GPanels<D>::TW > 0)
+      wgmma_rs_n16<1>(ot, p[kk], sw32_desc(sV + BK * 128 + kk * 16 * 32), 1);
   }
 }
 
@@ -913,11 +952,22 @@ __device__ __forceinline__ void issue_pv(float (&o)[GPanels<D>::NP][32],
 // mbarriers and, with the bias, the (GQ, gh | 1) and (GQ, gw | 1) f32 projections.
 template <int D, int BK, bool HAS_BIAS>
 size_t global_smem(int gh, int gw) {
-  return 1024 + (size_t)GPanels<D>::NP * GQ * 128 +
-         (size_t)GStages<D, BK>::NS * 2 * GPanels<D>::NP * BK * 128 +
+  return 1024 + (size_t)GQ * GPanels<D>::ROW +
+         (size_t)GStages<D, BK>::NS * 2 * BK * GPanels<D>::ROW +
          (size_t)(1 + 2 * GStages<D, BK>::NS) * 8 +
          (HAS_BIAS ? (size_t)GQ * ((gh | 1) + (gw | 1)) * 4 : 0);
 }
+
+// The TMA maps of q, k and v: a box of the 64-column panel (128B-swizzled) each and, at
+// D = 80, one of the 16-column panel (32B-swizzled) each.
+template <int D>
+struct GMaps {
+  CUtensorMap q, k, v;
+};
+template <>
+struct GMaps<80> {
+  CUtensorMap q, k, v, q16, k16, v16;
+};
 
 // One CTA per (128 query rows, batch*head): q/k/v/out (BH, S, D) bf16, S = gh * gw; rph
 // (2gh - 1, D) and rpw (2gw - 1, D) f32, the compact rel-pos tables (null without bias).
@@ -930,13 +980,11 @@ size_t global_smem(int gh, int gw) {
 // rows of it (global_softmax); GW = 0: any grid.
 template <int D, int BK, bool HAS_BIAS, int GW>
 __global__ void __launch_bounds__(G_THREADS, 1)
-    global_attn_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ rph,
+    global_attn_kernel(const __grid_constant__ GMaps<D> tm, const float* __restrict__ rph,
                        const float* __restrict__ rpw, __nv_bfloat16* __restrict__ out, int S,
                        int gh, int gw, int sth, int stw, float scale_log2) {
-  constexpr int NP = GPanels<D>::NP, NS = GStages<D, BK>::NS;
-  constexpr int QBYTES = NP * GQ * 128, KVBYTES = NP * BK * 128;
+  constexpr int NS = GStages<D, BK>::NS, TW = GPanels<D>::TW;
+  constexpr int QBYTES = GQ * GPanels<D>::ROW, KVBYTES = BK * GPanels<D>::ROW;
   constexpr bool TURNS = HAS_BIAS;
   extern __shared__ unsigned char g_smem_raw[];
   unsigned char* sQ = reinterpret_cast<unsigned char*>(
@@ -965,16 +1013,18 @@ __global__ void __launch_bounds__(G_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(qfull, QBYTES);
-      for (int pn = 0; pn < NP; ++pn)
-        tma_load_3d(sQ + pn * GQ * 128, &tq, qfull, 64 * pn, q0, bh);
+      tma_load_3d(sQ, &tm.q, qfull, 0, q0, bh);
+      if constexpr (TW > 0) tma_load_3d(sQ + GQ * 128, &tm.q16, qfull, 64, q0, bh);
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % NS, u = kt / NS;
         if (u) mbar_wait(&empty[s], (u - 1) & 1);
         unsigned char* sK = sKV + s * 2 * KVBYTES;
         mbar_expect_tx(&full[s], 2 * KVBYTES);
-        for (int pn = 0; pn < NP; ++pn) {
-          tma_load_3d(sK + pn * BK * 128, &tk, &full[s], 64 * pn, kt * BK, bh);
-          tma_load_3d(sK + KVBYTES + pn * BK * 128, &tv, &full[s], 64 * pn, kt * BK, bh);
+        tma_load_3d(sK, &tm.k, &full[s], 0, kt * BK, bh);
+        tma_load_3d(sK + KVBYTES, &tm.v, &full[s], 0, kt * BK, bh);
+        if constexpr (TW > 0) {
+          tma_load_3d(sK + BK * 128, &tm.k16, &full[s], 64, kt * BK, bh);
+          tma_load_3d(sK + KVBYTES + BK * 128, &tm.v16, &full[s], 64, kt * BK, bh);
         }
       }
     }
@@ -1012,12 +1062,12 @@ __global__ void __launch_bounds__(G_THREADS, 1)
         }
       }
     }
-    float o[NP][32], s[BK / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[32], ot[8], s[BK / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     uint32_t p[BK / 16][4];
 #pragma unroll
-    for (int pn = 0; pn < NP; ++pn)
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+    for (int i = 0; i < 8; ++i) ot[i] = 0.f;
     const int me = 1 + c, other = 2 - c;  // named barriers 1 and 2
     const int nfull = S / BK;               // tiles with no pad key
     if (c == 1) named_arrive<TURNS>(1);     // consumer 0 takes the first turn
@@ -1035,7 +1085,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
       global_softmax<BK, HAS_BIAS, GW, false>(s, m, l, a, rw0, rw1, rows, 0);
     else
       global_softmax<BK, HAS_BIAS, GW, true>(s, m, l, a, rw0, rw1, rows, 0);
-    global_finish<D, BK>(s, o, p, a);
+    global_finish<D, BK>(s, o, ot, p, a);
     for (int kt = 1; kt < nk; ++kt) {
       const int st = kt % NS, prev = (kt - 1) % NS;
       mbar_wait(&full[st], (kt / NS) & 1);
@@ -1044,7 +1094,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
       // q.k of tile kt first: its softmax then runs while p.v of tile kt-1 is in flight
       issue_qk<D, BK>(s, qa, sKV + st * 2 * KVBYTES);
       wg_commit();
-      issue_pv<D, BK>(o, p, sKV + prev * 2 * KVBYTES + KVBYTES);
+      issue_pv<D, BK>(o, ot, p, sKV + prev * 2 * KVBYTES + KVBYTES);
       wg_commit();
       named_arrive<TURNS>(other);
       wg_wait<1>();
@@ -1054,22 +1104,22 @@ __global__ void __launch_bounds__(G_THREADS, 1)
       else
         global_softmax<BK, HAS_BIAS, GW, true>(s, m, l, a, rw0, rw1, rows, kt);
       wg_wait<0>();
-#pragma unroll
-      for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
+      fence_regs(o);
+      if constexpr (TW > 0) fence_regs(ot);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[prev]);
-      global_finish<D, BK>(s, o, p, a);
+      global_finish<D, BK>(s, o, ot, p, a);
     }
     // the last tile's p.v; consumer 1 makes no arrive after its last turn, so each named
     // barrier gets as many arrivals as it has waits
     named_sync<TURNS>(me);
     wg_fence();
-    issue_pv<D, BK>(o, p, sKV + ((nk - 1) % NS) * 2 * KVBYTES + KVBYTES);
+    issue_pv<D, BK>(o, ot, p, sKV + ((nk - 1) % NS) * 2 * KVBYTES + KVBYTES);
     wg_commit();
     if (c == 0) named_arrive<TURNS>(other);
     wg_wait<0>();
-#pragma unroll
-    for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
+    fence_regs(o);
+    if constexpr (TW > 0) fence_regs(ot);
     float l0 = l[0], l1 = l[1];
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -1079,19 +1129,20 @@ __global__ void __launch_bounds__(G_THREADS, 1)
     const int row0 = q0 + r0, row1 = q0 + r1;
     __nv_bfloat16* o0 = out + ((size_t)bh * S + row0) * D;
     __nv_bfloat16* o1 = out + ((size_t)bh * S + row1) * D;
+    // one 8-column group of both rows: its accumulators (x0, x1) row g, (x2, x3) row g + 8
+    auto put = [&](int col, float x0, float x1, float x2, float x3) {
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + col) = __floats2bfloat162_rn(x0 * il0, x1 * il0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(x2 * il1, x3 * il1);
+    };
 #pragma unroll
-    for (int pn = 0; pn < NP; ++pn) {
+    for (int j = 0; j < 8; ++j)
+      put(8 * j + 2 * t, o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+    if constexpr (TW > 0) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = 64 * pn + 8 * j + 2 * t;
-        if (col >= D) continue;
-        if (row0 < S)
-          *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
-              __floats2bfloat162_rn(o[pn][4 * j] * il0, o[pn][4 * j + 1] * il0);
-        if (row1 < S)
-          *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
-              __floats2bfloat162_rn(o[pn][4 * j + 2] * il1, o[pn][4 * j + 3] * il1);
-      }
+      for (int j = 0; j < 2; ++j)
+        put(64 + 8 * j + 2 * t, ot[4 * j], ot[4 * j + 1], ot[4 * j + 2], ot[4 * j + 3]);
     }
   }
 }
@@ -1118,19 +1169,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (BH, S, D) bf16 tensor as a 3-D TMA map whose box is 64 columns x `rows` rows of one
-// batch*head, 128B-swizzled (the wgmma operand layout); reads past S are zero-filled.
-int bf16_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows) {
+// A (BH, S, D) bf16 tensor as a 3-D TMA map whose box is `cols` columns x `rows` rows of
+// one batch*head, the wgmma operand layout: 64 columns 128B-swizzled, or 16 columns (the
+// head-dim-80 tail panel) 32B-swizzled; reads past S are zero-filled.
+int bf16_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows,
+             int cols = 64) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return ERR_TENSOR_MAP;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
 }
 
@@ -1152,23 +1205,27 @@ int launch_global(const void* q, const void* k, const void* v, const void* rph,
                   const void* rpw, void* out, int BH, int S, int gh, int gw, float scale,
                   cudaStream_t st) {
   // geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py global_geometry: 128-key tiles
-  // on 64-token grid rows at D = 64 (64-key tiles measured slower there), one 96-key tile
-  // a grid row on 96-token rows (the 1536 bucket, both head dims); without the bias 128
-  // measured slower, and the general bias path's per-column (ky, kx) does not fit the
-  // registers; at D = 80 a ring of 128-key tiles with the 64x64 projections fits only 2
-  // stages, and the second output panel leaves the registers no room for 64 scores
-  constexpr int BK = GW == 96 ? 96 : GW == 64 && D == 64 ? 128 : 64;
-  CUtensorMap tq, tk, tv;
+  // on 64-token grid rows (64-key tiles measured slower there), one 96-key tile a grid row
+  // on 96-token rows (the 1536 bucket); without the bias 128 measured slower (at both head
+  // dims), and the general bias path's per-column (ky, kx) does not fit the registers
+  constexpr int BK = GW == 96 ? 96 : GW == 64 ? 128 : 64;
+  GMaps<D> tm;
   int e;
-  if ((e = bf16_map(&tq, q, D, S, BH, GQ)) || (e = bf16_map(&tk, k, D, S, BH, BK)) ||
-      (e = bf16_map(&tv, v, D, S, BH, BK)))
+  if ((e = bf16_map(&tm.q, q, D, S, BH, GQ)) || (e = bf16_map(&tm.k, k, D, S, BH, BK)) ||
+      (e = bf16_map(&tm.v, v, D, S, BH, BK)))
     return e;
+  if constexpr (GPanels<D>::TW > 0) {
+    if ((e = bf16_map(&tm.q16, q, D, S, BH, GQ, 16)) ||
+        (e = bf16_map(&tm.k16, k, D, S, BH, BK, 16)) ||
+        (e = bf16_map(&tm.v16, v, D, S, BH, BK, 16)))
+      return e;
+  }
   const int sth = HAS_BIAS ? gh | 1 : 0, stw = HAS_BIAS ? gw | 1 : 0;
   const size_t smem = global_smem<D, BK, HAS_BIAS>(gh, gw);
   auto kernel = global_attn_kernel<D, BK, HAS_BIAS, GW>;
   if ((e = launch_prep(kernel, smem))) return e;
   kernel<<<dim3((S + GQ - 1) / GQ, BH), G_THREADS, smem, st>>>(
-      tq, tk, tv, (const float*)rph, (const float*)rpw, (__nv_bfloat16*)out, S, gh, gw, sth,
+      tm, (const float*)rph, (const float*)rpw, (__nv_bfloat16*)out, S, gh, gw, sth,
       stw, scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -1198,8 +1255,8 @@ int global_entry(const void* q, const void* k, const void* v, const void* rph, c
                                       st);
   if (gw == 64)
     return launch_global<D, true, 64>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
-  // 96-key row tiles where the projections leave them room (gh up to 129 at D = 64; at
-  // D = 80 up to 97, as on the general path)
+  // 96-key row tiles where the projections leave them room (gh up to 129 at D = 64, 133
+  // at D = 80)
   if (gw == 96 && global_smem<D, 96, true>(gh, gw) <= G_SMEM_LIMIT)
     return launch_global<D, true, 96>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);
   return launch_global<D, true, 0>(q, k, v, rph, rpw, out, BH, S, gh, gw, scale, st);

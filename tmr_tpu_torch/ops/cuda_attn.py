@@ -272,24 +272,25 @@ def geometry_f32(gh: int, gw: int, d: int = 64, has_bias: bool = True,
 def global_geometry(gh: int, gw: int, has_bias: bool = True, d: int = 64) -> int:
     """Shared bytes of the global kernel for a (gh, gw) grid at head dim ``d``, as
     ``csrc/attn.cu`` ``launch_global`` sets them up: alignment slack, the 128-row Q tile
-    in ceil(d / 64) panels of 64 columns, a ring of K/V stages, their mbarriers and, with
-    the bias, the (128, gh | 1) and (128, gw | 1) f32 projections. The ring: with the bias,
-    on 96-token grid rows whose projections leave room for it (gh up to 129 at d = 64, 97
-    at d = 80), one grid row of 96 keys a stage, 4 stages at d = 64 and 2 at d = 80; on
-    64-token rows at d = 64, 3 stages of 128 keys; else 4 (d = 64) or 3 (d = 80) stages of
-    64 keys. Raises ``ValueError`` over 227 KB."""
+    (rows of 2d bytes: a 64-column panel and, at d = 80, a 16-column one), a ring of K/V
+    stages, their mbarriers and, with the bias, the (128, gh | 1) and (128, gw | 1) f32
+    projections. The ring: with the bias, on 96-token grid rows whose projections leave
+    room for it (gh up to 129 at d = 64, 133 at d = 80), one grid row of 96 keys a stage,
+    4 stages at d = 64 and 3 at d = 80; on 64-token rows 3 stages of 128 keys; else 4
+    stages of 64 keys. Raises ``ValueError`` over 227 KB."""
     if gh < 1 or gw < 1:
         raise ValueError(f"global_attention: empty {gh}x{gw} grid")
-    panels = -(-d // 64)
+    row = 2 * d
 
     def smem(stages: int, keys: int) -> int:
-        return (1024 + panels * 128 * 128 + stages * 2 * panels * keys * 128
-                + (1 + 2 * stages) * 8 + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0))
+        return (1024 + 128 * row + stages * 2 * keys * row + (1 + 2 * stages) * 8
+                + (128 * ((gh | 1) + (gw | 1)) * 4 if has_bias else 0))
 
-    ring = (4, 64) if panels == 1 else (3, 64)
-    if has_bias and gw == 96 and smem(4 if panels == 1 else 2, 96) <= _SMEM_LIMIT:
-        ring = (4 if panels == 1 else 2, 96)
-    elif has_bias and gw == 64 and panels == 1:
+    ring = (4, 64)
+    row96 = (4 if d == 64 else 3, 96)
+    if has_bias and gw == 96 and smem(*row96) <= _SMEM_LIMIT:
+        ring = row96
+    elif has_bias and gw == 64:
         ring = (3, 128)
     if smem(*ring) > _SMEM_LIMIT:
         raise ValueError(f"global_attention: a {gh}x{gw} grid needs {smem(*ring)} B of "

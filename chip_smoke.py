@@ -22,8 +22,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    without the bias, is also held to its plain version on 24x40, 96x96 (one image),
    20x20, 28x28, 5x7 and 7x64 token grids, the windowed kernel at 7x7 and 16x16 windows;
    both attention kernels again at head dim 80 (SAM ViT-H: the global kernel at 64x64
-   with BH 64, with and without the bias, and at 24x40, 5x7 and 7x64; the windowed kernel
-   at 14x14 with BH 1600, 7x7 and 16x16),
+   with BH 64, with and without the bias, and at 24x40, 5x7 and 7x64; the windowed kernel,
+   whose windows up to 16x16 take the persistent ``wgmma`` kernel, at 14x14 with BH 1600
+   and with the persistent loop's tails at BH 7 and 133, 7x7 and 16x16, and at 20x12 and
+   4x32, which keep ``window_attn_kernel<80, 2 | 4>``),
    with ``-Xptxas -v`` of every attention instantiation; the f32 attention kernels
    (``csrc/attn_f32.cu``, 3xTF32 ``wgmma``) against their plain version in f32 (per
    element 2e-5 x max|want|) at the main paths' shapes (global 64x64 at BH 48 and, at head
@@ -589,6 +591,12 @@ def check_attention(torch, F, cuda_attn, windowed: bool, has_bias: bool, seed: i
     return acc, t, bound(flops, nbytes, PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS)
 
 
+#: windowed kernel off the main path, (head dim, window, BH or None for the ViT's)
+WINDOW_GRIDS = ((64, (7, 7), None), (64, (16, 16), None), (80, (7, 7), None),
+                (80, (16, 16), None), (80, (14, 14), 7), (80, (14, 14), 133),
+                (80, (20, 12), None), (80, (4, 32), None))
+#: instantiations of the head-dim-80 wgmma windowed kernel (slots, gwp)
+WG_INSTANCES = ((224, 16), (256, 16))
 #: token grids off the main path, each with and without the bias, (gh, gw, batch*heads):
 #: rows that are not one key tile (24x40), the 1536 bucket at one image (the plain
 #: version's dense f32 scores take 4 GB), the 320^2 and 448^2 inputs' grids whose token
@@ -800,19 +808,21 @@ def check_xcorr_maps(torch, F, cuda_xcorr) -> None:
 #: the 1536 bucket (phase 5's test images with objects under 25 px): the global kernel
 #: on 96^2 tokens at batch 4 (BH 48; the plain version in chunks of BH 12), its one
 #: 96-key tile a grid row, and again at head dim 80 (ViT-H's BH 64, in chunks of 16), the
-#: windowed kernel on 4 x 49 windows (96 tokens padded to 98) of 12 heads, and the
+#: windowed kernel on 4 x 49 windows (96 tokens padded to 98) of 12 heads and of ViT-H's
+#: 16 (BH 3136, the persistent wgmma kernel's longest walk), and the
 #: correlation on 192^2 maps, at 4 images and at the multi path's 3 rows of one image, for
 #: the bucket phase 5's 1536 images take (:data:`EVAL_1536_BUCKETS`) and, for the band
 #: maths at W = 192, the larger ones of the direct path. (name, windowed, grid, BH, chunk,
 #: head dim)
 ATTN_1536 = (("global_attn", False, (96, 96), 48, 12, 64),
              ("global_attn_d80", False, (96, 96), 64, 16, 80),
-             ("window_attn", True, (14, 14), 4 * 12 * 49, None, 64))
+             ("window_attn", True, (14, 14), 4 * 12 * 49, None, 64),
+             ("window_attn_d80", True, (14, 14), 4 * 16 * 49, None, 80))
 XCORR_1536 = (((4, 512, 192, 192), (9, 17, 33)), ((3, 512, 192, 192), (9,)))
 
 
 def check_1536(torch, F, cuda_attn, cuda_xcorr) -> dict:
-    """Kernels 1, 1-H, 4 and 5 at the 1536 bucket's shapes against their plain versions,
+    """Kernels 1, 1-H, 4, 4-H and 5 at the 1536 bucket's shapes against their plain versions,
     each beside its bound and the library call; returns the kernels line's entry of kernel
     1 there (``global_attn_1536``)."""
     entries = {}
@@ -1397,17 +1407,20 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
     entries.update(check_attention_f32(torch, F, cuda_attn, _build))
     check_global_grids(torch, F, cuda_attn)
     check_global_grids(torch, F, cuda_attn, 80, GLOBAL_GRIDS_D80)
-    # the windowed kernel at 7x7 windows (8-slot key rows, a pad key row, 64 query rows)
-    # and 16x16 (full 16-slot key rows, one CTA per SM), at both head dims
-    for d in (64, 80):
-        for grid in ((7, 7), (16, 16)):
-            acc, t, (bms, _) = check_attention(torch, F, cuda_attn, True, True, SEED, grid,
-                                               d=d)
-            what = f"window_attn{'' if d == 64 else f'_d{d}'} {grid[0]}x{grid[1]} windows"
-            print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f}",
-                  flush=True)
-            if not acc["ok"]:
-                fail(f"{what} disagrees with its plain version: {acc}")
+    # the windowed kernel at 7x7 windows (at head dim 64 8-slot key rows, a pad key row, 64
+    # query rows; at 80 the 224-slot wgmma kernel, half its slots pad) and 16x16 (full
+    # 16-slot key rows; at 80 the 256-slot wgmma kernel), at both head dims; at 80 also the
+    # persistent loop's tails (BH 7: fewer window-heads than SMs; 133: one SM takes two)
+    # and two windows that keep window_attn_kernel<80, ntw> (20x12: over 16 rows; 4x32)
+    for d, grid, bh in WINDOW_GRIDS:
+        acc, t, (bms, _) = check_attention(torch, F, cuda_attn, True, True, SEED, grid, bh,
+                                           d=d)
+        what = (f"window_attn{'' if d == 64 else f'_d{d}'} {grid[0]}x{grid[1]} windows, "
+                f"BH={bh or 4 * VIT_HEADS[d] * 25} ({cuda_attn.window_kernel(*grid, d)})")
+        print(f"kernel {what}: {attn_accuracy(acc)} {attn_times(t)} bound_ms {bms:.4f}",
+              flush=True)
+        if not acc["ok"]:
+            fail(f"{what} disagrees with its plain version: {acc}")
     # -Xptxas -v of every attention instantiation <D, BK, bias, GW>: registers and spills
     log = _build.LOGS.get("attn")
     for d in (64, 80):
@@ -1418,6 +1431,9 @@ def check_kernels(torch, F, cuda_attn, cuda_xcorr, cuda_nms, cuda_int8,
         for ntw in (1, 2, 4, 8):
             print(f"ptxas window_attn_kernel<{d}, {ntw}>: "
                   f"{ptxas_info(log, f'window_attn_kernelILi{d}ELi{ntw}E')}", flush=True)
+    for slots, gwp in WG_INSTANCES:
+        print(f"ptxas window_attn_kernel_wg<{slots}, {gwp}>: "
+              f"{ptxas_info(log, f'window_attn_kernel_wgILi{slots}ELi{gwp}E')}", flush=True)
     for t in XCORR_TS:
         r = check_xcorr(torch, F, cuda_xcorr, t, SEED)
         (bms, bby), (f32ms, f32by) = r["tensor_bound"], r["f32_bound"]

@@ -14,7 +14,8 @@ variant's registers and spills, times the variants in turns over three rounds wi
 events, and holds each against the plain version (the per-element tolerances of
 ``chip_smoke.py``: the bf16 one, or 2e-5 x max|want| in f32); a variant that cuts a phase
 out computes garbage and is marked so. Shapes: the windowed kernels on SAM ViT-B's 1200
-window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim 80; the global
+window-heads of 14x14 tokens at head dim 64 and ViT-H's 1600 at head dim 80 (and its 1536
+bucket's 3136, and 7x7 and 16x16 windows at 1600); the global
 kernels on ViT-B's 48 x 4096 with and without the bias, on the 1536 bucket's 96x96 grid
 (bf16: one image and the eval batch of 4, and ViT-H's batch of 4 at head dim 80; f32:
 batch 4), on ViT-H's 64 x 4096 (head dim 80) with and without the bias, and (bf16) on
@@ -50,45 +51,172 @@ def _sub(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-# windowed kernel: cp.async of Q, then of K and V; the bias projections (after Q lands,
-# with K and V in flight); the attention strips
-_W_PROJ = "  window_projections<D>(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);\n"
-_W_STRIPS = "strip * 16 < sp; strip += WIN_WARPS<D>"
-_W_Q_LOOP = "  for (int i = threadIdx.x; i < sp * CH; i += blockDim.x) {"
-_W_KV_LOOP = "  for (int i = threadIdx.x; i < nkey * CH; i += blockDim.x) {"
-_W_COMMIT = "  cp_async_commit();\n"
-_W_WARPS = "constexpr int WIN_WARPS = D == 64 ? 8 : 16;"
-_W_QREGS = "constexpr bool WIN_Q_REGS = D == 64;"
+# windowed kernel window_attn_kernel<D, NTW> (head dim 64, and 80 past 16x16 windows):
+# cp.async of Q, then of K and V; the bias projections (after Q lands, with K and V in
+# flight); the attention strips
+_N_PROJ = "  window_projections<D>(sQ, rh, rw, sRH, sRW, gh, gw, st_h, GWP);\n"
+_N_STRIPS = "strip * 16 < sp; strip += WIN_WARPS<D>"
+_N_Q_LOOP = "  for (int i = threadIdx.x; i < sp * CH; i += blockDim.x) {"
+_N_KV_LOOP = "  for (int i = threadIdx.x; i < nkey * CH; i += blockDim.x) {"
+_N_COMMIT = "  cp_async_commit();\n"
+_N_QREGS = "constexpr bool WIN_Q_REGS = D == 64;"
+
+
+def _ntw_variants(src: str) -> dict:
+    """Phase cuts of window_attn_kernel<D, NTW> (row 4 at head dim 64), and at head dim 64
+    Q re-read from shared memory for each key chunk (shipped: in registers)."""
+    kv0 = src.index(_N_KV_LOOP)
+    kv1 = src.index(_N_COMMIT, kv0) + len(_N_COMMIT)
+    no_strips = _sub(src, _N_STRIPS, "strip * 16 < 0; strip += WIN_WARPS<D>")
+    kv_after = _sub(src[:kv0] + src[kv1:], "  cp_async_wait<1>();\n  __syncthreads();",
+                    "  cp_async_wait<0>();\n  __syncthreads();")
+    kv_after = _sub(kv_after, _N_PROJ, _N_PROJ + src[kv0:kv1])
+    q0 = src.index(_N_Q_LOOP)
+    return {
+        "full": src,
+        "loads_only": _sub(no_strips, _N_PROJ, ""),
+        "loads_projections": no_strips,
+        "loads_strips": _sub(src, _N_PROJ, ""),
+        "strips_only": _sub(src[:q0] + src[kv1:], _N_PROJ, ""),
+        "kv_after_projections": kv_after,
+        "d64_qsmem": _sub(src, _N_QREGS, "constexpr bool WIN_Q_REGS = false;"),
+    }
+
+
+# the head-dim-80 windowed kernel (window_attn_kernel_wg): the producer's TMA of K and V,
+# then of Q; the projection warpgroup's work (one window-head ahead); the strips
+_W_KV_WAIT = "          if (i) mbar_wait(kvempty, (i - 1) & 1);\n"
+_W_KV = ("          mbar_expect_tx(kvfull, 2 * KVBYTES);\n"
+         "          tma_load_4d(sKV, &tm.k, kvfull, 0, 0, 0, bh);\n"
+         "          tma_load_4d(sKV + NSLOT * 128, &tm.k16, kvfull, 64, 0, 0, bh);\n"
+         "          tma_load_4d(sKV + KVBYTES, &tm.v, kvfull, 0, 0, 0, bh);\n"
+         "          tma_load_4d(sKV + KVBYTES + NSLOT * 128, &tm.v16, kvfull, 64, 0, 0, bh);\n")
+_W_Q = ("          mbar_expect_tx(qfull, QBYTES);\n"
+        "          tma_load_3d(sQ, &tm.q, qfull, 0, 0, bh);\n"
+        "          tma_load_3d(sQ + WQ * 128, &tm.q16, qfull, 64, 0, bh);\n")
+_W_PROJ = ("        window_projections_ahead(q + (size_t)bh * S * 80, rh, rw, sRH, sRH + S * sth, "
+           "gh, gw,\n                                 sth, stw, warp - 1);\n")
+_W_NK = "    const int nk = (((S + 63) >> 6) + 1) >> 1;\n"
+_W_SOFTMAX = ("        window_softmax<NSLOT, GWP>(s, p, sRH + q0 * sth, sRH + q1 * sth, rw0, "
+              "rw1, gh,\n                                   scale_log2);\n")
+# a cut of the strips: each consumer warp releases Q, the projections and K/V at once
+_W_NO_STRIPS = ("    for (int bh = blockIdx.x, i = 0; bh < BH; bh += gridDim.x, ++i) {\n"
+                "      mbar_wait(qfull, i & 1);\n"
+                "      mbar_wait(&pfull[i & 1], (i >> 1) & 1);\n"
+                "      mbar_wait(kvfull, i & 1);\n"
+                "      release(qempty);\n      release(&pempty[i & 1]);\n"
+                "      release(kvempty);\n    }\n    if (nk > 0) return;\n")
+_W_UNITS = "    for (int k = 0; k < 2; ++k) {\n      const int u = u0 + W_PROJ_WARPS * k;\n"
+# a second K/V stage (shipped: one): window-head i takes stage i & 1, stage 1's two
+# mbarriers after the shipped eight, the projection buffers 32 bytes on
+_W_STAGES2 = (
+    ("  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + 2 * KVBYTES);",
+     "  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + 4 * KVBYTES);"),
+    ("  float* sP = reinterpret_cast<float*>(bars + 8);",
+     "  float* sP = reinterpret_cast<float*>(bars + 10);"),
+    ("    mbar_init(kvempty, 8);\n",
+     "    mbar_init(kvempty, 8);\n    mbar_init(bars + 8, 1);\n    mbar_init(bars + 9, 8);\n"),
+    (_W_KV_WAIT + _W_KV,
+     "          unsigned char* sK = sKV + (i & 1) * 2 * KVBYTES;\n"
+     "          uint64_t* kf = i & 1 ? bars + 8 : kvfull;\n"
+     "          if (i >= 2) mbar_wait(i & 1 ? bars + 9 : kvempty, ((i >> 1) - 1) & 1);\n"
+     + _W_KV.replace("sKV", "sK").replace("kvfull", "kf")),
+    ("      mbar_wait(kvfull, i & 1);\n",
+     "      unsigned char* const sKV = sQ + QBYTES + (i & 1) * 2 * KVBYTES;\n"
+     "      mbar_wait(i & 1 ? bars + 8 : kvfull, (i >> 1) & 1);\n"),
+    ("        if (last) release(kvempty);", "        if (last) release(i & 1 ? bars + 9 : kvempty);"),
+    ("  const size_t smem = window_wg_smem(NSLOT, S, gh, gw);",
+     "  const size_t smem = window_wg_smem(NSLOT, S, gh, gw) + 2 * NSLOT * 160 + 2 * 8;"),
+)
+
+def _maxnreg(producer: int, consumer: int) -> tuple:
+    """Edits that hand registers from warpgroup 0 to the consumer warpgroups."""
+    def setmaxnreg(kind: str, regs: int) -> str:
+        return f'    asm volatile("setmaxnreg.{kind}.sync.aligned.u32 {regs};\\n");\n'
+
+    return (("  if (wg == 0) {\n    if (warp == 0) {  // producer",
+             "  if (wg == 0) {\n" + setmaxnreg("dec", producer)
+             + "    if (warp == 0) {  // producer"),
+            ("  } else {  // consumers\n    const int c = wg - 1, g",
+             "  } else {  // consumers\n" + setmaxnreg("inc", consumer)
+             + "    const int c = wg - 1, g"))
+
+
+#: head-dim-80 windowed kernel: name -> text edits. The phase cuts keep every mbarrier's
+#: arrivals (a cut of the loads arrives on the full barriers with no bytes; a cut of the
+#: strips releases Q, K, V and the projections at once), so each runs to its end on garbage.
+_W_EDITS = {
+    "full": (),
+    "loads_only": ((_W_NK, _W_NK + _W_NO_STRIPS), (_W_PROJ, "")),
+    "loads_projections": ((_W_NK, _W_NK + _W_NO_STRIPS),),
+    "loads_strips": ((_W_PROJ, ""),),
+    "strips_only": ((_W_KV, "          mbar_arrive(kvfull);\n"),
+                    (_W_Q, "          mbar_arrive(qfull);\n")),
+    # two K/V stages (shipped: one); refused at launch where they do not fit 227 KB (16x16)
+    "stages2": _W_STAGES2,
+    # the strips without their softmax (p is the raw scores' bits) or without q.k (the
+    # softmax runs on unset accumulators)
+    "no_softmax": ((_W_SOFTMAX, "#pragma unroll\n        for (int kk = 0; kk < NSLOT / 16;"
+                                " ++kk) p[kk][0] = p[kk][1] = p[kk][2] = p[kk][3] = "
+                                "__float_as_uint(s[8 * kk] + s[8 * kk + 5]);\n"),),
+    "no_qk": (("          wgmma_ss<NSLOT>(s, a, bk, kk > 0);\n", ""),),
+    # the consumers' releases and stores under predicates, not branches on the strip or the
+    # row (shipped): ptxas then issues the strips' wgmma without serializing them (no
+    # C7520 note), and spills
+    "release_pred": (
+        ("    if (lane == 0) mbar_arrive(bar);\n  };",
+         "    if (lane == 0) mbar_arrive(bar);\n  };\n"
+         "  auto release_if = [lane](uint64_t* bar, bool when) {\n    __syncwarp();\n"
+         "    asm volatile(\"{\\n.reg .pred p;\\nsetp.ne.b32 p, %1, 0;\\n@p mbarrier.arrive."
+         "shared::cta.b64 _, [%0];\\n}\\n\" ::\"r\"(smem_addr(bar)), \"r\"((int)(lane == 0 "
+         "&& when)) : \"memory\");\n  };"),
+        *((f"        if (last) release({b});", f"        release_if({b}, last);")
+          for b in ("qempty", "&pempty[b]", "kvempty")),
+        *((f"          if ({r} < S) *reinterpret_cast<uint32_t*>({o} + col) = pack_bf16({x});",
+           f"          asm volatile(\"{{\\n.reg .pred p;\\nsetp.ne.b32 p, %2, 0;\\n@p "
+           f"st.global.b32 [%0], %1;\\n}}\\n\" ::\"l\"({o} + col), \"r\"(pack_bf16({x})), "
+           f"\"r\"((int)({r} < S)) : \"memory\");")
+          for r, o, x in (("r0", "o0", "x0, x1"), ("r1", "o1", "x2, x3")))),
+    # registers handed from warpgroup 0 (producer, projections) to the consumers by
+    # setmaxnreg, 104 / 200 (128 x 104 + 256 x 200 = the launch's 384 x 168), with one
+    # projection unit a trip
+    "maxnreg": ((_W_UNITS, _W_UNITS.replace("k < 2", "k < 1")),
+                ("for (int u0 = pw; u0 < units; u0 += 2 * W_PROJ_WARPS) {",
+                 "for (int u0 = pw; u0 < units; u0 += W_PROJ_WARPS) {"),
+                *_maxnreg(104, 200)),
+    # the projections without their table loads (constant B fragments) or their q loads
+    "proj_no_tables": (("          x[k][h][kk] = ok ? *reinterpret_cast<const float4*>(brow + kk * 16)\n"
+                        "                           : make_float4(0.f, 0.f, 0.f, 0.f);",
+                        "          x[k][h][kk] = make_float4(__uint_as_float(a[k][kk][0]), (float)ok,"
+                        " (float)h, (float)kk);"),),
+    "proj_no_q": (("        const uint2 r0 = live ? *reinterpret_cast<const uint2*>(q0 + 16 * kk) : "
+                   "make_uint2(0, 0);\n        const uint2 r1 = live ? *reinterpret_cast<const "
+                   "uint2*>(q1 + 16 * kk) : make_uint2(0, 0);",
+                   "        const uint2 r0 = make_uint2(kk + (live ? t : 0), g), r1 = make_uint2(kk,"
+                   " t + 1);"),),
+    # the projection warps take one unit a trip to memory (shipped: two)
+    "proj_1unit": (("for (int u0 = pw; u0 < units; u0 += 2 * W_PROJ_WARPS) {",
+                    "for (int u0 = pw; u0 < units; u0 += W_PROJ_WARPS) {"),
+                   (_W_UNITS, _W_UNITS.replace("k < 2", "k < 1"))),
+}
 
 
 def window_variants(src: str) -> dict:
-    kv0 = src.index(_W_KV_LOOP)
-    kv1 = src.index(_W_COMMIT, kv0) + len(_W_COMMIT)
-    no_strips = _sub(src, _W_STRIPS, "strip * 16 < 0; strip += WIN_WARPS<D>")
-    kv_after = _sub(src[:kv0] + src[kv1:], "  cp_async_wait<1>();\n  __syncthreads();",
-                    "  cp_async_wait<0>();\n  __syncthreads();")
-    kv_after = _sub(kv_after, _W_PROJ, _W_PROJ + src[kv0:kv1])
-    q0 = src.index(_W_Q_LOOP)
-    # the windowed CTA's warps and where a warp keeps its strip's Q fragments, at D = 80
-    # (shipped: 16 warps, Q re-read from shared memory for each key chunk): the first
-    # D = 80 build (8 warps, Q in registers), 16 warps with Q in registers (over 128
-    # registers: spills), 12 warps; and at D = 64 Q re-read (shipped: in registers)
-    q_regs = "constexpr bool WIN_Q_REGS = true;"
-    warps = {
-        "d80_first": _sub(_sub(src, _W_WARPS, "constexpr int WIN_WARPS = 8;"), _W_QREGS, q_regs),
-        "d80_qregs": _sub(src, _W_QREGS, q_regs),
-        "d80_warps12": _sub(src, _W_WARPS, "constexpr int WIN_WARPS = D == 64 ? 8 : 12;"),
-        "d64_qsmem": _sub(src, _W_QREGS, "constexpr bool WIN_Q_REGS = false;"),
-    }
-    return {
-        "full": src,
-        "loads_only": _sub(no_strips, _W_PROJ, ""),
-        "loads_projections": no_strips,
-        "loads_strips": _sub(src, _W_PROJ, ""),
-        "strips_only": _sub(src[:q0] + src[kv1:], _W_PROJ, ""),
-        "kv_after_projections": kv_after,
-        **warps,
-    }
+    """Both windowed kernels' edits, by name: a name both tables hold (``full`` and the
+    phase cuts) edits both kernels in one build, so that each shape reads the cut of the
+    kernel it runs (head dim 64 window_attn_kernel<64, 2>, head dim 80 the wgmma kernel).
+    A source without the wgmma kernel (``--src``: an earlier checkout's, whose head dim 80
+    ran window_attn_kernel<80, 2> at 14x14) takes window_attn_kernel<D, NTW>'s edits only."""
+    ntw = _ntw_variants(src)
+    if "window_attn_kernel_wg" not in src:
+        return ntw
+    out = {}
+    for name in {**ntw, **_W_EDITS}:
+        text = ntw.get(name, src)
+        for old, new in _W_EDITS.get(name, ()):
+            text = _sub(text, old, new)
+        out[name] = text
+    return out
 
 
 _G_SOFTMAX = "global_softmax<BK, HAS_BIAS, GW, {}>(s, m, l, a, rw0, rw1, rows, kt);"
@@ -242,7 +370,8 @@ KERNELS = {
         entry="tmr_window_attn", argtypes=[P, P, P, P, P, P, I, I, I, I, I, F, P],
         variants=window_variants,
         shapes=((14, 14, 4 * 25 * 12, True, 64), (14, 14, 4 * 25 * 16, True, 80),
-                (7, 7, 4 * 25 * 16, True, 80), (16, 16, 4 * 25 * 16, True, 80)), reps=50,
+                (14, 14, 4 * 49 * 16, True, 80), (7, 7, 4 * 25 * 16, True, 80),
+                (16, 16, 4 * 25 * 16, True, 80)), reps=50,
         args=lambda x: (*x.qkv, *x.expanded, x.out, x.bh, x.s, x.gh, x.gw, x.d, x.scale)),
     "global": SimpleNamespace(
         source="attn.cu", f32=False,

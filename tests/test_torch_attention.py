@@ -422,7 +422,13 @@ def _global_smem_mirror(gh, gw, has_bias, d):
 
 def _window_smem_mirror(gh, gw, d):
     """csrc/attn.cu launch_window's shared bytes: Q (sp rows), K and V (ghp key rows of
-    8 NTW slots) in bf16 rows of d, and the f32 projections (sp, st_h + gwp)."""
+    8 NTW slots) in bf16 rows of d, and the f32 projections (sp, st_h + gwp). At head dim
+    80, windows up to 16x16 take launch_window_wg, whose staging
+    ``tests/test_torch_window_d80.py`` reads from the source (``wg_staging``)."""
+    if d == 80 and gh <= 16 and gw <= 16:
+        from tests.test_torch_window_d80 import wg_staging
+
+        return wg_staging(gh, gw)
     ntw = next(n for n in (1, 2, 4, 8) if gw <= 8 * n)
     gwp, ghp, sp, st_h = 8 * ntw, gh + ((gh * ntw) & 1), (gh * gw + 15) // 16 * 16, (gh + 1) | 1
     return gwp, ghp, (sp + 2 * ghp * gwp) * d * 2 + sp * (st_h + gwp) * 4

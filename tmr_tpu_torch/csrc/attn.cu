@@ -124,16 +124,59 @@
 // warpgroup reads a K/V tile once for 64 rows, is the next step; it is not used here
 // because 208 rows fill 64-row tiles poorly and the first goal was the library's time.
 // Window rows up to 64 tokens and staging up to 227 KB (squares up to 16x16) are taken.
-// Head dim 80 (SAM ViT-H: 1600 window-heads per block, 28 blocks per batch of 4; q, k, v
-// and out are 201 MB a call, 0.060 ms at 3.35 TB/s): rows of 160 bytes in 10 chunks keep
-// the ldmatrix phases conflict-free with a one-bit swizzle (swz), and the 14x14 staging
-// is 130,752 B, so one CTA fits an SM. That CTA runs 16 warps, one per query strip, and a
-// warp re-reads its Q fragments from shared memory for each key chunk rather than holding
-// them, so 16 warps fit 128 registers. nvcc 12.9 -Xptxas -v (sm_90a), <80, NTW>: 128
-// registers; NTW = 1 and 2 (SAM's 14x14) spill 8 bytes, NTW = 4 and 8 (rows over 16
-// tokens) 32 and 92. Measured in turns at 14x14 (scripts/attn_variants.py, PERF.md): 8
-// warps holding Q in registers (171 registers, no spills) 0.253-0.260 ms, this design
-// 0.208-0.214. <64, NTW> as above.
+// Head dim 80, windows wider or taller than 16 (off every SAM path): rows of 160 bytes in
+// 10 chunks keep the ldmatrix phases conflict-free with a one-bit swizzle (swz); one CTA
+// of 16 warps an SM, a warp re-reading its Q fragments for each key chunk so that 16 warps
+// fit 128 registers. <64, NTW> as above.
+//
+// Head dim 80, windows up to 16x16 (SAM ViT-H: 1600 window-heads of 14x14 a block, 28
+// blocks a batch of 4; q, k, v and out are 201 MB a call, 0.060 ms at 3.35 TB/s; 19.7
+// GFLOP, ~29 as performed with the padding): window_attn_kernel_wg<NSLOT, GWP>. The design
+// it replaced (the one above, 16 warps of mma.sync) took 0.208-0.214 ms at 14x14: one CTA
+// an SM with no overlap of one window-head's loads and the next one's math, every warp
+// reading all of K and V for its 16 rows, online softmax over 64-key chunks. This design:
+//  - Persistent CTAs: min(BH, SMs), CTA b taking window-heads b, b + gridDim.x, ... One
+//    thread of warpgroup 0 loads by TMA: K and V through 4-D maps over (BH, gh, gw, 80)
+//    whose box is whole key rows of GWP = 16 slots (14 rows, 16 for windows taller than
+//    14), so TMA writes the slots in grid-row order and zero-fills columns past gw and rows
+//    past gh;
+//    Q through a 3-D map, 256 rows, zero past S. Both in two panels, 64 columns
+//    128B-swizzled and 16 columns 32B-swizzled (as the global kernel's GPanels<80>). Q is
+//    reloaded as soon as the last q.k has read it, K and V (one stage) as soon as the last
+//    p.v has.
+//  - wgmma on 64-row strips: the two consumer warpgroups take strips c, c + 2 of the 256
+//    staged rows, no barrier between them. q.k is one m64n<NSLOT>k16 chain (A = Q and B =
+//    K from shared memory: k-steps 0-3 from the 64-column panel, 4 from the 16-column
+//    one); the softmax is one pass over all NSLOT slots (the JAX kernel's one block of
+//    keys), p normalized before its bf16 rounding as the JAX kernel does; p.v is one
+//    m64n64k16 and one m64n16k16 a 16-key step (A = p from registers: the q.k accumulator
+//    is the A fragment; B = V through the transpose bit). A lane keeps the rel-w values of
+//    its n-tile columns in registers and reads one rel-h value a key row; pad slots fall
+//    out through -inf rel-w (columns past gw) or rel-h (rows past gh) entries.
+//  - Projections one window-head ahead: warps 1-3 of warpgroup 0 make the next
+//    window-head's projections (window_projections_ahead) into the other of two buffers,
+//    while the strips of this one run.
+// Measured (scripts/attn_variants.py, PERF.md; NVIDIA H100 80GB HBM3, 700 W), 14x14 at BH
+// 1600 in turns against the design it replaced: 0.191-0.193 ms against 0.215-0.218
+// (BH 3136: 0.335-0.342 against 0.388-0.397). Phase cuts: the loads alone 0.052, with
+// the projections 0.117, with the strips 0.156-0.158; the strips and projections with no
+// load 0.177-0.178; the table or q loads of the projections cut 0.174-0.176: the
+// projections (made from the expanded f32 tables through L2, ~21k cycles a window-head
+// for three warps) bound the kernel, and the strips (~17k: q.k 2.5k, softmax 7.5k, p.v
+// 4.2k, stores 2.8k for a warpgroup's two) are nearly as long. Alternatives measured
+// slower and removed: two K/V stages at 14x14 0.194-0.197 (L1 then holds 28 KB of the
+// tables' 125 KB; at 7x7 they tie one stage, 0.091 ms); projection trips of one unit
+// 0.204-0.206; 104 / 200 registers handed over by setmaxnreg with such trips 0.206-0.207;
+// the wgmma unserialized 0.210-0.211.
+// ptxas serializes the strips' wgmma (info C7520: arrives under a branch on the strip),
+// and so they fit 168 registers with no spill; with the arrives and stores under
+// predicates it does not serialize them, and spills 320 bytes at 224 slots. Four consumer
+// warpgroups (one strip each) or two halves of 112 slots were not built: a fourth
+// warpgroup leaves 128 registers a thread, where the 112 score registers do not fit and
+// m64n256k16 does not compile. Two instantiations: <224, 16> for windows of up to 14 rows
+// (a 7x7 window there takes 0.091 ms at BH 1600, where a 64-slot build took 0.066) and
+// <256, 16>. nvcc -Xptxas -v (sm_90a): <224, 16> 168 registers, no spill; <256, 16> 168
+// registers, 24 bytes of spill stores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -263,11 +306,11 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// bf16 hi/lo split of two f32 values: x = hi + lo + O(2^-18 |x|).
+// bf16 hi/lo split of two f32 values: x = hi + lo + O(2^-18 |x|). Two conversions: hi
+// packed by one, read back by shifts.
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-  lo = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // The bias projections of one (window, head), f32, into shared memory, pre-multiplied by
@@ -1148,6 +1191,395 @@ __global__ void __launch_bounds__(G_THREADS, 1)
 }
 
 
+// ---- windowed attention at head dim 80: persistent warpgroups on wgmma -------------------
+
+constexpr int WQ = 256;  // query rows staged per window-head: 4 strips of 64
+constexpr int W_PROJ_WARPS = 3;  // warps 1-3 of warpgroup 0 make the projections
+
+// Bytes of one projection buffer of the head-dim-80 windowed kernel: the (S, gh | 1) rel-h
+// and (S, gw) rel-w f32 projections (x LOG2E), rounded up to 16.
+__host__ __device__ __forceinline__ int window_wg_proj_bytes(int S, int gh, int gw) {
+  return (S * ((gh | 1) + gw) * 4 + 15) & ~15;
+}
+
+// Its dynamic shared memory: alignment slack, Q (256 rows of 160 bytes), one stage of K and
+// V (`slots` rows of 160 bytes each), 8 mbarriers and two projection buffers.
+inline size_t window_wg_smem(int slots, int S, int gh, int gw) {
+  return 1024 + (size_t)WQ * 160 + (size_t)2 * slots * 160 + 8 * 8 +
+         2 * (size_t)window_wg_proj_bytes(S, gh, gw);
+}
+
+// The TMA maps of the head-dim-80 windowed kernel: Q as (BH, S, 80) in boxes of 256 rows;
+// K and V as (BH, gh, gw, 80) in boxes of (NSLOT / gwp key rows, gwp slots), so TMA writes
+// the key slots in grid-row order and zero-fills slots past the window's rows and columns.
+// Each in two panels: 64 columns 128B-swizzled, 16 columns 32B-swizzled.
+struct WMaps {
+  CUtensorMap q, q16, k, k16, v, v16;
+};
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// d (64 x N, f32) (+)= A (64 x 16, shared, K-major) . B (16 x N, shared, K-major)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<224>(float (&d)[112], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+      "%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,"
+      "%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,"
+      "%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,"
+      "%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,"
+      "%105,%106,%107,%108,%109,%110,%111}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32), WG_ACC32(64), WG_ACC8(96), WG_ACC8(104)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+      "%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,"
+      "%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,"
+      "%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,"
+      "%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,"
+      "%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,"
+      "%121,%122,%123,%124,%125,%126,%127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(0), WG_ACC32(32), WG_ACC32(64), WG_ACC32(96)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One query strip's scores -> probabilities, in one pass over all NSLOT slots (the JAX
+// kernel's one block of keys). s is the q.k accumulator: s[4j + e] row g, slot 8j + 2t + e;
+// s[4j + 2 + e] row g + 8. Slot j is key row j / GWP, column j % GWP, so n-tile j is key row
+// j / JG and this lane's columns 8 (j % JG) + 2t + {0, 1}: the bias of a score is the lane's
+// rel-h value of that key row (one shared read a key row and query row; -inf past the
+// window's rows) plus one of its rel-w registers (-inf past its columns), added with the
+// scale in one FFMA. p is normalized before it is rounded to bf16, as the JAX kernel does
+// (p / sum p, then the cast), and lands in the A fragments of the p.v wgmma.
+template <int NSLOT, int GWP>
+__device__ __forceinline__ void window_softmax(float (&s)[NSLOT / 2],
+                                               uint32_t (&p)[NSLOT / 16][4],
+                                               const float* rh0, const float* rh1,
+                                               const float (&rw0)[GWP / 8][2],
+                                               const float (&rw1)[GWP / 8][2], int gh,
+                                               float scale_log2) {
+  constexpr int JG = GWP / 8;
+  float mx0 = -INFINITY, mx1 = -INFINITY, h0 = 0.f, h1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NSLOT / 8; ++j) {
+    const int u = j / JG, jg = j % JG;
+    if (jg == 0) {
+      const float v0 = rh0[min(u, gh - 1)], v1 = rh1[min(u, gh - 1)];
+      h0 = u < gh ? v0 : -INFINITY;
+      h1 = u < gh ? v1 : -INFINITY;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = fmaf(s[4 * j + e], scale_log2, h0 + rw0[jg][e]);
+      s[4 * j + 2 + e] = fmaf(s[4 * j + 2 + e], scale_log2, h1 + rw1[jg][e]);
+      mx0 = fmaxf(mx0, s[4 * j + e]);
+      mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+    }
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NSLOT / 8; ++j) {
+    s[4 * j] = ex2(s[4 * j] - mx0);
+    s[4 * j + 1] = ex2(s[4 * j + 1] - mx0);
+    s[4 * j + 2] = ex2(s[4 * j + 2] - mx1);
+    s[4 * j + 3] = ex2(s[4 * j + 3] - mx1);
+    l0 += s[4 * j] + s[4 * j + 1];
+    l1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float il0 = 1.f / l0, il1 = 1.f / l1;
+#pragma unroll
+  for (int kk = 0; kk < NSLOT / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk] * il0, s[8 * kk + 1] * il0);
+    p[kk][1] = pack_bf16(s[8 * kk + 2] * il1, s[8 * kk + 3] * il1);
+    p[kk][2] = pack_bf16(s[8 * kk + 4] * il0, s[8 * kk + 5] * il0);
+    p[kk][3] = pack_bf16(s[8 * kk + 6] * il1, s[8 * kk + 7] * il1);
+  }
+}
+
+// The bias projections of one window-head for the head-dim-80 windowed kernel, made by its
+// W_PROJ_WARPS projection warps one window-head ahead of the strips, f32 x LOG2E into a
+// projection buffer, as window_projections makes them (q exact in bf16, the f32 table split
+// into bf16 hi + lo terms, f32 sums). A window of up to 16x16 has gh + gw <= 32 units, each
+// one grid row's (rel-h) or column's (rel-w) tokens: one 16-token tile, two 8-column n-tiles.
+// The A fragments are read from q in device memory (that window-head's Q reaches shared
+// memory only later), the B fragments from the tables (L2, or L1 where the staging leaves
+// room). Warp w takes units w, w + 3, ..., two at a time, so that one trip to memory serves
+// two units, and runs their eight product chains (hi and lo terms apart) side by side. Each
+// k-step's 16 columns are permuted alike in A and B (the sum does not see the order), so
+// that a lane's two column pairs of a row, 2t and 2t + 8, are the 4 adjacent columns
+// 4t..4t + 3: one 8-byte load of q and one 16-byte load of a table row each.
+__device__ __forceinline__ void window_projections_ahead(const __nv_bfloat16* q,
+                                                         const float* rh, const float* rw,
+                                                         float* sRH, float* sRW, int gh,
+                                                         int gw, int sth, int stw, int pw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int units = gh + gw;
+  for (int u0 = pw; u0 < units; u0 += 2 * W_PROJ_WARPS) {
+    uint32_t a[2][5][4];
+    float4 x[2][2][5];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int u = u0 + W_PROJ_WARPS * k;
+      const bool live = u < units, is_h = u < gh;
+      const int grp = is_h ? u : u - gh;
+      // unit grp: tokens tok0 + i * tstep for i < nrows; output columns ncols
+      const int nrows = is_h ? gw : gh, ncols = is_h ? gh : gw;
+      const int tok0 = is_h ? grp * gw : grp, tstep = is_h ? 1 : gw;
+      // pad rows repeat a real one; a dead unit reads nothing
+      const __nv_bfloat16* q0 = q + (size_t)(tok0 + min(g, nrows - 1) * tstep) * 80 + 4 * t;
+      const __nv_bfloat16* q1 = q + (size_t)(tok0 + min(g + 8, nrows - 1) * tstep) * 80 + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < 5; ++kk) {
+        const uint2 r0 = live ? *reinterpret_cast<const uint2*>(q0 + 16 * kk) : make_uint2(0, 0);
+        const uint2 r1 = live ? *reinterpret_cast<const uint2*>(q1 + 16 * kk) : make_uint2(0, 0);
+        a[k][kk][0] = r0.x;  // row g, the k-step's columns 2t, 2t + 1 (permuted)
+        a[k][kk][1] = r1.x;  // row g + 8
+        a[k][kk][2] = r0.y;  // row g, columns 2t + 8, 2t + 9
+        a[k][kk][3] = r1.y;
+      }
+      const float* tab = (is_h ? rh : rw) + (size_t)grp * ncols * 80;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * h + g;
+        const float* brow = tab + (size_t)min(col, ncols - 1) * 80 + 4 * t;
+        const bool ok = live && col < ncols;
+#pragma unroll
+        for (int kk = 0; kk < 5; ++kk)
+          x[k][h][kk] = ok ? *reinterpret_cast<const float4*>(brow + kk * 16)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    // eight independent product chains of five: (unit, n-tile) x (hi, lo terms)
+    float c[2][2][2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 5; ++kk) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t hi0, lo0, hi1, lo1;
+          split_bf16(x[k][h][kk].x, x[k][h][kk].y, hi0, lo0);
+          split_bf16(x[k][h][kk].z, x[k][h][kk].w, hi1, lo1);
+          mma_bf16(c[k][h][1], a[k][kk], lo0, lo1);
+          mma_bf16(c[k][h][0], a[k][kk], hi0, hi1);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int u = u0 + W_PROJ_WARPS * k;
+      if (u >= units) break;
+      const bool is_h = u < gh;
+      const int grp = is_h ? u : u - gh;
+      const int nrows = is_h ? gw : gh, ncols = is_h ? gh : gw;
+      const int tok0 = is_h ? grp * gw : grp, tstep = is_h ? 1 : gw;
+      float* dst = is_h ? sRH : sRW;
+      const int st = is_h ? sth : stw;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = 8 * h + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = g + 8 * r;
+          if (i >= nrows) continue;
+          float* row = dst + (tok0 + i * tstep) * st;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (c0 + j < ncols)
+              row[c0 + j] = (c[k][h][1][2 * r + j] + c[k][h][0][2 * r + j]) * LOG2E;
+        }
+      }
+    }
+  }
+}
+
+// Persistent CTAs over window-heads, head dim 80: q/k/v/out (BH, S, 80) bf16, S = gh * gw
+// <= 256 window tokens; rh (gh, gh, 80) and rw (gw, gw, 80) f32, the get_rel_pos tables.
+// CTA b takes window-heads b, b + gridDim.x, ... < BH. In warpgroup 0, one thread of warp 0
+// brings each Q as soon as the last q.k has read the one before, and K and V as soon as the
+// last p.v has read theirs; warps 1-3 make the bias projections one window-head
+// ahead, into two buffers in turn. Warpgroups 1 and 2 take query strips c and c + 2 of every
+// window-head, with no barrier between them: per strip q.k (wgmma, A = Q and B = K from
+// shared memory), the softmax, p.v (wgmma, A = p from registers, B = V through the
+// transpose bit) and the store. Every warp has the launch's 168 registers.
+template <int NSLOT, int GWP>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    window_attn_kernel_wg(const __grid_constant__ WMaps tm, const __nv_bfloat16* __restrict__ q,
+                          const float* __restrict__ rh, const float* __restrict__ rw,
+                          __nv_bfloat16* __restrict__ out, int BH, int S, int gh, int gw,
+                          float scale_log2) {
+  constexpr int JG = GWP / 8, QBYTES = WQ * 160, KVBYTES = NSLOT * 160;
+  const int sth = gh | 1, stw = gw;
+  extern __shared__ unsigned char w_smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(w_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sKV = sQ + QBYTES;  // K, then V at KVBYTES
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + 2 * KVBYTES);
+  uint64_t* qfull = bars;
+  uint64_t* qempty = bars + 1;
+  uint64_t* kvfull = bars + 2;   // K and V landed
+  uint64_t* kvempty = bars + 3;  // K and V read
+  uint64_t* pfull = bars + 4;    // [2]: a projection buffer written
+  uint64_t* pempty = bars + 6;   // [2]: a projection buffer read
+  float* sP = reinterpret_cast<float*>(bars + 8);
+  const int pfloats = window_wg_proj_bytes(S, gh, gw) / 4;  // buffer b at sP + b * pfloats:
+  // rel-h (S, sth) then rel-w (S, stw)
+  const int warp = threadIdx.x >> 5, wg = warp >> 2, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 8);  // one arrive per consumer warp
+    mbar_init(kvfull, 1);
+    mbar_init(kvempty, 8);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&pfull[b], W_PROJ_WARPS);  // one arrive per projection warp
+      mbar_init(&pempty[b], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto release = [lane](uint64_t* bar) {  // one arrive a warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  if (wg == 0) {
+    if (warp == 0) {  // producer
+      if (threadIdx.x == 0) {
+        int i = 0;
+        for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++i) {
+          // Q first: it is free after the last q.k, K and V only after the last p.v
+          if (i) mbar_wait(qempty, (i - 1) & 1);
+          mbar_expect_tx(qfull, QBYTES);
+          tma_load_3d(sQ, &tm.q, qfull, 0, 0, bh);
+          tma_load_3d(sQ + WQ * 128, &tm.q16, qfull, 64, 0, bh);
+          if (i) mbar_wait(kvempty, (i - 1) & 1);
+          mbar_expect_tx(kvfull, 2 * KVBYTES);
+          tma_load_4d(sKV, &tm.k, kvfull, 0, 0, 0, bh);
+          tma_load_4d(sKV + NSLOT * 128, &tm.k16, kvfull, 64, 0, 0, bh);
+          tma_load_4d(sKV + KVBYTES, &tm.v, kvfull, 0, 0, 0, bh);
+          tma_load_4d(sKV + KVBYTES + NSLOT * 128, &tm.v16, kvfull, 64, 0, 0, bh);
+        }
+      }
+    } else {  // projections, one window-head ahead of the strips
+      int i = 0;
+      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++i) {
+        const int b = i & 1;
+        if (i >= 2) mbar_wait(&pempty[b], ((i >> 1) - 1) & 1);
+        float* sRH = sP + b * pfloats;
+        window_projections_ahead(q + (size_t)bh * S * 80, rh, rw, sRH, sRH + S * sth, gh, gw,
+                                 sth, stw, warp - 1);
+        release(&pfull[b]);
+      }
+    }
+  } else {  // consumers
+    const int c = wg - 1, g = lane >> 2, t = lane & 3;
+    // each warpgroup takes strips c, c + 2, ...: nk of them, the same count for both (a
+    // strip past the window's, where the count is odd, is computed and never stored), so
+    // that no wgmma sits under a branch the compiler cannot prove uniform
+    const int nk = (((S + 63) >> 6) + 1) >> 1;
+    int i = 0;
+    for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++i) {
+      const int b = i & 1;
+      const float* sRH = sP + b * pfloats;
+      const float* sRW = sRH + S * sth;
+      mbar_wait(qfull, i & 1);
+      mbar_wait(&pfull[b], (i >> 1) & 1);
+      mbar_wait(kvfull, i & 1);
+      for (int k = 0; k < nk; ++k) {
+        const int strip = c + 2 * k, r0 = strip * 64 + 16 * (warp & 3) + g, r1 = r0 + 8;
+        const bool last = k == nk - 1;
+        float s[NSLOT / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 5; ++kk) {
+          const uint64_t a = kk < 4 ? sw128_desc(sQ + strip * 64 * 128) + kk * 2
+                                    : sw32_desc(sQ + WQ * 128 + strip * 64 * 32);
+          const uint64_t bk =
+              kk < 4 ? sw128_desc(sKV) + kk * 2 : sw32_desc(sKV + NSLOT * 128);
+          wgmma_ss<NSLOT>(s, a, bk, kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        if (last) release(qempty);  // the last q.k of this window-head has read Q
+        // rows past S (zero in Q, never stored) take row S - 1's projections; no branch
+        // here (a register of the p.v wgmma set on a divergent path serializes its chain)
+        const int q0 = min(r0, S - 1), q1 = min(r1, S - 1);
+        float rw0[JG][2], rw1[JG][2];
+#pragma unroll
+        for (int jg = 0; jg < JG; ++jg) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * jg + 2 * t + e;
+            const float v0 = sRW[q0 * stw + min(col, gw - 1)];
+            const float v1 = sRW[q1 * stw + min(col, gw - 1)];
+            rw0[jg][e] = col < gw ? v0 : -INFINITY;
+            rw1[jg][e] = col < gw ? v1 : -INFINITY;
+          }
+        }
+        uint32_t p[NSLOT / 16][4];
+        window_softmax<NSLOT, GWP>(s, p, sRH + q0 * sth, sRH + q1 * sth, rw0, rw1, gh,
+                                   scale_log2);
+        if (last) release(&pempty[b]);  // this warpgroup's softmaxes have read the buffer
+        float o[32], ot[8];
+#pragma unroll
+        for (int n = 0; n < 32; ++n) o[n] = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) ot[n] = 0.f;
+        wg_fence();
+        issue_pv<80, NSLOT>(o, ot, p, sKV + KVBYTES);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(ot);
+        if (last) release(kvempty);  // K and V of this window-head are read
+        __nv_bfloat16* o0 = out + ((size_t)bh * S + r0) * 80;
+        __nv_bfloat16* o1 = out + ((size_t)bh * S + r1) * 80;
+        auto put = [&](int col, float x0, float x1, float x2, float x3) {
+          if (r0 < S) *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(x0, x1);
+          if (r1 < S) *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(x2, x3);
+        };
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          put(8 * j + 2 * t, o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          put(64 + 8 * j + 2 * t, ot[4 * j], ot[4 * j + 1], ot[4 * j + 2], ot[4 * j + 3]);
+      }
+    }
+  }
+}
+
 // ---- host side ---------------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1181,6 +1613,25 @@ int bf16_map(CUtensorMap* map, const void* ptr, int D, int S, int BH, int rows,
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
+}
+
+// A (BH, gh, gw, D) bf16 tensor as a 4-D TMA map whose box is `cols` columns x (rows key
+// rows x gwp slots) of one batch*head, panels as bf16_map's; slots past gw and key rows past
+// gh are zero-filled.
+int bf16_map_4d(CUtensorMap* map, const void* ptr, int D, int gh, int gw, int BH, int rows,
+                int gwp, int cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)gw, (cuuint64_t)gh, (cuuint64_t)BH};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)gw * D * 2,
+                                 (cuuint64_t)gh * gw * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)gwp, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1246,6 +1697,36 @@ int launch_window(const void* q, const void* k, const void* v, const void* rh, c
   return (int)cudaGetLastError();
 }
 
+// geometry mirrored by tmr_tpu_torch/ops/cuda_attn.py window_geometry: NSLOT slots in key
+// rows of GWP, one K/V stage, one persistent CTA per SM (or per window-head, when there are
+// fewer)
+template <int NSLOT, int GWP>
+int launch_window_wg(const void* q, const void* k, const void* v, const void* rh,
+                     const void* rw, void* out, int BH, int S, int gh, int gw, float scale,
+                     cudaStream_t st) {
+  constexpr int ROWS = NSLOT / GWP;
+  WMaps tm;
+  int e;
+  if ((e = bf16_map(&tm.q, q, 80, S, BH, WQ)) || (e = bf16_map(&tm.q16, q, 80, S, BH, WQ, 16)) ||
+      (e = bf16_map_4d(&tm.k, k, 80, gh, gw, BH, ROWS, GWP, 64)) ||
+      (e = bf16_map_4d(&tm.k16, k, 80, gh, gw, BH, ROWS, GWP, 16)) ||
+      (e = bf16_map_4d(&tm.v, v, 80, gh, gw, BH, ROWS, GWP, 64)) ||
+      (e = bf16_map_4d(&tm.v16, v, 80, gh, gw, BH, ROWS, GWP, 16)))
+    return e;
+  int dev, sms;
+  cudaError_t ce;
+  if ((ce = cudaGetDevice(&dev)) ||
+      (ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return (int)ce;
+  const size_t smem = window_wg_smem(NSLOT, S, gh, gw);
+  auto kernel = window_attn_kernel_wg<NSLOT, GWP>;
+  if ((e = launch_prep(kernel, smem))) return e;
+  kernel<<<BH < sms ? BH : sms, G_THREADS, smem, st>>>(
+      tm, (const __nv_bfloat16*)q, (const float*)rh, (const float*)rw, (__nv_bfloat16*)out,
+      BH, S, gh, gw, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int global_entry(const void* q, const void* k, const void* v, const void* rph, const void* rpw,
                  void* out, int BH, int S, int gh, int gw, float scale, int has_bias,
@@ -1265,6 +1746,14 @@ int global_entry(const void* q, const void* k, const void* v, const void* rph, c
 template <int D>
 int window_entry(const void* q, const void* k, const void* v, const void* rh, const void* rw,
                  void* out, int BH, int S, int gh, int gw, float scale, cudaStream_t st) {
+  // head dim 80, windows up to 16x16: the wgmma kernel, key rows of 16 slots, 14 of them
+  // (SAM's 14x14, and every window of up to 14 rows) or 16; pad slots fall out through -inf
+  if constexpr (D == 80) {
+    if (gh <= 16 && gw <= 16) {
+      auto launch = gh <= 14 ? launch_window_wg<224, 16> : launch_window_wg<256, 16>;
+      return launch(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
+    }
+  }
   if (gw <= 8) return launch_window<D, 1>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
   if (gw <= 16) return launch_window<D, 2>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);
   if (gw <= 32) return launch_window<D, 4>(q, k, v, rh, rw, out, BH, S, gh, gw, scale, st);

@@ -37,13 +37,15 @@ dtype, contiguous, head dim 64 (SAM ViT-B) or 80 (ViT-H; any other dtype or head
 raises, with no fallback to the plain version). bf16 goes to ``csrc/attn.cu``: the global
 kernel takes any token count whose projections fit in shared memory
 (:func:`global_geometry`: gh + gw up to ~290 at head dim 64, ~195 at 80); the windowed
-kernel takes rows of up to 64 tokens and a window whose staging fits in 227 KB
-(:func:`window_geometry`). f32 goes to ``csrc/attn_f32.cu`` (3xTF32 ``wgmma`` products, p
-kept f32 for p.v as the JAX kernels do at f32), whose two entries take any grid or window
-whose ring of K/V stages and projections fit (:func:`geometry_f32`: gh + gw up to ~290 at
-head dim 64, ~226 at 80), the global entry with or without the bias. Without the bias the
-function does not depend on the grid: ``models.vit.Attention(use_rel_pos=False)`` sends
-its windowed blocks to :func:`global_attention` over each window's tokens.
+kernels take rows of up to 64 tokens and a window whose staging fits in 227 KB
+(:func:`window_geometry`), at head dim 80 windows up to 16x16 on a persistent ``wgmma``
+kernel (:func:`window_kernel` names the instantiation a window gets). f32 goes to
+``csrc/attn_f32.cu`` (3xTF32 ``wgmma`` products, p kept f32 for p.v as the JAX kernels do
+at f32), whose two entries take any grid or window whose ring of K/V stages and
+projections fit (:func:`geometry_f32`: gh + gw up to ~290 at head dim 64, ~226 at 80), the
+global entry with or without the bias. Without the bias the function does not depend on
+the grid: ``models.vit.Attention(use_rel_pos=False)`` sends its windowed blocks to
+:func:`global_attention` over each window's tokens.
 """
 
 from __future__ import annotations
@@ -393,21 +395,59 @@ def _global_attn_cuda(q, k, v, rel_pos_h, rel_pos_w, gh, gw, scale):
     return out
 
 
+#: query rows the head-dim-80 wgmma windowed kernel stages per window-head: 4 strips of 64
+WG_QUERY_ROWS = 256
+
+
+def _wg_shape(gh: int, gw: int, d: int):
+    """(slots, gwp) of the head-dim-80 wgmma windowed kernel for a (gh, gw) window, or None
+    where ``window_entry`` sends the window elsewhere: windows up to 16x16, key rows of gwp
+    = 16 slots, 14 of them (224 slots) for windows of up to 14 rows, else 16 (256)."""
+    if d != 80 or gh > 16 or gw > 16:
+        return None
+    return (224 if gh <= 14 else 256), 16
+
+
+def window_kernel(gh: int, gw: int, d: int = 64) -> str:
+    """Which instantiation of ``csrc/attn.cu`` a (gh, gw) window at head dim ``d`` gets
+    (``window_entry``): at head dim 80, windows up to 16x16 go to the persistent wgmma
+    kernel ``window_attn_kernel_wg<slots, gwp>`` (:func:`_wg_shape`); every other window,
+    and every window at head dim 64, to ``window_attn_kernel<d, gwp / 8>`` (gwp the
+    smallest of 8, 16, 32, 64 that holds a row)."""
+    wg = _wg_shape(gh, gw, d)
+    if wg:
+        return f"window_attn_kernel_wg<{wg[0]}, {wg[1]}>"
+    return f"window_attn_kernel<{d}, {next(p for p in (8, 16, 32, 64) if gw <= p) // 8}>"
+
+
 def window_geometry(gh: int, gw: int, d: int = 64) -> Tuple[int, int, int]:
     """The windowed kernel's staging for a (gh, gw) window at head dim ``d``, as
-    ``csrc/attn.cu`` ``launch_window`` sets it up: key slots in grid rows of ``gwp`` (8,
-    16, 32 or 64 >= gw), ``ghp`` key rows (gh, or gh + 1 to make the 8-slot tiles even),
-    query rows padded to ``sp`` (a multiple of 16), bf16 rows of 2d bytes. Returns (gwp,
-    ghp, shared bytes); raises ``ValueError`` for a window the kernel does not take (rows
-    over 64 tokens, or staging over 227 KB)."""
+    ``csrc/attn.cu`` sets it up for the instantiation :func:`window_kernel` names. Returns
+    (gwp, ghp, shared bytes): key slots in grid rows of ``gwp``, ``ghp`` key rows (pad rows
+    included), bf16 rows of 2d bytes. ``window_attn_kernel_wg<slots, gwp>``
+    (``launch_window_wg``, ``window_wg_smem``): alignment slack, Q in 256 rows, one stage
+    of K and V in ``slots = ghp * gwp`` rows each, 8 mbarriers, and two projection buffers
+    of the (S, gh | 1) rel-h and (S, gw) rel-w f32 projections, each rounded up to 16
+    bytes. ``window_attn_kernel<d, ntw>``
+    (``launch_window``): gwp of 8, 16, 32 or 64 >= gw, ghp = gh, or gh + 1 to make the
+    8-slot tiles even, query rows padded to a multiple of 16 (sp), Q, K and V in bf16 and
+    the (sp, (gh + 1) | 1) + (sp, gwp) f32 projections. Raises ``ValueError`` for a window
+    no kernel takes (rows over 64 tokens, or staging over 227 KB)."""
     if not 1 <= gw <= 64 or gh < 1:
         raise ValueError(f"window_attention: the kernel takes window rows of 1..64 tokens, "
                          f"got a {gh}x{gw} window")
-    gwp = next(p for p in (8, 16, 32, 64) if gw <= p)
-    ghp = gh + (gh * gwp // 8) % 2
-    sp = -(-gh * gw // 16) * 16
-    st_h = (gh + 1) | 1
-    smem = (sp + 2 * ghp * gwp) * d * 2 + sp * (st_h + gwp) * 4
+    wg = _wg_shape(gh, gw, d)
+    if wg:
+        slots, gwp = wg
+        ghp = slots // gwp
+        proj = -(-gh * gw * ((gh | 1) + gw) * 4 // 16) * 16
+        smem = 1024 + WG_QUERY_ROWS * 2 * d + 2 * slots * 2 * d + 8 * 8 + 2 * proj
+    else:
+        gwp = next(p for p in (8, 16, 32, 64) if gw <= p)
+        ghp = gh + (gh * gwp // 8) % 2
+        sp = -(-gh * gw // 16) * 16
+        st_h = (gh + 1) | 1
+        smem = (sp + 2 * ghp * gwp) * d * 2 + sp * (st_h + gwp) * 4
     if smem > _SMEM_LIMIT:
         raise ValueError(f"window_attention: a {gh}x{gw} window needs {smem} B of shared "
                          f"memory, over the {_SMEM_LIMIT} B a block may use")

@@ -294,6 +294,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and launches 4 / 8 / 1 / 1. Printed: ms per fused frame beside the N-loop's, per
    features-arm, cache-hit and prefilter-on frame and per prefilter call, frames/s, the
    subprocesses' seconds and the peak memory at 48 rows;
+5j. stream sessions and the feature tier (run after 5f, on phase 4's predictor): 3
+   streams of 8 frames of 1024² (each a static synthetic scene with fresh noise of std
+   0.01 a frame, cut to a new scene at frame 4), a client thread a stream, first through
+   ``ServeEngine.submit`` (batch bound 1, caches off: the frame-independent baseline),
+   then through ``StreamRouter(engine, reuse=True)`` over an engine of the same settings:
+   the router's counters exactly 3 first, 3 changed and 18 reused frames and 6 local
+   fills; each full-path frame's result equal to its baseline result bit for bit; every
+   reused result labelled ``["temporal_reuse"]`` and no full-path one; no reused result
+   equal to a result of another stream; the router's encoder launches at most 4 / 8 x
+   (full-path frames + fills); each heads batch exactly xcorr 1 and nms 1. Then a
+   ``FeatureTier`` (size 1024) in this process, a ``FeatureWorker`` in a child process on
+   the card (phase 4's preset and seed, so its stamp is the script's; it runs one extract
+   before it leases), and ``ServeEngine(pred, feature_client=tier.client(predictor=
+   pred))``: a clean run of 12 distinct frames in 3 waves of 4 (remote frames 12; cold,
+   fallback and stamp mismatches 0; no attention launch in this process; the worker's 4 /
+   8 an extract; each result equal to its heads program on the fetched features, and
+   those equal to this process's encoder at batch 1, bit for bit), then a fault run of 8
+   frames whose first fetch kill -9s the worker (every future resolves; all 8 counted
+   cold or fallback and run here through the encoder's kernels, each equal to its program
+   on its inputs bit for bit). Printed: frames/s and latency p50 / p95 both ways, a
+   frame's parts (signature, digest, fused, encoder, heads), ms per remote frame against
+   a local fused frame, a fetch's round trip, the wire's MB a frame, pack / unpack ms,
+   and a ``{"streams": ...}`` JSON line;
 4f. ``compute_dtype="float32"`` (run after 4d on phase 4's weights, and for ViT-H after
    4c on its weights): ``Predictor(preset("TMR_FSCD147", compute_dtype="float32"))`` on
    phase 4's 3 batches and one ``predict_multi_batch`` of phase 4d's, then ViT-H at f32 on
@@ -338,8 +361,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``xcorr_plain`` in f32 within 2e-5 x each gradient's max. Printed: ms per step, peak
    device memory, and a ``{"default": ...}`` JSON line;
 6. a ``{"kernels": [...]}`` JSON line (``global_attn_1536``: kernel 1 on the 1536 bucket's
-   96^2 tokens, phase 3's numbers and phase 5's launches), then the card line, then the
-   last line ``{"ok": true, "device": {...}}``.
+   96^2 tokens, phase 3's numbers and phase 5's launches; phase 5j's launches, this
+   process's and its feature worker's, counted in those of kernels 1, 4, 5 and 6), then
+   the card line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or ``tmr_tpu``. Exits non-zero without a result when there is
 no CUDA device or when the port's sources are not beside this file.
@@ -5847,6 +5871,545 @@ def check_gallery_path(torch, np, pred, card, map_kit, modules) -> dict:
     return out
 
 
+#: phase 5j, stream sessions on phase 4's predictor: 3 streams of 8 frames of 1024², each
+#: a static synthetic scene (phase 4's generator, squares of 120 px) with fresh noise of
+#: this std on every frame (its 8 x 8 block means move ~1e-4, far under the 0.02 delta),
+#: cut to a new scene at frame 4: 6 full-path frames (first or changed) and 18 reused
+STREAMS = 3
+STREAM_FRAMES = 8
+SIZE_5J = 1024  # the frames' side
+STREAM_CUT = 4
+STREAM_NOISE = 0.01
+#: both engines of the stream runs take one request a batch: a full-path frame then runs
+#: the program it runs in the baseline at the same batch size, so the two are held bit
+#: for bit (on the card the encoder's ``neck_2`` convolution differs between batch sizes,
+#: PERF.md)
+STREAM_BATCH = 1
+#: the feature tier's runs: a clean run of 3 waves of 4 distinct frames, then a fault run
+#: of 2 waves of 4 whose first fetch kill -9s the worker
+TIER_WAVES = 3
+TIER_WAVE = 4
+TIER_FAULT_WAVES = 2
+TIER_WAIT_S = 180.0  # the worker's start, and every future
+#: the feature worker in a child process on the same card: phase 4's preset and seed, so
+#: its weights (and its stamp, a digest of them) are the script's. It runs one extract
+#: before it leases (a process's first encoder call sets up the libraries; the worker
+#: takes frames only once warm), prints its stamp once it holds a lease, and each
+#: extract's launches and milliseconds
+TIER_WORKER = r"""
+import json, sys, threading, time
+import numpy as np
+import torch
+from tmr_tpu_torch.config import preset
+from tmr_tpu_torch.inference import Predictor
+from tmr_tpu_torch.ops import _build
+from tmr_tpu_torch.serve.feature_tier import FeatureWorker
+
+host, port, seed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+pred = Predictor(preset("TMR_FSCD147"), device="cuda")
+pred.init_params(seed)
+worker = FeatureWorker((host, port), "card-worker", pred)
+extract, lock = worker._extract, threading.Lock()
+extract(np.zeros((1024, 1024, 3), np.float32))
+
+
+def counted(image):
+    with lock:
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        feats = extract(image)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    print("extract " + json.dumps({"launches": launched, "ms": ms}), flush=True)
+    return feats
+
+
+worker._extract = counted
+worker.start()
+while not worker.held:
+    time.sleep(0.05)
+print("worker " + json.dumps({"stamp": list(pred.feature_stamp())}), flush=True)
+threading.Event().wait()
+"""
+
+
+def stream_frames(np, rng):
+    """Phase 5j's streams: {stream id: [(frame, exemplars (1, 4))] x 8}; frames before
+    ``STREAM_CUT`` show scene 0 and the rest scene 1 (each scene with its own exemplar),
+    every frame with noise of its own."""
+    streams = {}
+    for s in range(STREAMS):
+        scenes, exs = synthetic_batch(np, rng, 120 * SIZE_5J // 1024, b=2, size=SIZE_5J)
+        frames = []
+        for t in range(STREAM_FRAMES):
+            k = int(t >= STREAM_CUT)
+            noise = rng.standard_normal(scenes[k].shape, dtype=np.float32)
+            frames.append((scenes[k] + np.float32(STREAM_NOISE) * noise, exs[k]))
+        streams[f"cam{s}"] = frames
+    return streams
+
+
+def drive_streams(streams, submit, latencies):
+    """Each stream from a client thread of its own, its frames submitted back to back in
+    order: ``submit(stream id, frame, exemplars)`` -> Future. Returns {stream id:
+    [future] x 8}; ``latencies`` collects submit-to-resolve seconds."""
+    futs = {sid: [None] * len(frames) for sid, frames in streams.items()}
+
+    def client(sid):
+        for t, (frame, ex) in enumerate(streams[sid]):
+            t0 = time.perf_counter()
+            futs[sid][t] = submit(sid, frame, ex)
+            futs[sid][t].add_done_callback(
+                lambda f, t0=t0: latencies.append(time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client, args=(sid,)) for sid in streams]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return futs
+
+
+def serve_equal(np, a: dict, b: dict) -> bool:
+    """Two served results: the same fields, each bit for bit, and the same labels."""
+    return set(a) == set(b) and all(
+        np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k]
+        for k in a)
+
+
+def check_streams(torch, np, pred, card, _build) -> dict:
+    """Phase 5j, streams: the frame-independent baseline (every frame through
+    ``ServeEngine.submit``, caches off), then the same frames through
+    ``StreamRouter(engine, reuse=True)`` over an engine of the same settings."""
+    from tmr_tpu_torch.serve import ServeEngine, StreamRouter
+
+    streams = stream_frames(np, np.random.default_rng(SEED + 11))
+    n = sum(len(f) for f in streams.values())
+    kw = dict(batch=STREAM_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS, exemplar_cache=0,
+              feature_cache=0)
+    out = {"streams": STREAMS, "frames": n, "batch": STREAM_BATCH}
+    runs = {}
+    for name in ("baseline", "router"):
+        eng = ServeEngine(pred, **kw)
+        router = StreamRouter(eng, reuse=True) if name == "router" else None
+        # warm-up outside the count: the fused and the heads programs at batch 1
+        frame, ex = streams["cam0"][0]
+        eng.submit(frame, ex).result(timeout=SERVE_WAIT_S)
+        feats = pred._get_backbone_fn()(np.stack([frame]))
+        eng.submit(frame, ex, features=feats).result(timeout=SERVE_WAIT_S)
+        heads = []
+        run_heads = eng._run_heads
+
+        def counting(staged, *a, run_heads=run_heads, heads=heads):
+            before = dict(_build.LAUNCHES)
+            res = run_heads(staged, *a)
+            heads.append({k: _build.LAUNCHES[k] - before[k] for k in before})
+            return res
+
+        eng._run_heads = counting
+        submit = ((lambda sid, f, e, r=router: r.submit_stream(sid, f, e)) if router
+                  else (lambda sid, f, e, g=eng: g.submit(f, e)))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        lat = []
+        t0 = time.perf_counter()
+        futs = drive_streams(streams, submit, lat)
+        results = {sid: [f.result(timeout=SERVE_WAIT_S) for f in fs]
+                   for sid, fs in futs.items()}
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        counters = router.counters() if router else {}
+        eng.close(timeout=SERVE_DRAIN_S)
+        runs[name] = dict(results=results, wall=wall, lat=quantiles_ms(lat),
+                          launches=launches, heads=heads, counters=counters)
+    base, routed = runs["baseline"], runs["router"]
+    full = {(sid, t) for sid in streams for t in (0, STREAM_CUT)}
+    bad_full, bad_label, crossed = [], [], []
+    for sid, frames in routed["results"].items():
+        for t, got in enumerate(frames):
+            if (sid, t) in full:
+                if "degrade_steps" in got:
+                    bad_label.append((sid, t))
+                if not serve_equal(np, got, base["results"][sid][t]):
+                    bad_full.append((sid, t))
+                continue
+            if got.get("degrade_steps") != ["temporal_reuse"]:
+                bad_label.append((sid, t))
+            crossed += [(sid, t, other, u) for run in (base, routed)
+                        for other, theirs in run["results"].items() if other != sid
+                        for u, r in enumerate(theirs)
+                        if all(np.array_equal(got[k], r[k]) for k in
+                               ("boxes", "scores", "refs", "valid"))]
+    # the parts of a frame, one at a time (median of 5, each ending in a synchronize): the
+    # host's signature and digest of a 1024² frame, the fused program at B = 1 from the
+    # host array, the encoder alone, and the heads on features already on the card
+    from tmr_tpu_torch.serve import block_signature
+    from tmr_tpu_torch.serve.caches import array_digest
+
+    def host_ms(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    frame, ex = streams["cam0"][1]
+    cap = pred.pick_capacity(ex, SIZE_5J)
+    img1, ex1 = np.stack([frame]), np.stack([ex])
+    feats = pred._get_backbone_fn()(img1)
+    parts = {"signature": host_ms(lambda: block_signature(frame)),
+             "digest": host_ms(lambda: array_digest(frame)),
+             "fused": host_ms(lambda: pred(img1, ex1)),
+             "encoder": host_ms(lambda: pred._get_backbone_fn()(img1)),
+             "heads": host_ms(lambda: pred._get_heads_fn(cap, SIZE_5J)(feats, ex1))}
+    print(f"streams, one frame's parts (ms, median of 5): {json.dumps(parts)} [{card}]",
+          flush=True)
+    c = routed["counters"]
+    want_c = {"frames": n, "first_frames": STREAMS, "changed_frames": STREAMS,
+              "reused_frames": n - 2 * STREAMS, "local_fills": 2 * STREAMS}
+    enc = lambda L: (L["global_attn"], L["window_attn"])  # noqa: E731
+    fills = c.get("local_fills", 0) + c.get("remote_fills", 0)
+    bound = (4 * (len(full) + fills), 8 * (len(full) + fills))
+    heads_ok = all(h["xcorr"] == 1 and h["nms"] == 1 for h in routed["heads"])
+    rates = {k: n / runs[k]["wall"] for k in runs}
+    print(f"streams: {STREAMS} streams x {STREAM_FRAMES} frames of {SIZE_5J}^2 from "
+          f"{STREAMS} client threads, batch bound {STREAM_BATCH}; router counters "
+          f"{json.dumps(c)} (expected {json.dumps(want_c)}); full-path frames differing "
+          f"from the baseline {len(bad_full)} of {len(full)}; labels wrong {len(bad_label)};"
+          f" reused results equal to another stream's {len(crossed)}; encoder launches "
+          f"(global, window) router {enc(routed['launches'])} (bound {bound}: "
+          f"{len(full)} full-path frames + {fills} fills) beside the baseline's "
+          f"{enc(base['launches'])}; {len(routed['heads'])} heads batches, each "
+          f"xcorr 1 and nms 1: {heads_ok}", flush=True)
+    print(f"streams: frames/s baseline {rates['baseline']:.2f} ({n} in "
+          f"{base['wall']:.3f} s), router {rates['router']:.2f} ({routed['wall']:.3f} s), "
+          f"x{rates['router'] / rates['baseline']:.3f}; latency p50 / p95 baseline "
+          f"{base['lat']['p50']:.1f} / {base['lat']['p95']:.1f} ms, router "
+          f"{routed['lat']['p50']:.1f} / {routed['lat']['p95']:.1f} ms; launches "
+          f"baseline {json.dumps(base['launches'])}, router "
+          f"{json.dumps(routed['launches'])} [{card}]", flush=True)
+    if {k: c.get(k, 0) for k in want_c} != want_c:
+        fail(f"stream router counters {c}, expected {want_c}")
+    if bad_full or bad_label or crossed:
+        fail(f"streams: full-path frames differ from the baseline {bad_full}, wrong labels "
+             f"{bad_label}, reused results equal to another stream's {crossed[:4]}")
+    if not all(a <= b for a, b in zip(enc(routed["launches"]), bound)):
+        fail(f"streams: encoder launches {enc(routed['launches'])} over {bound}")
+    if not heads_ok or len(routed["heads"]) != n - 2 * STREAMS:
+        fail(f"streams: heads batches' (xcorr, nms) "
+             f"{[(h['xcorr'], h['nms']) for h in routed['heads']]}, expected "
+             f"{n - 2 * STREAMS} of (1, 1)")
+    out.update(frames_per_s=rates, latency_ms={k: runs[k]["lat"] for k in runs}, parts_ms=parts,
+               counters=c, launches={k: runs[k]["launches"] for k in runs},
+               heads_batches=len(routed["heads"]))
+    return out
+
+
+def start_tier_worker(root: Path, address, log: Path):
+    """``TIER_WORKER`` in a child process on the card, its output into ``log``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", TIER_WORKER, address[0],
+                                 str(address[1]), str(SEED)], cwd=str(root), env=env,
+                                stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def worker_lines(log: Path, tag: str) -> list:
+    """The JSON documents of the worker's lines that start with ``tag``."""
+    return [json.loads(line[len(tag) + 1:]) for line in log.read_text().splitlines()
+            if line.startswith(tag + " {") and line.endswith("}")]
+
+
+def tier_frames(np, rng, n: int):
+    """``n`` distinct single-exemplar requests of ``SIZE_5J``² (phase 4's generator,
+    buckets 9, 17 and 33 in turn)."""
+    reqs = []
+    for i in range(n):
+        side = BUCKET_SIDES_PX[(9, 17, 33)[i % 3]] * SIZE_5J // 1024
+        imgs, ex = synthetic_batch(np, rng, side, b=1, size=SIZE_5J)
+        reqs.append((imgs[0], ex[0], {}))
+    return reqs
+
+
+def check_tier_programs(torch, np, pred, calls, finished, fetched) -> list:
+    """Each served result of a run against its program on the captured inputs (the heads
+    program on the rows the engine fed it, each remote row the fetched features; the
+    fused program on its staged stack) and each local fill's features against the
+    encoder on the staged images; returns the mismatches."""
+    mism = []
+    for (name, key, args), (bucket, reqs, fill, images) in zip(calls, finished):
+        with torch.inference_mode():
+            again = getattr(type(pred), name)(pred, *key)(*args)
+            if any(reqs[i].image_digest not in fetched for i in fill):
+                feats = type(pred)._get_backbone_fn(pred)(images)
+            for i, r in enumerate(reqs):
+                remote = fetched.get(r.image_digest)
+                if name == "_get_heads_fn" and remote is not None and not torch.equal(
+                        args[0][i:i + 1], torch.as_tensor(remote[1], device=pred.device)):
+                    mism.append((bucket, i, "remote row"))
+                if fill and i in fill and remote is None and not torch.equal(
+                        feats[fill.index(i)], args[0][i]):
+                    mism.append((bucket, i, "fill features"))
+        for i, r in enumerate(reqs):
+            got = r.futures[0].result(timeout=TIER_WAIT_S)
+            for f in ("boxes", "scores", "refs", "valid"):
+                if not np.array_equal(got[f], again[f][i:i + 1].cpu().numpy()):
+                    mism.append((bucket, i, f))
+    return mism
+
+
+def check_feature_tier(torch, np, pred, card, _build, worker, address, log, tier,
+                       wait_holder) -> dict:
+    """Phase 5j, the feature tier: ``ServeEngine(pred, feature_client=tier.client(
+    predictor=pred))`` against the worker process ``worker`` (already started on
+    ``tier``): a clean run, then a fault run that kill -9s the worker at its first
+    fetch."""
+    import os
+    import signal
+
+    from tmr_tpu_torch.serve import ServeEngine
+    from tmr_tpu_torch.serve.fleet import pack_array, unpack_array
+
+    rng = np.random.default_rng(SEED + 12)
+    clean = tier_frames(np, rng, TIER_WAVES * TIER_WAVE)
+    faulty = tier_frames(np, rng, TIER_FAULT_WAVES * TIER_WAVE)
+    wait_holder()
+    stamps = worker_lines(log, "worker")
+    if not stamps or tuple(stamps[0]["stamp"]) != tuple(pred.feature_stamp()):
+        fail(f"the feature worker's stamp {stamps} is not the script's "
+             f"{pred.feature_stamp()}")
+    client = tier.client(predictor=pred)
+    fetched, fetch_ms, failed_ms = {}, [], []
+    fetch, killed = client.fetch, threading.Event()
+
+    def recording(image, digest, size):
+        t0 = time.perf_counter()
+        feats = fetch(image, digest, size)
+        (fetch_ms if feats is not None else failed_ms).append(
+            (time.perf_counter() - t0) * 1e3)
+        if feats is not None:
+            fetched[digest] = (image, feats)
+        return feats
+
+    def killing(image, digest, size):
+        if not killed.is_set():  # kill -9 the worker at the fault run's first fetch
+            killed.set()
+            os.kill(worker.pid, signal.SIGKILL)
+            worker.wait(timeout=60)
+        return recording(image, digest, size)
+
+    client.fetch = recording
+    engine = ServeEngine(pred, batch=SERVE_BATCH, max_wait_ms=SERVE_MAX_WAIT_MS,
+                         feature_client=client)
+    out = {"clean_frames": len(clean), "fault_frames": len(faulty)}
+    try:
+        # warm-up outside the count: the heads program at each wave's batch shape
+        warm = tier_frames(np, rng, TIER_WAVE)
+        for f in serve_clients(engine, warm, clients=TIER_WAVE):
+            f.result(timeout=TIER_WAIT_S)
+        warm_extracts = worker_lines(log, "extract")
+        n_extract = len(warm_extracts)
+        print(f"feature tier warm-up: {len(warm)} frames, client {json.dumps(client.counters())}, "
+              f"engine {json.dumps(engine.overload_counters())}; the worker's extracts ms "
+              f"{[round(e['ms'], 2) for e in warm_extracts]}, fetches ms "
+              f"{[round(v, 2) for v in fetch_ms]}, failed fetches ms "
+              f"{[round(v, 2) for v in failed_ms]}", flush=True)
+        if client.counters()["fetched"] != len(warm):
+            print(f"feature worker log: {log_tail(log)}", flush=True)
+        fetched.clear()
+        fetch_ms.clear()
+
+        def run(reqs, tag):
+            calls, finished, restore = capture_serving(pred, engine)
+            before = dict(engine.overload_counters())
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            futs = []
+            for w in range(0, len(reqs), TIER_WAVE):
+                wave = serve_clients(engine, reqs[w:w + TIER_WAVE], clients=TIER_WAVE)
+                for f in wave:
+                    f.result(timeout=TIER_WAIT_S)
+                futs += wave
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            restore()
+            after = engine.overload_counters()
+            moved = {k: after.get(k, 0) - before.get(k, 0) for k in
+                     ("feature_tier.remote_frames", "feature_tier.cold_frames",
+                      "feature_tier.fallback_frames")}
+            mism = check_tier_programs(torch, np, pred, calls, finished, fetched)
+            kinds = [b[0][0] for b in finished]
+            return dict(wall=wall, launches=launches, moved=moved,
+                        mism=mism, batches={k: kinds.count(k) for k in set(kinds)},
+                        futs=futs)
+
+        cr = run(clean, "clean")
+        cc = client.counters()
+        extracts = worker_lines(log, "extract")[n_extract:]
+        bad_extract = [e for e in extracts if e["launches"] != {"global_attn": 4,
+                                                                 "window_attn": 8}]
+        # the fetched features against this process's encoder at batch 1
+        feat_diff = []
+        with torch.inference_mode():
+            for digest, (image, feats) in fetched.items():
+                local = pred._get_backbone_fn()(np.stack([image]))
+                remote = torch.as_tensor(feats, device=pred.device)
+                if not torch.equal(local, remote):
+                    feat_diff.append(float((local - remote).abs().max()))
+        print(f"feature tier, clean run: {len(clean)} distinct frames in {TIER_WAVES} "
+              f"waves of {TIER_WAVE} from {TIER_WAVE} client threads, "
+              f"{cr['wall']:.3f} s; engine counters {json.dumps(cr['moved'])}, client "
+              f"{json.dumps(cc)}; batches {cr['batches']}; the engine's launches "
+              f"{json.dumps(cr['launches'])}; the worker's {len(extracts)} extracts "
+              f"launched {sorted({json.dumps(e['launches']) for e in extracts})} "
+              f"(ms {[round(e['ms'], 2) for e in extracts]}); results differing from "
+              f"their programs {len(cr['mism'])}; fetched features differing from this "
+              f"process's encoder at batch 1: {len(feat_diff)} of {len(fetched)}"
+              f"{f' (max abs diff {max(feat_diff):.3e})' if feat_diff else ''} [{card}]",
+              flush=True)
+        if (cr["moved"] != {"feature_tier.remote_frames": len(clean),
+                            "feature_tier.cold_frames": 0,
+                            "feature_tier.fallback_frames": 0}
+                or cc["stamp_mismatches"] or cc["fenced"] or cc["errors"]):
+            fail(f"feature tier clean run: counters {cr['moved']}, client {cc}")
+        if cr["launches"]["global_attn"] or cr["launches"]["window_attn"]:
+            fail(f"feature tier clean run: the engine launched attention kernels "
+                 f"{cr['launches']} for remote frames")
+        if len(extracts) != len(clean) or bad_extract:
+            fail(f"feature tier: {len(extracts)} extracts for {len(clean)} frames, "
+                 f"launches other than 4 / 8: {[e['launches'] for e in bad_extract]}")
+        if cr["mism"] or feat_diff or len(fetched) != len(clean):
+            fail(f"feature tier clean run: results differ from their programs "
+                 f"{cr['mism'][:4]}, or the fetched features from the encoder at batch 1 "
+                 f"({feat_diff}), {len(fetched)} fetched")
+
+        # one frame at a time: remote (through the engine) against a local fused frame
+        single = tier_frames(np, rng, 3)
+        remote_ms, local_ms = [], []
+        for img, ex, _ in single:
+            t0 = time.perf_counter()
+            engine.submit(img, ex).result(timeout=TIER_WAIT_S)
+            remote_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            pred(np.stack([img]), np.stack([ex]))
+            torch.cuda.synchronize()
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+        img, ex, _ = single[0]
+        digest, (_, feats) = next(iter(fetched.items()))
+        req_doc = {"op": "extract", "partition": 0, "epoch": 1, "digest": digest,
+                   "image": pack_array(img)}
+        rep_doc = {"op": "extract", "ok": True, "status": "ok",
+                   "features": pack_array(feats), "stamp": list(pred.feature_stamp())}
+        wire = len(json.dumps(req_doc)) + len(json.dumps(rep_doc)) + 2
+        pack_ms, unpack_ms = {}, {}
+        for what, arr in (("image", img), ("features", feats)):
+            ts, us = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                doc = pack_array(arr)
+                ts.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                unpack_array(doc)
+                us.append((time.perf_counter() - t0) * 1e3)
+            pack_ms[what], unpack_ms[what] = sorted(ts)[1], sorted(us)[1]
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        print(f"feature tier: ms per remote frame (one at a time through the engine) "
+              f"{[round(v, 2) for v in remote_ms]} against a local fused frame "
+              f"{[round(v, 2) for v in local_ms]}; a fetch's round trip (median of "
+              f"{len(fetch_ms)}) {med(fetch_ms):.2f} ms; the wire {wire / 1e6:.3f} MB a "
+              f"frame (request {len(json.dumps(req_doc)) / 1e6:.3f}); pack / unpack ms: "
+              f"image {pack_ms['image']:.2f} / {unpack_ms['image']:.2f}, features "
+              f"{pack_ms['features']:.2f} / {unpack_ms['features']:.2f} [{card}]",
+              flush=True)
+
+        # fault run: the worker is kill -9'd at the first fetch
+        client.fetch = killing
+        fr = run(faulty, "fault")
+        lost = fr["moved"]["feature_tier.cold_frames"] + fr["moved"][
+            "feature_tier.fallback_frames"]
+        unresolved = [f for f in fr["futs"] if not f.done() or f.exception() is not None]
+        print(f"feature tier, fault run: the worker kill -9'd at the first fetch (exit "
+              f"{worker.returncode}); {len(faulty)} frames, engine counters "
+              f"{json.dumps(fr['moved'])}, client {json.dumps(client.counters())}; "
+              f"batches {fr['batches']}; the engine's launches "
+              f"{json.dumps(fr['launches'])}; unresolved or failed futures "
+              f"{len(unresolved)}; results differing from their programs "
+              f"{len(fr['mism'])} ({fr['wall']:.3f} s)", flush=True)
+        if (unresolved or lost != len(faulty) or fr["moved"]["feature_tier.remote_frames"]
+                or worker.returncode != -signal.SIGKILL):
+            fail(f"feature tier fault run: {len(unresolved)} futures unresolved or failed, "
+                 f"{lost} of {len(faulty)} counted local, counters {fr['moved']}")
+        if fr["launches"]["global_attn"] <= 0 or fr["launches"]["window_attn"] <= 0:
+            fail(f"feature tier fault run: the lost frames did not run the encoder here "
+                 f"({fr['launches']})")
+        if fr["mism"]:
+            fail(f"feature tier fault run: results differ from their programs "
+                 f"{fr['mism'][:4]}")
+        worker_launches = {k: sum(e["launches"].get(k, 0) for e in extracts)
+                           for k in ("global_attn", "window_attn")}
+        out.update(clean_s=cr["wall"], counters={"clean": cr["moved"],
+                                                  "fault": fr["moved"]},
+                   client=client.counters(), remote_ms=remote_ms, local_ms=local_ms,
+                   fetch_ms=med(fetch_ms), wire_mb=wire / 1e6, pack_ms=pack_ms,
+                   unpack_ms=unpack_ms, extract_ms=[e["ms"] for e in extracts],
+                   launches={"clean": cr["launches"], "fault": fr["launches"],
+                             "worker": worker_launches})
+    finally:
+        engine.close(timeout=SERVE_DRAIN_S)
+        client.close()
+    return out
+
+
+def check_stream_tier_path(torch, np, pred, card, modules, root: Path) -> dict:
+    """Phase 5j: stream sessions and the disaggregated feature tier on phase 4's
+    predictor. The feature worker's process starts first and boots while the streams
+    run. Returns the phase's record, with its launches summed (this process's and the
+    worker's) under ``launches``."""
+    from tmr_tpu_torch.serve import FeatureTier
+
+    (_build,) = modules
+    t0 = time.perf_counter()
+    tier = FeatureTier([SIZE_5J])
+    address = tier.start()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "feature_worker.log"
+        worker = start_tier_worker(root, address, log)
+
+        def wait_holder():
+            deadline = time.perf_counter() + TIER_WAIT_S
+            while tier.holder_for(SIZE_5J) is None or not worker_lines(log, "worker"):
+                if worker.poll() is not None or time.perf_counter() > deadline:
+                    fail(f"the feature worker did not take a lease (exit "
+                         f"{worker.poll()}): {log_tail(log)}")
+                time.sleep(0.1)
+            print(f"feature worker: holding its lease {time.perf_counter() - t0:.1f} s "
+                  f"after its start", flush=True)
+
+        try:
+            streams = check_streams(torch, np, pred, card, _build)
+            tiered = check_feature_tier(torch, np, pred, card, _build, worker, address,
+                                        log, tier, wait_holder)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+            worker.wait(timeout=60)
+            tier.close()
+    launches = {k: sum(run.get(k, 0) for run in (*streams["launches"].values(),
+                                                 *tiered["launches"].values()))
+                for k in ("global_attn", "window_attn", "xcorr", "nms")}
+    return {"streams": streams, "feature_tier": tiered, "launches": launches}
+
+
 @contextlib.contextmanager
 def swapped(module, name: str, value):
     saved = getattr(module, name)
@@ -6045,6 +6608,10 @@ def main(argv=None) -> int:
                               sum(times) / len(times), (_build,), args.profile)
     print(json.dumps({"serve": served}), flush=True)
     mark("5f")
+    # 5j. stream sessions and the feature tier on phase 4's predictor
+    streamed = check_stream_tier_path(torch, np, pred, card, (_build,), root)
+    print(json.dumps({"streams": streamed}), flush=True)
+    mark("5j")
     # 5i. the gallery tier and the demo on phase 4's predictor
     gallery = check_gallery_path(torch, np, pred, card, map_kit, (_build,))
     print(json.dumps({"gallery": gallery}), flush=True)
@@ -6101,6 +6668,8 @@ def main(argv=None) -> int:
         "int8_conv": ("tmr_tpu_torch/csrc/int8_mm.cu", "tmr_tpu/ops/pallas_int8.py:50"),
         "add1": ("tmr_tpu_torch/csrc/probe.cu", "scripts/gate_probe.py:84"),
     }
+    # phase 5j's launches (this process's and its feature worker's) counted in
+    launches = {k: v + streamed["launches"].get(k, 0) for k, v in launches.items()}
     path_launches = dict(launches, xcorr_int8=qlaunches["xcorr_int8"],
                          int8_mm=qlaunches["int8_mm"], int8_conv=qlaunches["int8_conv"],
                          add1=probe_launches, global_attn_1536=launches_1536,

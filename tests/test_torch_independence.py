@@ -132,6 +132,19 @@ def test_scan_covers_the_gallery_and_demo_modules(mod):
     assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
 
 
+@pytest.mark.parametrize("mod", ["serve/streams.py", "serve/feature_tier.py",
+                                 "serve/fleet.py", "serve/engine.py", "serve/gallery.py",
+                                 "serve/__init__.py"])
+def test_scan_covers_the_stream_and_feature_tier_modules(mod):
+    """Stream sessions, the feature tier, the fleet pieces it imports and the engine's
+    two hooks: each the port's own module, with no import of JAX, ``tmr_tpu``, ``tests``
+    or cv2 (the wire stays the JAX protocol through the port's own copy of it)."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert f"tmr_tpu_torch/{mod}" in names
+    roots = list(_imported_roots(PORT / mod))
+    assert not [n for n in roots if _forbidden(n) or n.split(".")[0] == "tests"]
+
+
 def test_demo_refuses_the_cpu_unless_asked(monkeypatch):
     from tmr_tpu_torch import demo
     from tmr_tpu_torch.config import Config

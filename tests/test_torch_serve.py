@@ -437,10 +437,26 @@ def test_submit_after_close_raises(pair):
     (dict(devices=["cpu", "cpu"]), "A7"),
     (dict(feature_client=object()), "A7"),
 ])
-def test_unported_options_are_refused_by_name(pair, kw, item):
-    _, pred, _ = pair
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ServeEngine(pred, **kw)
+def test_unported_options_are_refused_by_name(pair, engines, kw, item):
+    """Mesh serving and several devices stay refused (ROADMAP A7). ``feature_client=`` is
+    ported (``serve/feature_tier.py``; ``tests/test_torch_feature_tier.py``), so its case
+    holds what the JAX engine does with the argument: both engines take the object, and a
+    single-exemplar request asks it ``holds(size)``, so an object without that method
+    fails that request alone, with the same error in both packages."""
+    jpred, pred, _ = pair
+    if "feature_client" not in kw:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            ServeEngine(pred, **kw)
+        return
+    outs = []
+    for cls, p in ((JServeEngine, jpred), (ServeEngine, pred)):
+        eng = engines(cls, p, batch=1, max_wait_ms=5, **kw)
+        assert eng._feature_client is kw["feature_client"]
+        fut = eng.submit(_images(1)[0], EX_A)
+        with pytest.raises(AttributeError, match="holds") as err:
+            fut.result(timeout=WAIT_S)
+        outs.append((type(err.value), eng.counters["rejected"], eng.counters["submitted"]))
+    assert outs[0] == outs[1] == (AttributeError, 1, 0)
 
 
 def test_unported_methods_and_knobs_are_refused(pair, engines, monkeypatch):

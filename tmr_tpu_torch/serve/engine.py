@@ -31,14 +31,19 @@ Contracts:
   postprocess, resolve).
 
 ``attach_gallery`` / ``search_gallery`` serve a standing pattern bank
-(``serve/gallery.GalleryBank``) beside the request pipeline.
+(``serve/gallery.GalleryBank``) beside the request pipeline. Two hooks are ported from
+the JAX engine: ``submit(..., features=)``, which stream sessions (``serve/streams.py``)
+use to run a frame's heads on its anchor's features, and ``feature_client=``, the
+disaggregated feature tier (``serve/feature_tier.py``), whose remote features feed the
+heads-only programs; frames the tier cannot serve run locally, on the same device
+through the same programs, counted.
 
 Not ported, refused by name where the JAX engine has them: mesh serving (``mesh=``,
-``TMR_SERVE_MESH``, more than one device), the feature tier (``feature_client=``) and
-stream sessions (``submit``'s ``features=``), all ROADMAP A7; the live tuner (``attach_live_tuner``) and the measured
-batch bound, ROADMAP A8. ``aot=`` has no counterpart (no jit): ``warmup_buckets=`` runs
-each padded shape of each bucket once, which builds the kernels and lets cuDNN pick its
-algorithms. ``donate=True`` (XLA buffer donation) has no eager counterpart and raises.
+``TMR_SERVE_MESH``, more than one device), ROADMAP A7; the live tuner
+(``attach_live_tuner``) and the measured batch bound, ROADMAP A8. ``aot=`` has no
+counterpart (no jit): ``warmup_buckets=`` runs each padded shape of each bucket once,
+which builds the kernels and lets cuDNN pick its algorithms. ``donate=True`` (XLA buffer
+donation) has no eager counterpart and raises.
 """
 
 from __future__ import annotations
@@ -113,6 +118,13 @@ class ServeEngine:
     admission / degrade / watch: controllers (default: from their env knobs, off).
     warmup_buckets: ``Predictor.bucket_key`` tuples to run once per padded shape at
         construction.
+    feature_client: optional disaggregated match tier (``serve/feature_tier.py``): an
+        object with ``holds(size)`` and ``fetch(image, digest, size)``. Single-exemplar
+        requests whose size partition has a live feature worker run the heads-only
+        programs on remotely extracted features; frames with no holder, and rows whose
+        fetch fails, run locally on this engine's device, counted
+        (``feature_tier.cold_frames`` / ``feature_tier.fallback_frames``; the remote ones
+        ``feature_tier.remote_frames``), and their futures always resolve.
     """
 
     def __init__(self, predictor, *, batch: Optional[int] = None,
@@ -133,8 +145,6 @@ class ServeEngine:
         spec = os.environ.get("TMR_SERVE_MESH", "") if mesh is None else mesh
         if (spec or "").strip() not in ("", "0", "off", "none"):
             _refuse(f"mesh serving (mesh={spec!r} / TMR_SERVE_MESH)", "A7")
-        if feature_client is not None:
-            _refuse("the disaggregated feature tier (feature_client=)", "A7")
         if donate:
             raise ValueError("donate=True: XLA buffer donation has no eager counterpart")
         self._pred = predictor
@@ -169,8 +179,13 @@ class ServeEngine:
         # image digests seen once: the second sighting promotes the image into the
         # feature cache (cold traffic stays on the fused path)
         self._seen = LRUCache(max(4 * self.feature_cache.capacity, 16))
-        #: feature-cache key provenance: (weights digest, backbone formulation)
-        self._feat_stamp = tuple(predictor.feature_stamp())
+        #: feature-cache key provenance: (weights digest, backbone formulation); a
+        #: predictor without the stamp keys on the image alone, as in the JAX engine
+        fstamp = getattr(predictor, "feature_stamp", None)
+        self._feat_stamp = tuple(fstamp()) if callable(fstamp) else ()
+        #: the disaggregated match tier (serve/feature_tier.py); None keeps every routing
+        #: decision as before
+        self._feature_client = feature_client
 
         self._batch_bounds: Dict[int, int] = {}
         self._lock = threading.Lock()
@@ -307,7 +322,8 @@ class ServeEngine:
     # -------------------------------------------------------------- submit
     def submit(self, image, exemplars, multi: bool = False,
                k_real: Optional[int] = None, priority: int = 0,
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None,
+               features: Optional[Any] = None) -> Future:
         """Enqueue one request; returns a Future resolving to the fixed-slot detections
         dict (numpy, leading dim 1; treat it as read-only, results may be shared with
         the cache).
@@ -319,6 +335,13 @@ class ServeEngine:
         "deadline"). None -> ``TMR_SERVE_DEADLINE_MS`` (unset = no deadline). Identical
         concurrent requests coalesce into one group that inherits the earliest deadline
         and the highest class of its riders.
+
+        ``features`` is the stream sessions' reuse hook (``serve/streams.py``): this
+        frame's precomputed (1, h, w, C) encoder features (an array or a tensor, moved to
+        the engine's device). The request skips the encoder (the heads-only program), and
+        its result, cache entry included, carries ``degrade_steps: ["temporal_reuse"]``
+        under a result-cache key of its own, so a reused answer is never served to a
+        frame-independent query. Single-exemplar requests only.
 
         A request that cannot be served (bad shapes, an exemplar needing a template
         bucket beyond cfg.template_buckets, ...) fails only its own future; a request
@@ -337,7 +360,7 @@ class ServeEngine:
         with obs.span("serve.submit", trace_id=tid or None):
             try:
                 req = self._make_request(image, exemplars, multi, k_real, fut, tid,
-                                         priority, deadline_ms)
+                                         priority, deadline_ms, features)
             except Exception as e:  # isolation: reject this request alone
                 self._admission.release_class(priority)
                 self._m["rejected"].inc()
@@ -363,8 +386,8 @@ class ServeEngine:
         return self.submit(image, exemplars, **kw).result()
 
     def _make_request(self, image, exemplars, multi, k_real, fut, trace_id: str = "",
-                      priority: int = 0, deadline_ms: Optional[float] = None
-                      ) -> Optional[Request]:
+                      priority: int = 0, deadline_ms: Optional[float] = None,
+                      features: Optional[Any] = None) -> Optional[Request]:
         image = np.asarray(image, np.float32)
         if image.ndim == 4 and image.shape[0] == 1:
             image = image[0]
@@ -379,6 +402,13 @@ class ServeEngine:
         # result-cache key describes exactly what ran
         steps = self._degrade.active_steps()
         applied = []
+        if features is not None:
+            if multi:
+                raise ValueError("features= (temporal reuse) supports single-exemplar "
+                                 "requests only")
+            # temporal reuse: keyed and counted like a degrade step before the cache
+            # lookup, so a reused result lives under a cache/coalesce key of its own
+            applied.append("temporal_reuse")
         if "downscale" in steps and size // 2 >= self._degrade.min_size:
             image = downscale_image(image)
             size = int(image.shape[0])
@@ -417,11 +447,28 @@ class ServeEngine:
                       priority=max(int(priority), 0))
         if deadline_ms is not None:
             req.deadline = req.t_submit + deadline_ms / 1000.0
-        if not multi and self.feature_cache.capacity > 0:
-            feat = self.feature_cache.get(self._feature_key(digest, size))
+        client = self._feature_client
+        if features is not None:
+            # stream-session reuse: the caller supplies this frame's features, and the
+            # request skips the encoder
+            req.features = torch.as_tensor(features, device=self.device)
+            req.bucket = ("heads",) + bucket[1:]
+        elif not multi and (self.feature_cache.capacity > 0 or client is not None):
+            feat = (self.feature_cache.get(self._feature_key(digest, size))
+                    if self.feature_cache.capacity > 0 else None)
             if feat is not None:
                 req.features = feat
                 req.bucket = ("heads",) + bucket[1:]
+            elif client is not None and client.holds(size):
+                # a live feature worker holds this size's partition: heads-only, the
+                # fetch happens batch-side (_run_heads)
+                req.needs_features = True
+                req.bucket = ("heads",) + bucket[1:]
+            elif client is not None:
+                # no holder: this cold frame stays on the local fused path, counted
+                self._count("feature_tier.cold_frames")
+                if self.feature_cache.capacity > 0:
+                    self._seen.put((digest, size), True)
             elif (digest, size) in self._seen:
                 req.needs_features = True
                 req.bucket = ("heads",) + bucket[1:]
@@ -560,13 +607,33 @@ class ServeEngine:
     def _run_heads(self, staged: StagedBatch, size: int, cap: int):
         self._m["heads_batches"].inc()
         fill_map: Dict[int, torch.Tensor] = {}
-        if staged.fill_index:
+        fill_local = list(staged.fill_index)
+        if fill_local and self._feature_client is not None:
+            # the disaggregated match tier: each fill row's features from the remote
+            # worker; a row whose fetch fails (dead worker, saturated window) drops to the
+            # local encoder below, counted, and its future still resolves
+            still = []
+            for i in fill_local:
+                req = staged.requests[i]
+                try:
+                    feat = self._feature_client.fetch(req.image, req.image_digest, size)
+                except Exception:
+                    feat = None
+                if feat is None:
+                    still.append(i)
+                    self._count("feature_tier.fallback_frames")
+                else:
+                    fill_map[i] = torch.as_tensor(feat, device=self.device)
+                    self._count("feature_tier.remote_frames")
+            fill_local = still
+        if fill_local:
             feats = self._pred._get_backbone_fn()(staged.images)
-            self._m["feature_fills"].inc(len(staged.fill_index))
+            self._m["feature_fills"].inc(len(fill_local))
             # a clone per row: a view would keep the whole batch's features alive in
             # the cache, and its bytes would not be the row's
             for j, i in enumerate(staged.fill_index):
-                fill_map[i] = feats[j:j + 1].clone()
+                if i in fill_local:
+                    fill_map[i] = feats[j:j + 1].clone()
         rows = [fill_map.get(i, staged.features[i]) for i in range(len(staged.requests))]
         pad = staged.exemplars.shape[0] - len(rows)
         rows.extend([torch.zeros_like(rows[0])] * pad)

@@ -739,19 +739,24 @@ class FeatureSinkServer:
     - ``{"op": "evict", "shard": s}`` -> ack; drops the shard's features;
     - ``{"op": "bye"}`` -> ack, and the connection closes.
 
-    Any successful round trip resets the connection's accounting window, so an error
-    fails the attempt that streamed it and no later one. ``index`` is any
-    :class:`LRUCache`-shaped store keyed ``(shard stem, image stem)``;
-    ``on_feature(shard, name, array)`` is an optional push hook. (The JAX server's
-    ``on_request``, the feature tier's request/response ops, comes with that tier, ROADMAP
-    A7.4.)
+    Any successful round trip (sync, evict, hello, an ``on_request`` op) resets the
+    connection's accounting window, so an error fails the attempt that streamed it and no
+    later one. ``index`` is any :class:`LRUCache`-shaped store keyed ``(shard stem, image
+    stem)``; ``on_feature(shard, name, array)`` is an optional push hook.
+    ``on_request(doc, state)`` makes the sink an online request/response link (ported: the
+    feature tier's data plane, ``serve/feature_tier.py``, composes it): an op the table
+    above does not know goes to it, and its reply (carrying ``"ok"``) is sent back on the
+    same connection and closes the window like any ack; an exception becomes a counted
+    ``ok: false`` reply, and None falls through to the unknown-op error. Backpressure is
+    the caller's side: a client keeps a bounded in-flight window and fails fast.
     """
 
     def __init__(self, index: Optional[LRUCache] = None, *, host: str = "127.0.0.1",
                  port: int = 0, max_entries: int = 4096, max_bytes: Optional[int] = None,
-                 on_feature=None):
+                 on_feature=None, on_request=None):
         self.index = LRUCache(max_entries, max_bytes=max_bytes) if index is None else index
         self._on_feature = on_feature
+        self._on_request = on_request
         self._lock = threading.Lock()
         self._host, self._port = host, int(port)
         self._server: Optional[_SinkServer] = None
@@ -858,4 +863,16 @@ class FeatureSinkServer:
             return self._ack(state, {"op": "hello", "ok": True})
         if op == "bye":
             return self._ack(state, {"op": "bye", "ok": True})
+        if self._on_request is not None:
+            # online ops go to the composing server; its successful replies close the
+            # window like any other ack
+            try:
+                reply = self._on_request(doc, state)
+            except Exception as e:
+                state["errors"] += 1
+                with self._lock:
+                    self._counters["errors"] += 1
+                return {"op": op, "ok": False, "error": f"{type(e).__name__}: {e}"}
+            if reply is not None:
+                return self._ack(state, reply)
         return {"ok": False, "error": f"unknown op {op!r}"}
